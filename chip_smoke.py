@@ -3,22 +3,34 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
   1. card    — name and power limit (nvidia-smi), torch's device name/count
-  2. build   — compile every kernel of the serving path from
+  2. build   — compile every kernel of the serving and training paths from
                singa_tpu_torch/csrc (nvcc, sm_90a), and each planted fault
                from a copy of its source in a temporary directory, all in
                parallel; show ptxas's register / shared-memory report
   3. kernels — each kernel against its plain PyTorch version on the card,
                over the cases and limits of singa_tpu_torch/kernel_check.py
+               (the backward also with a nonzero lse cotangent)
   4. faults  — each planted fault must fail those limits on its case
   5. slice   — Llama(LlamaConfig.base()).generate() at B=4, P=1024, N=32,
-               bf16 weights: the flash kernel must launch once per layer per
-               call; prefill logits with the kernel vs with its plain
-               version; prefill ms, decode ms/token, tokens/s, peak memory
-  6. timing  — the kernel, its plain version and PyTorch's
-               scaled_dot_product_attention (a yardstick the port never
-               calls) at the slice's shape, beside the card's bound
+               bf16 weights: the flash forward must launch once per layer
+               per call; prefill logits with the kernel vs with its plain
+               version; prefill ms, decode ms/token, tokens/s, peak memory;
+               then a profile of one call
+  6. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+               momentum=0.9): set_optimizer, compile, train_step at B=8 x
+               T=1024 on a fixed batch, 2 warm-up and 10 timed steps; the
+               forward, dQ and dK/dV kernels must each launch once per
+               layer per step; losses finite and falling; one step's loss
+               and gradients with the kernels vs with their plain
+               versions; step ms, tokens/s, MFU, peak memory; then a
+               profile of one step
+  7. timing  — each kernel, its plain version and the PyTorch call that
+               computes the same function (scaled_dot_product_attention
+               and its gradient: yardsticks the port never calls) at the
+               training shape, beside the card's bound; the forward also
+               at the prefill shape
 Then one {"kernels": [...]} line and, last, the device line.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
@@ -45,6 +57,19 @@ PEAK_BYTES_PER_S = 3.35e12
 LOGIT_RTOL = 5e-2
 
 B, P, N = 4, 1024, 32
+
+# training: B=8 x T=1024 token ids, 2 warm-up steps then 10 timed ones
+TB, TT = 8, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# the parameters whose gradients are held kernel vs plain
+GRAD_NAMES = ("tok_emb.table", "blocks.0.attn.q_proj.W",
+              "blocks.15.attn.k_proj.W", "lm_head.W")
+# one step's loss and those gradients with the kernels vs with their
+# plain versions, relative (gradients by Frobenius norm).  Readings
+# (PERF.md): loss 3.6e-6, gradients 0.93e-2 to 1.97e-2 -- bf16 roundings
+# that fall the other way in 16 layers of activations, as LOGIT_RTOL
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 5e-2
 
 
 def emit(obj):
@@ -86,24 +111,35 @@ def phase_card():
 
 
 def phase_build(tmp):
-    """Build the kernel and, from copies of its source in `tmp`, each of
-    its planted faults: one nvcc per source, all started together."""
+    """Build the kernels and, from copies of their sources in `tmp`, each
+    planted fault: one nvcc per source, all started together."""
     from singa_tpu_torch import _build, kernel_check
-    srcs = [_build.source_path("flash_fwd")]
-    for name in kernel_check.FLASH_FAULTS:
+    kernels = ("flash_fwd", "flash_bwd")
+    faults = [(n, kernel_check.flash_fault_source(n))
+              for n in kernel_check.FLASH_FAULTS]
+    faults += [(n, kernel_check.flash_bwd_fault_source(n))
+               for n in kernel_check.FLASH_BWD_FAULTS]
+    srcs = [_build.source_path(k) for k in kernels]
+    for name, text in faults:
         srcs.append(tmp / f"{name}.cu")
-        srcs[-1].write_text(kernel_check.flash_fault_source(name))
+        srcs[-1].write_text(text)
     t0 = time.perf_counter()
     built = _build.build(srcs)
-    ptxas = [ln.strip() for ln in built[0].log.splitlines()
-             if "registers" in ln or "spill" in ln
-             or "Compiling entry function" in ln]
-    emit({"phase": "build", "kernel": "flash_fwd",
-          "source": "singa_tpu_torch/csrc/flash_fwd.cu",
-          "nvcc_seconds": {b.path.name: round(b.seconds, 2) for b in built},
-          "wall_seconds": round(time.perf_counter() - t0, 2),
-          "ptxas": ptxas})
-    return dict(zip(kernel_check.FLASH_FAULTS, (b.lib for b in built[1:])))
+    for kernel, b in zip(kernels, built):
+        ptxas = [ln.strip() for ln in b.log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry function" in ln]
+        emit({"phase": "build", "kernel": kernel,
+              "source": f"singa_tpu_torch/csrc/{kernel}.cu",
+              "ptxas": ptxas})
+    emit({"phase": "build", "nvcc_seconds": {b.path.name: round(b.seconds, 2)
+                                             for b in built},
+          "wall_seconds": round(time.perf_counter() - t0, 2)})
+    return {name: b.lib for (name, _), b in zip(faults, built[2:])}
+
+
+# the case that also carries a nonzero lse cotangent (folded into delta)
+DLSE_CASE = "gqa_causal_d128"
 
 
 def phase_kernels():
@@ -112,40 +148,59 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         for label in kernel_check.FLASH_CASES:
             errs = kernel_check.check_flash(label, dtype)
-            results.append({"case": label, "dtype": str(dtype)[6:], **errs})
-    emit({"phase": "kernels", "cases": results})
-    bad = [r["case"] + "/" + r["dtype"] for r in results if not r["ok"]]
-    check(not bad, f"flash kernel disagrees with its plain version: {bad}")
-    return {r["dtype"]: r for r in results if r["case"] == "slice"}
+            results.append({"kernel": "flash_fwd", "case": label,
+                            "dtype": str(dtype)[6:], **errs})
+    for dtype in (torch.float32, torch.bfloat16):
+        for label in kernel_check.FLASH_CASES:
+            errs = kernel_check.check_flash_bwd(label, dtype)
+            results.append({"kernel": "flash_bwd", "case": label,
+                            "dtype": str(dtype)[6:], **errs})
+        errs = kernel_check.check_flash_bwd(DLSE_CASE, dtype, dlse=True)
+        results.append({"kernel": "flash_bwd", "case": DLSE_CASE + "+dlse",
+                        "dtype": str(dtype)[6:], **errs})
+    for r in results:
+        emit({"phase": "kernels", **r})
+    bad = [f"{r['kernel']}:{r['case']}/{r['dtype']}" for r in results
+           if not r["ok"]]
+    check(not bad, f"kernels disagree with their plain versions: {bad}")
+    return {(r["kernel"], r["dtype"]): r for r in results
+            if r["case"] == "slice"}
 
 
 def phase_faults(libs):
-    """Each planted fault, built from a copy of the kernel's source, must
+    """Each planted fault, built from a copy of a kernel's source, must
     fail the limits that the kernel passes."""
     from singa_tpu_torch import kernel_check
     results = []
     for name, lib in libs.items():
-        label = kernel_check.FLASH_FAULTS[name][0]
-        with kernel_check.flash_kernel(lib):
-            errs = kernel_check.check_flash(label, torch.bfloat16)
+        if name in kernel_check.FLASH_FAULTS:
+            label = kernel_check.FLASH_FAULTS[name][0]
+            with kernel_check.flash_kernel(lib):
+                errs = kernel_check.check_flash(label, torch.bfloat16)
+        else:
+            label = kernel_check.FLASH_BWD_FAULTS[name][0]
+            with kernel_check.flash_bwd_kernel(lib):
+                errs = kernel_check.check_flash_bwd(label, torch.bfloat16)
         results.append({"fault": name, "case": label, "dtype": "bfloat16",
                         **errs, "caught": not errs["ok"]})
     emit({"phase": "faults", "faults": results})
     missed = [r["fault"] for r in results if not r["caught"]]
-    check(not missed, f"planted faults pass the kernel's limits: {missed}")
+    check(not missed, f"planted faults pass the kernels' limits: {missed}")
 
 
 class plain_attention:
-    """Route the flash wrapper to its plain version for a comparison run
-    (the serving path itself never does this)."""
+    """Route the flash wrappers, forward and backward, to their plain
+    versions for a comparison run (the main paths never do this)."""
 
     def __enter__(self):
         from singa_tpu_torch.ops import flash_attention as fa
-        self.fa, self.saved = fa, fa._flash_fwd_cuda
+        self.fa = fa
+        self.saved = fa._flash_fwd_cuda, fa._flash_bwd_cuda
         fa._flash_fwd_cuda = fa._flash_fwd_reference
+        fa._flash_bwd_cuda = fa._flash_bwd_reference
 
     def __exit__(self, *exc):
-        self.fa._flash_fwd_cuda = self.saved
+        self.fa._flash_fwd_cuda, self.fa._flash_bwd_cuda = self.saved
 
 
 def phase_slice():
@@ -228,24 +283,125 @@ def phase_slice():
     check(np.isfinite(lg_kernel.cpu().numpy()).all(), "non-finite logits")
     check(dlogit <= LOGIT_RTOL * ref_max,
           f"prefill logits differ by {dlogit} (max |logit| {ref_max})")
-    phase_profile(lambda: m.generate(prompts, **kw))
+    phase_profile(lambda: m.generate(prompts, **kw),
+                  f"one generate call, B={B} P={P} N={N}")
+    return launches
+
+
+def _loss_and_grads(m, ids):
+    """One step's loss and the gradients of GRAD_NAMES, without an
+    update (the path of train_one_batch up to the optimizer)."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.models.transformer import next_token_loss_fused
+    x = torch.as_tensor(ids, device="cuda")
+    params = m.get_params()
+    names = {id(p): n for n, p in params.items()}
+    with autograd.train_mode():
+        loss = next_token_loss_fused(m.features(x), m.lm_head, x,
+                                     chunk_rows=m.cfg.fused_loss_chunk)
+        grads = {names[id(p)]: g for p, g in autograd.backward(loss)
+                 if names[id(p)] in GRAD_NAMES}
+    for p in params.values():
+        p.grad = None
+    return loss.item(), grads
+
+
+def phase_train():
+    """LlamaConfig.base() training through the user's entry points:
+    set_optimizer, compile, train_step, at B=8 x T=1024 on a fixed
+    batch, bf16 activations over f32 masters."""
+    import dataclasses
+
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.models import Llama, LlamaConfig
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    dev = device.create_device("cuda")
+    cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True)
+    m = Llama(cfg, device=dev,
+              generator=torch.Generator("cuda").manual_seed(0))
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TB, TT)).astype(np.int32)
+
+    # the same step on the same weights, with the kernels and with their
+    # plain versions
+    loss_k, g_k = _loss_and_grads(m, ids)
+    with plain_attention():
+        loss_p, g_p = _loss_and_grads(m, ids)
+    grad_rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm()).item()
+                for n in GRAD_NAMES}
+    del g_k, g_p
+
+    m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+    m.compile([ids], is_train=True, use_graph=True)
+    losses = [m.train_step(ids)[1].item() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the main path
+    times, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        t0 = time.perf_counter()
+        _, loss = m.train_step(ids)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append([a - b for a, b in zip(
+            (fa.launches, fa.dq_launches, fa.dkv_launches), before)])
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times)[len(times) // 2]
+    flops = m.flops_per_token(TT) * TB * TT
+    result = {
+        "phase": "train", "config": "LlamaConfig.base(), fused_loss=True",
+        "optimizer": "SGD(lr=0.01, momentum=0.9)", "params": m.num_params(),
+        "B": TB, "T": TT, "warmup_steps": TRAIN_WARMUP,
+        "timed_steps": TRAIN_STEPS, "step_ms": [t * 1e3 for t in times],
+        "median_step_ms": step_s * 1e3, "tokens_per_s": TB * TT / step_s,
+        "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_bytes": peak, "losses": losses,
+        "launches": launches, "launches_per_step": per_step,
+        "expected_per_step": cfg.num_layers,
+        "kernel_vs_plain": {"loss": loss_k, "loss_plain": loss_p,
+                            "loss_rel_diff": abs(loss_k - loss_p)
+                            / abs(loss_p), "loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad_rel_diff": grad_rel,
+                            "grad_rtol": TRAIN_GRAD_RTOL},
+    }
+    emit(result)
+    check(all(s == [cfg.num_layers] * 3 for s in per_step),
+          f"flash kernels launched {per_step} times per step, expected "
+          f"{cfg.num_layers} each")
+    check(np.isfinite(losses).all(), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(p.dtype == torch.float32 for p in m.get_params().values()),
+          "masters are not f32")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
+          f"loss with the kernels {loss_k} vs plain {loss_p}")
+    bad = {n: r for n, r in grad_rel.items() if not r <= TRAIN_GRAD_RTOL}
+    check(not bad, f"gradients with the kernels differ from plain: {bad}")
+    phase_profile(lambda: m.train_step(ids),
+                  f"one train step, B={TB} T={TT}")
     return launches
 
 
 def _kernel_kind(name):
     low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd"
+    for kind in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"):
+        if kind + "_" in low:
+            return kind
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "xmma", "gemv")):
         return "matmul"
     return "other"
 
 
-def phase_profile(fn):
-    """Where one generate call's time goes on the card: device time of
-    every kernel under torch.profiler, by kind, against the wall time
-    of the same (profiled) call.  Informational: a profiler that records
-    no device time reports "not measured" instead of failing the run."""
+def phase_profile(fn, what):
+    """Where one call's time goes on the card: device time of every
+    kernel under torch.profiler, by kind, against the wall time of the
+    same (profiled) call.  Informational: a profiler that records no
+    device time reports "not measured" instead of failing the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -267,7 +423,7 @@ def phase_profile(fn):
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    emit({"phase": "profile", "what": "one generate call, B=4 P=1024 N=32",
+    emit({"phase": "profile", "what": what,
           "wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms if busy_ms else "not measured",
           "device_busy_share": busy_ms / wall_ms if busy_ms
@@ -277,51 +433,112 @@ def phase_profile(fn):
                           for k, v in top]})
 
 
-def phase_timing(slice_err):
+def _bound(flops, nbytes):
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_timing(errs):
+    """Each kernel, its plain version and the PyTorch call computing the
+    same function (a yardstick the port never calls), beside the card's
+    bound, at the training shape; the forward also at the prefill
+    shape."""
     import torch.nn.functional as F
     from singa_tpu_torch import kernel_check
     from singa_tpu_torch.ops import flash_attention as fa
 
     h, k, d = 16, 8, 128
     dtype = torch.bfloat16
-    q, kk, v = kernel_check.make_qkv(B, P, P, h, k, d, dtype, seed=1)
     scale = 1.0 / d ** 0.5
-    ms = cuda_time_ms(lambda: fa._flash_fwd_cuda(q, kk, v, True, scale))
-    plain_ms = cuda_time_ms(
-        lambda: fa._flash_fwd_reference(q, kk, v, True, scale), iters=10)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    try:
-        library_ms = cuda_time_ms(library)
-    except (TypeError, RuntimeError) as e:        # no enable_gqa in torch
-        print(f"library yardstick unavailable: {e}", file=sys.stderr)
-        library_ms = None
+    def library(fn):
+        try:
+            return cuda_time_ms(fn)
+        except (TypeError, RuntimeError) as e:    # no enable_gqa in torch
+            print(f"library yardstick unavailable: {e}", file=sys.stderr)
+            return None
 
-    pairs = P * (P + 1) // 2                      # causal (q, k) pairs
-    flops = 4 * B * h * d * pairs                 # QK^T and P V
-    nbytes = (q.numel() + kk.numel() + v.numel() + q.numel()) \
-        * q.element_size() + B * h * P * 4        # + lse
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    res = {"phase": "timing", "shape": [B, P, h, k, d], "dtype": "bfloat16",
-           "causal": True, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "flops": flops, "bytes": nbytes,
-           "bound_ms": bound_ms,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "share_of_bound": bound_ms / ms,
-           "max_abs_err": slice_err}
-    emit(res)
-    return res
+    rows = []
+    for b, shape in ((B, "prefill"), (TB, "train")):
+        q, kk, v = kernel_check.make_qkv(b, P, P, h, k, d, dtype, seed=1)
+        pairs = P * (P + 1) // 2                  # causal (q, k) pairs
+        t_bytes = q.numel() * q.element_size()    # one (B, T, H, D) tensor
+        kv_bytes = kk.numel() * kk.element_size()
+        row_bytes = b * h * P * 4                 # one (B, H, T) f32
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        rows.append({
+            "name": "flash_fwd", "shape": shape,
+            "ms": cuda_time_ms(lambda: fa._flash_fwd_cuda(q, kk, v, True,
+                                                          scale)),
+            "plain_ms": cuda_time_ms(
+                lambda: fa._flash_fwd_reference(q, kk, v, True, scale),
+                iters=10),
+            "library_ms": library(sdpa),
+            **_bound(4 * b * h * d * pairs,
+                     2 * t_bytes + 2 * kv_bytes + row_bytes)})
+        if shape != "train":
+            continue
+        g = torch.Generator("cuda").manual_seed(2)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        o, lse = fa._flash_fwd_cuda(q, kk, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+        args = (q, kk, v, do, lse, delta.contiguous(), True, scale)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(og, (qg, kg, vg), dot,
+                                       retain_graph=True)
+        lib_bwd = library(sdpa_bwd)
+        rows.append({
+            "name": "flash_bwd_dq", "shape": shape,
+            "ms": cuda_time_ms(lambda: fa._launch_dq(*args)),
+            "plain_ms": cuda_time_ms(lambda: fa._bwd_dq_reference(*args),
+                                     iters=10),
+            "library_ms": lib_bwd,
+            **_bound(6 * b * h * d * pairs,
+                     3 * t_bytes + 2 * kv_bytes + 2 * row_bytes)})
+        rows.append({
+            "name": "flash_bwd_dkv", "shape": shape,
+            "ms": cuda_time_ms(lambda: fa._launch_dkv(*args)),
+            "plain_ms": cuda_time_ms(lambda: fa._bwd_dkv_reference(*args),
+                                     iters=10),
+            "library_ms": lib_bwd,
+            **_bound(8 * b * h * d * pairs,
+                     2 * t_bytes + 4 * kv_bytes + 2 * row_bytes)})
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["max_abs_err"] = errs[r["name"]]
+        emit({"phase": "timing", "dims": [B if r["shape"] == "prefill"
+                                          else TB, P, h, k, d],
+              "dtype": "bfloat16", "causal": True, **r})
+    return rows
+
+
+# each kernel: its source and the TPU kernel it replaces
+KERNELS = {
+    "flash_fwd": ("singa_tpu_torch/csrc/flash_fwd.cu",
+                  "singa_tpu/ops/flash_attention.py:59"),
+    "flash_bwd_dq": ("singa_tpu_torch/csrc/flash_bwd.cu",
+                     "singa_tpu/ops/flash_attention.py:116"),
+    "flash_bwd_dkv": ("singa_tpu_torch/csrc/flash_bwd.cu",
+                      "singa_tpu/ops/flash_attention.py:159"),
+}
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; the port's serving "
-              "path needs a card", file=sys.stderr)
+              "and training paths need a card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -329,17 +546,31 @@ def main():
     name = phase_card()
     with tempfile.TemporaryDirectory() as tmp:
         faults = phase_build(Path(tmp))
-        slice_case = phase_kernels()["bfloat16"]
+        slices = phase_kernels()
         phase_faults(faults)
-    launches = phase_slice()
-    t = phase_timing(slice_case["max_abs_do"])
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "singa_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "singa_tpu/ops/flash_attention.py:59",
-        "launches": launches, "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]})
+    gen_launches = phase_slice()
+    train_launches = phase_train()
+    fwd, bwd = slices[("flash_fwd", "bfloat16")], \
+        slices[("flash_bwd", "bfloat16")]
+    rows = phase_timing({
+        "flash_fwd": fwd["max_abs_do"], "flash_bwd_dq": bwd["max_abs_dq"],
+        "flash_bwd_dkv": max(bwd["max_abs_dk"], bwd["max_abs_dv"])})
+    kernels = []
+    for r in rows:
+        if r["shape"] != "train":
+            continue
+        source, replaces = KERNELS[r["name"]]
+        by_path = {"train": train_launches[r["name"]]}
+        if r["name"] == "flash_fwd":
+            by_path["generate"] = gen_launches
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[r["name"]],
+            "launches_by_path": by_path, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

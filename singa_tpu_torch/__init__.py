@@ -22,7 +22,8 @@ from . import device
 from . import autograd
 from . import layer
 from . import model
+from . import opt
 from . import ops
 from . import models
 
-__all__ = ["device", "autograd", "layer", "model", "ops", "models"]
+__all__ = ["device", "autograd", "layer", "model", "opt", "ops", "models"]

@@ -18,7 +18,10 @@ from .ops import flash_attention as fa
 
 __all__ = ["FLASH_CASES", "FLASH_FAULTS", "O_ROW_RTOL", "LSE_ATOL",
            "make_qkv", "flash_errors", "check_flash", "flash_fault_source",
-           "flash_kernel"]
+           "flash_kernel", "FLASH_BWD_FAULTS", "GRAD_ROW_RTOL", "ROW_FLOOR",
+           "flash_bwd_errors", "bwd_inputs", "check_flash_bwd",
+           "flash_bwd_fault_source",
+           "flash_bwd_kernel"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, and the slice's
@@ -100,14 +103,18 @@ def check_flash(label, dtype):
     return flash_errors(o, lse, ro, rl, dtype)
 
 
-def flash_fault_source(name) -> str:
-    """csrc/flash_fwd.cu with planted fault `name`."""
-    _, old, new = FLASH_FAULTS[name]
-    src = _build.source_path("flash_fwd").read_text()
+def _fault_source(kernel, faults, name) -> str:
+    _, old, new = faults[name]
+    src = _build.source_path(kernel).read_text()
     if src.count(old) != 1:
         raise ValueError(f"planted fault {name}: the text it replaces is "
-                         f"not once in flash_fwd.cu; update FLASH_FAULTS")
+                         f"not once in {kernel}.cu; update the fault table")
     return src.replace(old, new)
+
+
+def flash_fault_source(name) -> str:
+    """csrc/flash_fwd.cu with planted fault `name`."""
+    return _fault_source("flash_fwd", FLASH_FAULTS, name)
 
 
 @contextlib.contextmanager
@@ -120,3 +127,98 @@ def flash_kernel(lib):
         yield
     finally:
         fa._fn = saved
+
+
+# -- the backward kernels (csrc/flash_bwd.cu) ---------------------------------
+
+# Limits (readings in PERF.md).  Each of dq, dk, dv is held by the largest
+# relative error of one row (2-norm over the head dim), where a row's
+# norm is floored at ROW_FLOOR times the root-mean-square row norm of
+# the plain result: rows whose plain gradient is near zero are held by
+# absolute error instead.  f32 differs from the plain version in
+# summation order only; bf16 also in bf16 roundings of P and dS that
+# fall the other way when a score differs in its last bit, and in the
+# final rounding of the outputs.
+GRAD_ROW_RTOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
+ROW_FLOOR = 0.1
+
+# name: (case, text of csrc/flash_bwd.cu, its faulty replacement); each
+# plants the fault in the bf16 kernels, which the faults phase runs
+FLASH_BWD_FAULTS = {
+    # dQ forgets delta: ds = p * dp * scale
+    "dq_drops_delta": (
+        "gqa_causal_d128",
+        "s[j][e] = pe * (dp[j][e] - dlt[r]) * p.scale;",
+        "s[j][e] = pe * dp[j][e] * p.scale;"),
+    # dK/dV sums only G - 1 of each group's query heads
+    "dkv_skips_last_head": (
+        "gqa_causal_d128",
+        "for (int gi = 0; gi < G; ++gi) {",
+        "for (int gi = 0; gi < G - 1; ++gi) {"),
+    # dK/dV's causal test drops the diagonal
+    "dkv_causal_strict": (
+        "slice",
+        "(!p.causal || qpos >= kj)",
+        "(!p.causal || qpos > kj)"),
+}
+
+
+def _row_error(x, ref) -> float:
+    d = (x.float() - ref.float()).norm(dim=-1)
+    n = ref.float().norm(dim=-1)
+    floor = ROW_FLOOR * n.square().mean().sqrt()
+    return (d / torch.maximum(n, floor)).max().item()
+
+
+def flash_bwd_errors(grads, ref_grads, dtype):
+    """Errors of (dq, dk, dv) against the plain version's, and whether
+    they are within the limits for `dtype`."""
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        errs[f"max_row_rel_{name}"] = _row_error(g, r)
+        errs[f"max_abs_{name}"] = (g.float() - r.float()).abs().max().item()
+    worst = max(errs[f"max_row_rel_{n}"] for n in ("dq", "dk", "dv"))
+    return {**errs, "rtol_grad": GRAD_ROW_RTOL[dtype],
+            "row_floor": ROW_FLOOR, "ok": worst <= GRAD_ROW_RTOL[dtype]}
+
+
+def bwd_inputs(label, dtype, dlse=False):
+    """q, k, v, do, lse, delta on the card for case `label`: o and lse
+    from the forward's plain version, delta = rowsum(do o) - dlse."""
+    b, tq, tk, h, k, d, causal, window = FLASH_CASES[label]
+    q, kk, v = make_qkv(b, tq, tk, h, k, d, dtype, seed=len(label))
+    g = torch.Generator("cuda").manual_seed(len(label) + 100)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_reference(q, kk, v, causal, scale, window)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    if dlse:
+        delta = delta - torch.randn(lse.shape, generator=g, device="cuda")
+    return q, kk, v, do, lse, delta.contiguous(), causal, scale, window
+
+
+def check_flash_bwd(label, dtype, dlse=False):
+    """Launch the two backward kernels once on case `label` (with a
+    nonzero lse cotangent folded into delta when `dlse`) and hold them
+    against their plain version on the same inputs."""
+    args = bwd_inputs(label, dtype, dlse)
+    grads = fa._flash_bwd_cuda(*args)
+    ref = fa._flash_bwd_reference(*args)
+    return flash_bwd_errors(grads, ref, dtype)
+
+
+def flash_bwd_fault_source(name) -> str:
+    """csrc/flash_bwd.cu with planted fault `name`."""
+    return _fault_source("flash_bwd", FLASH_BWD_FAULTS, name)
+
+
+@contextlib.contextmanager
+def flash_bwd_kernel(lib):
+    """Launch the backward kernels of `lib` (a loaded library) in place
+    of the built ones."""
+    saved = fa._dq_fn, fa._dkv_fn
+    fa._dq_fn, fa._dkv_fn = fa.bind_bwd(lib)
+    try:
+        yield
+    finally:
+        fa._dq_fn, fa._dkv_fn = saved

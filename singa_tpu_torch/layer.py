@@ -31,8 +31,13 @@ class Layer(nn.Module):
         self.device = device or get_default_device()
 
     def get_params(self) -> Dict[str, torch.Tensor]:
-        """Parameters keyed by attribute path (e.g. ``blocks.0.attn.q_proj.W``)."""
-        return dict(self.named_parameters())
+        """Parameters keyed by attribute path (e.g. ``blocks.0.attn.q_proj.W``);
+        each parameter records its path as ``param_name`` (the optimizer's
+        slot key), as the reference names its tensors here."""
+        params = dict(self.named_parameters())
+        for name, p in params.items():
+            p.param_name = name
+        return params
 
     def _new_param(self, shape) -> nn.Parameter:
         return nn.Parameter(torch.empty(shape, dtype=torch.float32,

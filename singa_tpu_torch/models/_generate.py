@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import autograd
 from ..model import model_device
 
 __all__ = ["GenerateMixin", "prefill_step", "decode_step"]
@@ -31,7 +32,7 @@ def _bound(model, params: Dict[str, torch.Tensor]):
     in place of its own, in eval mode, then restore both."""
     ptens = model.get_params()
     saved = {n: t.data for n, t in ptens.items()}
-    was_training = model.training
+    was_training, flag = model.training, autograd.is_training()
     model.eval()
     try:
         for n, t in ptens.items():
@@ -41,6 +42,7 @@ def _bound(model, params: Dict[str, torch.Tensor]):
         for n, t in ptens.items():
             t.data = saved[n]
         model.train(was_training)
+        autograd.set_training(flag)
 
 
 def prefill_step(model, total_len: int, last_only: bool = True):

@@ -2,9 +2,11 @@
 decoder blocks, rotary position embeddings, grouped-query attention,
 SwiGLU FFN, untied LM head.
 
-This slice serves: ``forward``, ``forward_cached`` and ``generate``.
-Sliding-window attention, MoE, pipeline stages and remat come with later
-slices and raise here rather than being ignored.
+Ported so far: ``forward``, ``forward_cached`` and ``generate``
+(serving), and ``train_one_batch`` with the fused or plain loss and
+optional remat (training, dense FFN).  Sliding-window attention, MoE and
+pipeline stages come with later slices and raise here rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import autograd, layer, model
 from ..device import Device, get_default_device
@@ -21,6 +24,7 @@ from ..ops import kv_cache as kv_ops
 from ..ops import rope as rope_ops
 from ..ops.attention import attention
 from ._generate import GenerateMixin
+from .transformer import next_token_loss, next_token_loss_fused
 
 __all__ = ["LlamaConfig", "Llama"]
 
@@ -91,8 +95,7 @@ class LlamaConfig:
 def _check_supported(c: LlamaConfig) -> None:
     later = [(c.sliding_window, "sliding_window", "the banded-attention slice"),
              (c.num_experts, "num_experts", "the MoE slice"),
-             (c.pipeline_stages, "pipeline_stages", "the distribution slice"),
-             (c.remat, "remat", "the training slice")]
+             (c.pipeline_stages, "pipeline_stages", "the distribution slice")]
     for value, name, where in later:
         if value:
             raise NotImplementedError(
@@ -197,10 +200,16 @@ class Llama(GenerateMixin, model.Model):
                                     device=device, generator=gen)
 
     def features(self, ids: torch.Tensor) -> torch.Tensor:
-        """Final hidden states (B, T, dim) — everything but the lm head."""
+        """Final hidden states (B, T, dim) — everything but the lm head.
+        With ``cfg.remat``, while training, each block runs under
+        activation checkpointing: its internals are recomputed in the
+        backward instead of saved (the reference's ``layer.Remat``).
+        Parameter paths are unchanged: no wrapper module is added."""
         x = self.tok_emb(ids)
+        remat = (self.cfg.remat and autograd.is_training()
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return self.norm_f(x)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -222,6 +231,23 @@ class Llama(GenerateMixin, model.Model):
             x, nc = blk(x, cache, pos)
             new_caches.append(nc)
         return self.lm_head(self.norm_f(x)), new_caches
+
+    def train_one_batch(self, ids, labels=None):
+        """One training step on token ids (B, T): next-token loss, then
+        ``self.optimizer(loss)``.  Returns (loss, loss) with the fused
+        loss, else (logits, loss)."""
+        tgt = labels if labels is not None else ids
+        if self.cfg.fused_loss:
+            loss = next_token_loss_fused(self.features(ids), self.lm_head,
+                                         tgt,
+                                         chunk_rows=self.cfg.fused_loss_chunk)
+        else:
+            logits = self.forward(ids)
+            loss = next_token_loss(logits, tgt)
+        self.optimizer(loss)
+        if self.cfg.fused_loss:
+            return loss, loss
+        return logits, loss
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.get_params().values())

@@ -2,9 +2,11 @@
 
 Two lowerings behind one API:
   * `_sdpa_reference` — plain torch einsum/softmax, the oracle;
-  * the hand-written Hopper flash kernel (``ops.flash_attention``) for
-    long sequences on the card.
-Selection is by sequence length, head grouping and the tensor's device.
+  * the hand-written Hopper flash kernels (``ops.flash_attention``,
+    forward and backward) for long sequences on the card.
+Selection is by sequence length, head grouping and the tensor's device;
+both lowerings are differentiable (torch autograd through the reference,
+the flash ``autograd.Function`` through the kernels).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def _use_flash(q, k=None) -> bool:
 
 class SDPA:
     """Attention with its options bound (the reference's autograd
-    Operator, forward only)."""
+    Operator; its gradient is torch autograd's)."""
 
     def __init__(self, causal: bool, mask, scale: Optional[float]):
         self.causal = causal

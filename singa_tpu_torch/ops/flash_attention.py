@@ -1,30 +1,36 @@
-"""Flash attention forward, ported from ``singa_tpu/ops/flash_attention.py``.
+"""Flash attention, forward and backward, ported from
+``singa_tpu/ops/flash_attention.py``.
 
-Replaces the Pallas TPU kernel ``_fwd_kernel`` (launched by ``_fwd``) of
-``singa_tpu/ops/flash_attention.py`` with a hand-written CUDA kernel for
-Hopper, ``singa_tpu_torch/csrc/flash_fwd.cu``, bound through ``ctypes``.
-It computes what the Pallas kernel computes, forward only: online-softmax
-attention returning o and lse = m + log l; causal masking bottom-right
-aligned (qpos + Tk - Tq >= kpos); an optional sliding window
-(kpos > qpos - W); fully masked and below-band tiles skipped; GQA reads
-kv head h // G with no head replication.  The kernel reads the public
-(B, T, H, D) layout through strides, so no transposed copies are made.
+Replaces the three Pallas TPU kernels of ``singa_tpu/ops/flash_attention.py``
+with kernels written by hand for Hopper, bound through ``ctypes``:
 
-What bounds it on an H100: at the Llama prefill shape (B=4, H=16, K=8,
-T=1024, D=128, bf16, causal) the work is ~17 GFLOP against ~51 MB of
-input and output, so it is bound by tensor-core operations (~17 us at
-989 TFLOP/s) rather than by bytes (~15 us at 3.35 TB/s).  The design
-keeps the (Tq, Tk) scores out of device memory (one thread block per
-(b, h, 64-row q tile) walks the K/V tiles with f32 running max,
-denominator and accumulator in registers) and runs QK^T and P·V on bf16
-``mma.sync`` tensor-core instructions; f32 inputs take a plain-FMA
-kernel.  TMA, ``wgmma`` and warp specialisation are later work.
+* ``_fwd_kernel`` (launched by ``_fwd``) by ``csrc/flash_fwd.cu``:
+  online-softmax attention returning o and lse = m + log l;
+* ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (both launched by ``_bwd``)
+  by the two kernels of ``csrc/flash_bwd.cu``: dQ, and dK/dV, from P
+  recomputed with the saved lse.
 
-On a CPU tensor the wrappers compute the kernel's plain version,
-``_flash_fwd_reference``; on a CUDA tensor they launch the kernel or
-raise.  The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``)
-come with the training slice; until then a CUDA call that needs a
-gradient raises.
+All take causal masking bottom-right aligned (qpos + Tk - Tq >= kpos);
+an optional sliding window (kpos > qpos - W); fully masked and
+below-band tiles skipped; GQA reading kv head h // G with no head
+replication.  The kernels read the public (B, T, H, D) layout through
+strides, so no transposed copies are made.
+
+What bounds them on an H100: at the Llama prefill shape (B=4, H=16,
+K=8, T=1024, D=128, bf16, causal) the forward does ~17 GFLOP against
+~51 MB, at the training shape (B=8) the backward ~52 (dQ) and ~69
+(dK/dV) GFLOP against ~135 MB each: tensor-core operations, not bytes.
+The designs keep the (Tq, Tk) scores out of device memory and run the
+products on bf16 ``mma.sync`` with f32 accumulation (plain FMA for f32
+inputs); see the sources.
+
+`_FlashCore`, a ``torch.autograd.Function``, is the counterpart of the
+reference's ``jax.custom_vjp`` ``_flash_core_lse``: its forward saves
+q, k, v, o and lse, its backward folds the lse cotangent into
+delta = rowsum(dO * O) - dlse in plain torch and runs the two backward
+kernels.  On a CPU tensor every step computes the kernels' plain
+versions (`_flash_fwd_reference`, `_flash_bwd_reference`); on a CUDA
+tensor the wrappers launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ __all__ = ["flash_attention", "flash_attention_with_lse"]
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 256
 
-#: kernel launches since the last reset (a plain count: chip_smoke.py
-#: resets it and reads it around the serving path)
-launches = 0
+#: kernel launches since the last reset, one count per kernel (plain
+#: counts: chip_smoke.py resets and reads them around the main paths)
+launches = 0          # flash_fwd
+dq_launches = 0       # flash_bwd dQ
+dkv_launches = 0      # flash_bwd dK/dV
 
 
 def _tileable(Tq, Tk, D) -> bool:
@@ -78,47 +86,23 @@ def _flash_fwd_reference(q, k, v, causal: bool, scale: float, window=None):
     return o.reshape(B, Tq, H, D).to(q.dtype), lse
 
 
-def _check_layout(name, t, vec_elems):
-    """The kernel reads rows of D contiguous elements with 16-byte
+def _layout_ok(t, vec_elems) -> bool:
+    """The kernels read rows of D contiguous elements with 16-byte
     loads: the last dim must be contiguous and every other stride, and
     the base address, aligned to 16 bytes."""
-    if t.stride(-1) != 1:
-        raise ValueError(f"flash kernel needs a contiguous last dim in "
-                         f"{name}; got strides {tuple(t.stride())}")
-    if t.data_ptr() % 16 or any(s % vec_elems for s in t.stride()[:3]):
-        raise ValueError(f"flash kernel needs 16-byte aligned rows in "
-                         f"{name}; got strides {tuple(t.stride())}")
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % vec_elems for s in t.stride()[:3]))
 
 
-#: the built kernel's bound C entry point, set at its first launch
-_fn = None
+def _check_layout(name, t, vec_elems):
+    if not _layout_ok(t, vec_elems):
+        raise ValueError(f"flash kernel needs a contiguous last dim and "
+                         f"16-byte aligned rows in {name}; got strides "
+                         f"{tuple(t.stride())}")
 
 
-def bind(lib):
-    """`singa_flash_fwd` of a loaded kernel library, with its signature."""
-    fn = lib.singa_flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_int64] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    return fn
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from .. import _build
-        _fn = bind(_build.load("flash_fwd").lib)
-    return _fn
-
-
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window=None):
-    """Launch the Hopper kernel on (B, T, H, D) CUDA tensors (any
-    strides with a contiguous head dim).  Returns (o, lse) like
-    `_flash_fwd_reference`.  Raises on anything the kernel does not
-    take; there is no fall back."""
-    global launches
+def _check_inputs(q, k, v):
+    """Raise on (B, T, H, D) q/k/v that the kernels do not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel needs q, k, v on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
@@ -138,28 +122,81 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window=None):
         raise ValueError(f"flash kernel needs Tq, Tk % 128 == 0 and "
                          f"32 <= D <= {_MAX_HEAD_DIM}, D % 8 == 0; got "
                          f"Tq={Tq}, Tk={Tk}, D={D}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward on the card comes with the training "
-            "slice (_bwd_dq_kernel/_bwd_dkv_kernel); run under "
-            "torch.no_grad()")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, vec)
 
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+#: the built kernels' bound C entry points, set at their first launch
+_fn = None
+_dq_fn = None
+_dkv_fn = None
+
+
+def bind(lib):
+    """`singa_flash_fwd` of a loaded kernel library, with its signature."""
+    fn = lib.singa_flash_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_int64] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    return fn
+
+
+def bind_bwd(lib):
+    """(`singa_flash_bwd_dq`, `singa_flash_bwd_dkv`) of a loaded kernel
+    library, with their signatures."""
+    dq, dkv = lib.singa_flash_bwd_dq, lib.singa_flash_bwd_dkv
+    for fn, n_ptr in ((dq, 7), (dkv, 8)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+                       + [ctypes.c_int64] * 15
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    return dq, dkv
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from .. import _build
+        _fn = bind(_build.load("flash_fwd").lib)
+    return _fn
+
+
+def _bwd_kernels():
+    global _dq_fn, _dkv_fn
+    if _dq_fn is None:
+        from .. import _build
+        _dq_fn, _dkv_fn = bind_bwd(_build.load("flash_bwd").lib)
+    return _dq_fn, _dkv_fn
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window=None):
+    """Launch the Hopper kernel on (B, T, H, D) CUDA tensors (any
+    strides with a contiguous head dim).  Returns (o, lse) like
+    `_flash_fwd_reference`.  Raises on anything the kernel does not
+    take; there is no fall back."""
+    global launches
+    _check_inputs(q, k, v)
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0,
                 B, H, K, Tq, Tk, D,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o.stride()[:3],
                 float(scale), int(bool(causal)),
-                0 if window is None else int(window), stream)
+                0 if window is None else int(window), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc}")
     launches += 1
@@ -174,12 +211,182 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, window=None):
     return _flash_fwd_reference(q, k, v, causal, scale, window)
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, window):
+    """P and dS of the backward in (B, K, G, Tq, Tk) f32, as the kernels
+    form them: p = exp(s - lse) set to 0 where masked (after the exp),
+    ds = p (dO V^T - delta) scale, both rounded to the inputs' dtype
+    (the A operand of the kernels' products; a no-op for f32)."""
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.float().reshape(B, Tq, K, G, D)
+    dog = do.float().reshape(B, Tq, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    p = torch.exp(s - lse.reshape(B, K, G, Tq, 1))
+    if causal or window is not None:
+        qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        valid = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= qpos >= kpos
+        if window is not None:
+            valid &= kpos > qpos - window
+        p = p.masked_fill(~valid, 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.reshape(B, K, G, Tq, 1)) * scale
+    return p.to(q.dtype).float(), ds.to(q.dtype).float(), qg, dog
+
+
+def _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, window=None):
+    """Plain version of the dQ kernel: dq (B, Tq, H, D) in q's dtype."""
+    _, ds, _, _ = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, window)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, window=None):
+    """Plain version of the dK/dV kernel: (dk, dv) (B, Tk, K, D), summed
+    over each GQA group in f32 and rounded once to k's and v's dtype (the
+    Pallas kernel rounds each query head's share, then sums)."""
+    p, ds, qg, dog = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale,
+                               window)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_reference(q, k, v, do, lse, delta, causal: bool,
+                         scale: float, window=None):
+    """Plain torch version of both backward kernels on (B, T, H, D)
+    inputs, lse and delta (B, H, Tq, 1) f32: returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    dq = _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, window)
+    dk, dv = _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale,
+                                window)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    """Check the backward's inputs; returns `do` with a layout the
+    kernels read (autograd may hand over any strides: copied if need
+    be)."""
+    _check_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash backward needs do like q; got "
+                         f"{tuple(do.shape)} {do.dtype}, q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    B, Tq, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Tq, 1) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash backward needs a contiguous (B, H, Tq, "
+                             f"1) f32 {name}; got {tuple(t.shape)} {t.dtype}")
+    if not _layout_ok(do, 16 // do.element_size()):
+        do = do.contiguous()
+    return do
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, scale, window=None):
+    """Launch the dQ kernel on checked inputs (see `_bwd_args`)."""
+    global dq_launches
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    fn, _ = _bwd_kernels()
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                1 if q.dtype == torch.bfloat16 else 0, B, H, K, Tq, Tk, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], *dq.stride()[:3],
+                float(scale), int(bool(causal)),
+                0 if window is None else int(window), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd dQ kernel launch failed: "
+                           f"cudaError {rc}")
+    dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale, window=None):
+    """Launch the dK/dV kernel on checked inputs (see `_bwd_args`)."""
+    global dkv_launches
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    dk = torch.empty((B, Tk, K, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _, fn = _bwd_kernels()
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0,
+                B, H, K, Tq, Tk, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], *dk.stride()[:3],
+                float(scale), int(bool(causal)),
+                0 if window is None else int(window), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd dK/dV kernel launch failed: "
+                           f"cudaError {rc}")
+    dkv_launches += 1
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
+                    window=None):
+    """Launch the dQ and dK/dV kernels on (B, T, H, D) CUDA tensors.
+    Returns (dq, dk, dv) like `_flash_bwd_reference`.  Raises on anything
+    the kernels do not take; there is no fall back."""
+    do = _bwd_args(q, k, v, do, lse, delta)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, window)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, window)
+    return dq, dk, dv
+
+
+def _flash_bwd(q, k, v, do, lse, delta, causal, scale, window=None):
+    """(B, T, H, D) backward: the kernels on the card, their plain
+    versions on the CPU."""
+    if q.is_cuda:
+        return _flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale,
+                               window)
+    return _flash_bwd_reference(q, k, v, do, lse, delta, causal, scale,
+                                window)
+
+
+class _FlashCore(torch.autograd.Function):
+    """(o, lse) of (B, T, H, D) q, k, v with lse differentiable: the
+    reference's ``_flash_core_lse`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o, lse = _flash_fwd(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (causal, scale, window)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, window = ctx.opts
+        # the lse cotangent folds into delta: ds = p (dp - delta + dlse)
+        # (d lse_i / d s_ij = p_ij), so delta_eff = delta - dlse
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+        delta = (delta - dlse).contiguous()
+        dq, dk, dv = _flash_bwd(q, k, v, do, lse, delta, causal, scale,
+                                window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, causal: bool = False,
                              scale: float = None):
     """(B, H, T, D)-layout flash attention returning (o, lse), lse
-    (B, H, Tq, 1) f32 — the per-block primitive ring attention will
-    combine across cards.  No fall back: shapes that do not tile raise
-    (a silent fall back here would skip tail rows)."""
+    (B, H, Tq, 1) f32 and differentiable — the per-block primitive ring
+    attention will combine across cards.  No fall back: shapes that do
+    not tile raise (a silent fall back here would skip tail rows)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if not _tileable(Tq, Tk, D) or H % k.shape[1] != 0:
@@ -188,8 +395,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
             f"(T % 128 == 0, D >= 32, D % 8 == 0); got Tq={Tq}, Tk={Tk}, "
             f"D={D}, H={H}, K={k.shape[1]}")
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
-    o, lse = _flash_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), bool(causal), float(scale))
+    o, lse = _FlashCore.apply(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), bool(causal), float(scale),
+                              None)
     return o.transpose(1, 2), lse
 
 
@@ -198,10 +406,10 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None,
     """(B, T, H, D) attention; k/v may have fewer heads (GQA, H % K == 0)
     or a longer sequence (KV cache; causal is bottom-right aligned).
     `window`: sliding window — tiles below the band are skipped
-    (requires causal=True).
+    (requires causal=True).  Differentiable in q, k and v.
 
-    Shapes that tile go to the kernel (its plain version on the CPU);
-    others to the reference math, as in the JAX package."""
+    Shapes that tile go to the kernels (their plain versions on the
+    CPU); others to the reference math, as in the JAX package."""
     from .attention import _banded_reference, _sdpa_reference
 
     if window is not None:
@@ -219,6 +427,6 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None,
         if window is not None:
             return _banded_reference(q, k, v, window, scale)
         return _sdpa_reference(q, k, v, causal, None, scale)
-    o, _ = _flash_fwd(q, k, v, bool(causal), float(scale),
-                      None if window is None else int(window))
+    o, _ = _FlashCore.apply(q, k, v, bool(causal), float(scale),
+                            None if window is None else int(window))
     return o

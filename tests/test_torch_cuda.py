@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA card: the CUDA flash kernel
-against its plain version, and the serving path through the kernel.
+"""Tests of the port that need an NVIDIA card: the CUDA flash kernels
+against their plain versions, and the serving and training paths
+through the kernels.
 
 This file imports neither jax nor singa_tpu, so it also runs where only
 PyTorch is installed:
@@ -18,6 +19,7 @@ import torch
 
 from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import kernel_check
+from singa_tpu_torch import opt as topt
 from singa_tpu_torch.models import Llama, LlamaConfig
 from singa_tpu_torch.ops import flash_attention as tfa
 
@@ -61,9 +63,21 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     q, k, v = kernel_check.make_qkv(1, 128, 128, 2, 2, 512, torch.bfloat16, 1)
     with pytest.raises(ValueError):
         tfa._flash_fwd_cuda(q, k, v, True, 0.125)
-    q = q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q[..., :64], k[..., :64], v[..., :64], causal=True)
+    # a gradient through the kernels matches the plain version's
+    q, k, v = (t[..., :64].contiguous().requires_grad_() for t in (q, k, v))
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    tfa.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == \
+        tuple(n + 1 for n in before)
+    with torch.no_grad():                # what the Function saved
+        o, lse = tfa._flash_fwd_cuda(q, k, v, True, 0.125)
+    do = 2 * o
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ref = tfa._flash_bwd_reference(q.detach(), k.detach(), v.detach(), do,
+                                   lse, delta.contiguous(), True, 0.125)
+    errs = kernel_check.flash_bwd_errors((q.grad, k.grad, v.grad), ref,
+                                         torch.bfloat16)
+    assert errs["ok"], errs
 
 
 @pytest.mark.cuda
@@ -77,3 +91,58 @@ def test_generate_launches_the_kernel_once_per_layer(cuda_device):
     out = m.generate(prompt, max_new_tokens=4, param_dtype=torch.bfloat16)
     assert tfa.launches == cfg.num_layers
     assert out.shape == (2, 516) and out.dtype == np.int32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(kernel_check.FLASH_CASES))
+def test_backward_kernels_match_plain_version(cuda_device, case, dtype):
+    before = (tfa.dq_launches, tfa.dkv_launches)
+    errs = kernel_check.check_flash_bwd(case, dtype)
+    assert (tfa.dq_launches, tfa.dkv_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert errs["ok"], errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_take_the_lse_cotangent(cuda_device, dtype):
+    errs = kernel_check.check_flash_bwd("gqa_causal_d128", dtype, dlse=True)
+    assert errs["ok"], errs
+
+
+@pytest.mark.cuda
+def test_backward_copies_a_do_it_cannot_read(cuda_device):
+    args = list(kernel_check.bwd_inputs("mha_causal_d64", torch.bfloat16))
+    do = args[3]
+    wide = torch.zeros(do.shape[:-1] + (do.shape[-1] + 4,), dtype=do.dtype,
+                       device=do.device)
+    wide[..., 2:-2] = do
+    args[3] = wide[..., 2:-2]            # rows not 16-byte aligned
+    grads = tfa._flash_bwd_cuda(*args)
+    args[3] = do
+    errs = kernel_check.flash_bwd_errors(
+        grads, tfa._flash_bwd_reference(*args), torch.bfloat16)
+    assert errs["ok"], errs
+
+
+@pytest.mark.cuda
+def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
+    # head_dim 32: the smallest the kernels tile
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, max_position=1024,
+                              fused_loss=True)
+    m = Llama(cfg, device=cuda_device,
+              generator=torch.Generator("cuda").manual_seed(0))
+    m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+    ids = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 512))
+    m.compile([ids], is_train=True, use_graph=True)
+    losses = []
+    for _ in range(3):
+        tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
+        _, loss = m.train_step(ids)
+        losses.append(loss.item())
+        assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == \
+            (cfg.num_layers,) * 3
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in m.get_params().values())

@@ -170,8 +170,7 @@ def test_load_reference_params_rejects_mismatches(pair):
 
 @pytest.mark.parametrize("field,value", [("sliding_window", 16),
                                          ("num_experts", 4),
-                                         ("pipeline_stages", 2),
-                                         ("remat", True)])
+                                         ("pipeline_stages", 2)])
 def test_later_slice_options_raise(field, value):
     cfg = dataclasses.replace(LlamaConfig.tiny(), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
