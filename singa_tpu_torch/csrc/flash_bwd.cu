@@ -81,19 +81,13 @@ __device__ __forceinline__ bool tile_live(const Params& p, int q0, int bm,
   return live;
 }
 
-// the mask as the dQ kernels read it
+// the mask: query qi sees key kj
 __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
   const int qpos = qi + p.off;
   bool ok = true;
   if (p.causal) ok = qpos >= kj;
   if (p.window > 0) ok = ok && (kj > qpos - p.window);
   return ok;
-}
-
-// the same mask as the dK/dV kernels read it: query qi sees key kj
-__device__ __forceinline__ bool sees(const Params& p, int qi, int kj) {
-  const int qpos = qi + p.off;
-  return (!p.causal || qpos >= kj) && (p.window <= 0 || kj > qpos - p.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -363,9 +357,9 @@ __global__ void __launch_bounds__(DMAX > 128 ? 256 : 128)
         for (int e = 0; e < 4; ++e) {
           const int kj = krow0 + (e >> 1) * 8;
           const int ql = j * 8 + tig * 2 + (e & 1);
-          const float pe = sees(p, q0 + ql, kj)
-                               ? expf(st[j][e] * p.scale - lse_s[ql])
-                               : 0.f;
+          const float pe = visible(p, q0 + ql, kj)
+                                  ? expf(st[j][e] * p.scale - lse_s[ql])
+                                  : 0.f;
           st[j][e] = pe;
           dpt[j][e] = pe * (dpt[j][e] - dlt_s[ql]) * p.scale;
         }
@@ -556,8 +550,8 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int ql = c4 + 4 * j;
-        const float pe = sees(p, q0 + ql, key)
-                             ? expf(st[j] * p.scale - lse_s[ql]) : 0.f;
+        const float pe = visible(p, q0 + ql, key)
+                                ? expf(st[j] * p.scale - lse_s[ql]) : 0.f;
         Pt[r * LDP + ql] = pe;
         dSt[r * LDP + ql] = pe * (dpt[j] - dlt_s[ql]) * p.scale;
       }
