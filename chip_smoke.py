@@ -32,8 +32,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
                held against its plain version on the timed inputs; the
-               forward also at the prefill shape
-Then one {"kernels": [...]} line and, last, the device line.
+               forward also at the prefill shape.  The forward's calls are
+               timed as CUDA-graph replays (device time: one call takes
+               less time on the card than its wrapper takes on the host),
+               the backward's back to back; the forward wrapper's host
+               time per call is reported beside
+Then a line with the script's seconds, one {"kernels": [...]} line and,
+last, the device line.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
 the repository beside it and a CUDA card; without either it fails.
@@ -78,7 +83,8 @@ TRAIN_GRAD_RTOL = 5e-2
 # planted faults (kernel_check) run through the same step, each of which
 # must fail the limits above (the window fault is left out: base() has
 # no window)
-TRAIN_FAULTS = ("pv_swapped_v_rows", "pv_drops_late_keys", "dq_drops_delta",
+TRAIN_FAULTS = ("pv_swapped_v_rows", "pv_drops_late_keys",
+                "ring_reads_next_stage", "dq_drops_delta",
                 "dkv_skips_last_head", "dkv_causal_strict")
 
 
@@ -92,7 +98,8 @@ def check(cond, msg):
 
 
 def cuda_time_ms(fn, iters=50, warmup=5):
-    """Mean device time of fn() over `iters` back-to-back calls."""
+    """Mean time of fn() over `iters` back-to-back calls, by CUDA events:
+    the device's time when the host enqueues faster than the card runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +111,46 @@ def cuda_time_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, reps=20, replays=10):
+    """Device time of one fn() call: `reps` calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events, so the host's
+    time per call is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def host_time_us(fn, iters=200):
+    """Host time of one fn() call (enqueue only), microseconds."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_card():
@@ -137,7 +184,7 @@ def phase_build(tmp):
     built = _build.build(srcs)
     for kernel, b in zip(kernels, built):
         ptxas = [ln.strip() for ln in b.log.splitlines()
-                 if "registers" in ln or "spill" in ln
+                 if "registers" in ln or "spill" in ln or "C75" in ln
                  or "Compiling entry function" in ln]
         emit({"phase": "build", "kernel": kernel,
               "source": f"singa_tpu_torch/csrc/{kernel}.cu",
@@ -478,9 +525,9 @@ def phase_timing():
     dtype = torch.bfloat16
     scale = 1.0 / d ** 0.5
 
-    def library(fn):
+    def library(timed):
         try:
-            return cuda_time_ms(fn)
+            return timed()
         except (TypeError, RuntimeError) as e:    # no enable_gqa in torch
             print(f"library yardstick unavailable: {e}", file=sys.stderr)
             return None
@@ -500,14 +547,19 @@ def phase_timing():
         o, lse = fa._flash_fwd_cuda(q, kk, v, True, scale)
         errs = kernel_check.flash_errors(
             o, lse, *fa._flash_fwd_reference(q, kk, v, True, scale), dtype)
+
+        def kernel():
+            return fa._flash_fwd_cuda(q, kk, v, True, scale)
         rows.append({
-            "name": "flash_fwd", "shape": shape,
-            "ms": cuda_time_ms(lambda: fa._flash_fwd_cuda(q, kk, v, True,
-                                                          scale)),
-            "plain_ms": cuda_time_ms(
+            "name": "flash_fwd", "shape": shape, "timed_by": "cuda_graph",
+            "ms": graph_time_ms(kernel),
+            "events_ms": cuda_time_ms(kernel),
+            "host_us_per_call": host_time_us(kernel),
+            "plain_ms": graph_time_ms(
                 lambda: fa._flash_fwd_reference(q, kk, v, True, scale),
-                iters=10),
-            "library_ms": library(sdpa), "library_covers": ["flash_fwd"],
+                reps=2, replays=5),
+            "library_ms": library(lambda: graph_time_ms(sdpa)),
+            "library_covers": ["flash_fwd"],
             "max_abs_err": errs["max_abs_do"], "ok": errs["ok"],
             **_bound(4 * b * h * d * pairs,
                      2 * t_bytes + 2 * kv_bytes + row_bytes)})
@@ -525,14 +577,14 @@ def phase_timing():
         def sdpa_bwd():
             return torch.autograd.grad(og, (qg, kg, vg), dot,
                                        retain_graph=True)
-        lib_bwd = library(sdpa_bwd)
+        lib_bwd = library(lambda: cuda_time_ms(sdpa_bwd))
         # one SDPA backward computes dq, dk and dv: its time is both rows'
         both = ["flash_bwd_dq", "flash_bwd_dkv"]
         errs = kernel_check.flash_bwd_errors(
             (fa._launch_dq(*args), *fa._launch_dkv(*args)),
             fa._flash_bwd_reference(*args), dtype)
         rows.append({
-            "name": "flash_bwd_dq", "shape": shape,
+            "name": "flash_bwd_dq", "shape": shape, "timed_by": "events",
             "ms": cuda_time_ms(lambda: fa._launch_dq(*args)),
             "plain_ms": cuda_time_ms(lambda: fa._bwd_dq_reference(*args),
                                      iters=10),
@@ -541,7 +593,7 @@ def phase_timing():
             **_bound(6 * b * h * d * pairs,
                      3 * t_bytes + 2 * kv_bytes + 2 * row_bytes)})
         rows.append({
-            "name": "flash_bwd_dkv", "shape": shape,
+            "name": "flash_bwd_dkv", "shape": shape, "timed_by": "events",
             "ms": cuda_time_ms(lambda: fa._launch_dkv(*args)),
             "plain_ms": cuda_time_ms(lambda: fa._bwd_dkv_reference(*args),
                                      iters=10),
@@ -580,6 +632,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import singa_tpu_torch  # noqa: F401  (fails without the repository)
+    t0 = time.perf_counter()
     name = phase_card()
     with tempfile.TemporaryDirectory() as tmp:
         faults = phase_build(Path(tmp))
@@ -603,7 +656,9 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library_covers": r["library_covers"]})
+            "library_covers": r["library_covers"],
+            "timed_by": r["timed_by"]})
+    emit({"phase": "end", "script_seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

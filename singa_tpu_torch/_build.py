@@ -3,10 +3,13 @@
 Each kernel source ``singa_tpu_torch/csrc/<name>.cu`` exposes a plain C
 entry point.  At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/singa_tpu_torch/<name>-<hash>.so`` at the root
-of the checkout, keyed on the source's hash, and loaded with ``ctypes``.
-A source outside ``csrc/`` builds beside itself.  `build` starts one
-``nvcc`` per source, all at once.  Nothing is built when a module is
-imported.
+of the checkout, keyed on the hash of the source and of every shared
+header ``csrc/*.cuh``, and loaded with ``ctypes``.  A source outside
+``csrc/`` builds beside itself and still finds those headers (``-I``).
+No driver library is linked: a kernel that needs a driver-API function
+(``cuTensorMapEncodeTiled``) fetches it through the runtime.  `build`
+starts one ``nvcc`` per source, all at once.  Nothing is built when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ from typing import Dict, List, NamedTuple, Sequence
 __all__ = ["Built", "build", "load", "source_path", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "singa_tpu_torch"
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"   # the CUDA toolkit's install default
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(_CSRC)]
 
 
 class Built(NamedTuple):
@@ -42,7 +47,7 @@ _loaded: Dict[str, Built] = {}
 
 
 def source_path(name: str) -> Path:
-    return _PKG / "csrc" / f"{name}.cu"
+    return _CSRC / f"{name}.cu"
 
 
 def nvcc_path() -> str:
@@ -56,8 +61,13 @@ def nvcc_path() -> str:
 
 
 def _out_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out_dir = _BUILD_DIR if src.parent == _PKG / "csrc" else src.parent
+    """Where `src` builds to, keyed on it and on the shared headers."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
+    out_dir = _BUILD_DIR if src.parent == _CSRC else src.parent
     return out_dir / f"{src.stem}-{digest}.so"
 
 

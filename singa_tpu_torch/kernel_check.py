@@ -24,7 +24,9 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "O_ROW_RTOL", "LSE_ATOL",
            "flash_bwd_kernel"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
-# tests/test_flash.py, head dims 40 (padded) and 256, and the shapes of
+# tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
+# inside a 128-key tile (a window's lower edge at D=128, and the causal
+# diagonal with Tq < Tk at Llama's G=2), and the shapes of
 # LlamaConfig.base() at prefill (B=4) and in training (B=8)
 FLASH_CASES = {
     "mha_noncausal_d64": (2, 512, 512, 4, 4, 64, False, None),
@@ -36,6 +38,8 @@ FLASH_CASES = {
     "window256": (1, 1024, 1024, 4, 2, 64, True, 256),
     "d40_padded": (1, 256, 256, 2, 1, 40, True, None),
     "d256": (1, 256, 256, 2, 2, 256, True, None),
+    "window200_d128": (1, 1024, 1024, 8, 2, 128, True, 200),
+    "tq512_tk1024_causal_d128": (1, 512, 1024, 16, 8, 128, True, None),
     "slice": (4, 1024, 1024, 16, 8, 128, True, None),
     "train": (8, 1024, 1024, 16, 8, 128, True, None),
 }
@@ -50,24 +54,33 @@ FLASH_CASES = {
 O_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LSE_ATOL = 1e-4
 
-# name: (case, text of csrc/flash_fwd.cu, its faulty replacement)
+# name: (case, text of csrc/flash_fwd.cu, its faulty replacement); each
+# plants the fault in the bf16 kernel, which the faults phase runs
 FLASH_FAULTS = {
-    # P V reads V rows of keys 2, 3 for keys 0, 1 (and so on) in each tile
+    # P V reads the V rows of keys 16-31 for keys 0-15 (and so on) in
+    # each tile
     "pv_swapped_v_rows": (
         "slice",
-        "const bf16* vrow = Vs + (ks * 16 + tig * 2) * LDS + g;",
-        "const bf16* vrow = Vs + (ks * 16 + (tig ^ 1) * 2) * LDS + g;"),
+        "const uint32_t vk = vt + kk * 16 * 128;",
+        "const uint32_t vk = vt + (kk ^ 1) * 16 * 128;"),
     # rows of the later half drop 16 keys of the first tile from P V
     "pv_drops_late_keys": (
         "slice",
-        "for (int ks = 0; ks < kBN / 16; ++ks) {",
-        "for (int ks = 0; ks < kBN / 16 - (q0 >= p.Tq / 2 && k0 == 0); "
-        "++ks) {"),
+        "for (int ks = 0; ks < T::kKeys / 16; ++ks) {",
+        "for (int ks = 0; ks < T::kKeys / 16; ++ks) { "
+        "if (ks == 0 && k0 == 0 && q0 >= p.Tq / 2) { "
+        "pa[0][0] = pa[0][1] = pa[0][2] = pa[0][3] = 0u; continue; }"),
     # the window lets one key too many through
     "window_one_key_wide": (
         "window256",
-        "if (p.window > 0) ok = ok && (kj > qpos - p.window);",
-        "if (p.window > 0) ok = ok && (kj >= qpos - p.window);"),
+        "lo[r] = p.window > 0 ? rel - p.window : INT_MIN;",
+        "lo[r] = p.window > 0 ? rel - p.window - 1 : INT_MIN;"),
+    # the consumers read the ring stage after the one whose "full"
+    # barrier they waited on
+    "ring_reads_next_stage": (
+        "train",
+        "const uint32_t kt = ring + stage * T::kStageBytes;",
+        "const uint32_t kt = ring + (stage + 1) % kS * T::kStageBytes;"),
 }
 
 

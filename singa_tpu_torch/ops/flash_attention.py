@@ -20,9 +20,11 @@ What bounds them on an H100: at the Llama prefill shape (B=4, H=16,
 K=8, T=1024, D=128, bf16, causal) the forward does ~17 GFLOP against
 ~51 MB, at the training shape (B=8) the backward ~52 (dQ) and ~69
 (dK/dV) GFLOP against ~135 MB each: tensor-core operations, not bytes.
-The designs keep the (Tq, Tk) scores out of device memory and run the
-products on bf16 ``mma.sync`` with f32 accumulation (plain FMA for f32
-inputs); see the sources.
+The designs keep the (Tq, Tk) scores out of device memory.  The bf16
+forward is a persistent, warp-specialised kernel: TMA loads into a ring
+of K/V tiles, ``wgmma`` products with f32 accumulation, and o stored by
+TMA; the backward kernels run bf16 ``mma.sync``; f32 inputs take plain
+FMA kernels.  See the sources.
 
 `_FlashCore`, a ``torch.autograd.Function``, is the counterpart of the
 reference's ``jax.custom_vjp`` ``_flash_core_lse``: its forward saves
