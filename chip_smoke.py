@@ -9,9 +9,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                singa_tpu_torch/csrc (nvcc, sm_90a), and each planted fault
                from a copy of its source in a temporary directory, all in
                parallel; show ptxas's register / shared-memory report
+               and any note that it serialised wgmma instructions
   3. kernels — each kernel against its plain PyTorch version on the card,
                over the cases and limits of singa_tpu_torch/kernel_check.py
-               (the backward also with a nonzero lse cotangent)
+               (the backward also with a nonzero lse cotangent), and two
+               launches of the backward kernels bitwise equal
   4. faults  — each planted fault must fail those limits on its case
   5. slice   — Llama(LlamaConfig.base()).generate() at B=4, P=1024, N=32,
                bf16 weights: the flash forward must launch once per layer
@@ -32,11 +34,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
                held against its plain version on the timed inputs; the
-               forward also at the prefill shape.  The forward's calls are
-               timed as CUDA-graph replays (device time: one call takes
+               forward also at the prefill shape.  The kernels' calls are
+               timed as CUDA-graph replays (device time: one call can take
                less time on the card than its wrapper takes on the host),
-               the backward's back to back; the forward wrapper's host
-               time per call is reported beside
+               with back-to-back event timing and the wrapper's host time
+               per call reported beside
 Then a line with the script's seconds, one {"kernels": [...]} line and,
 last, the device line.
 
@@ -85,7 +87,8 @@ TRAIN_GRAD_RTOL = 5e-2
 # no window)
 TRAIN_FAULTS = ("pv_swapped_v_rows", "pv_drops_late_keys",
                 "ring_reads_next_stage", "dq_drops_delta",
-                "dkv_skips_last_head", "dkv_causal_strict")
+                "dkv_skips_last_head", "dkv_causal_strict",
+                "dq_ring_reads_next_stage", "dkv_reads_next_stage_rows")
 
 
 def emit(obj):
@@ -186,9 +189,11 @@ def phase_build(tmp):
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "C75" in ln
                  or "Compiling entry function" in ln]
+        # C7510-C7520 notes that ptxas serialised wgmma instructions
+        serialised = [ln for ln in ptxas if "serialized" in ln]
         emit({"phase": "build", "kernel": kernel,
               "source": f"singa_tpu_torch/csrc/{kernel}.cu",
-              "ptxas": ptxas})
+              "ptxas": ptxas, "wgmma_serialised": serialised})
     emit({"phase": "build", "nvcc_seconds": {b.path.name: round(b.seconds, 2)
                                              for b in built},
           "wall_seconds": round(time.perf_counter() - t0, 2)})
@@ -220,6 +225,11 @@ def phase_kernels():
     bad = [f"{r['kernel']}:{r['case']}/{r['dtype']}" for r in results
            if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
+    same = kernel_check.bwd_repeats_bitwise("train")
+    emit({"phase": "kernels", "kernel": "flash_bwd", "case": "train",
+          "dtype": "bfloat16", "two_launches_bitwise_equal": same})
+    check(all(same.values()), f"two launches of the backward kernels "
+          f"differ: {same}")
 
 
 def phase_faults(libs):
@@ -583,9 +593,17 @@ def phase_timing():
         errs = kernel_check.flash_bwd_errors(
             (fa._launch_dq(*args), *fa._launch_dkv(*args)),
             fa._flash_bwd_reference(*args), dtype)
+
+        def dq_kernel():
+            return fa._launch_dq(*args)
+
+        def dkv_kernel():
+            return fa._launch_dkv(*args)
         rows.append({
-            "name": "flash_bwd_dq", "shape": shape, "timed_by": "events",
-            "ms": cuda_time_ms(lambda: fa._launch_dq(*args)),
+            "name": "flash_bwd_dq", "shape": shape, "timed_by": "cuda_graph",
+            "ms": graph_time_ms(dq_kernel),
+            "events_ms": cuda_time_ms(dq_kernel),
+            "host_us_per_call": host_time_us(dq_kernel),
             "plain_ms": cuda_time_ms(lambda: fa._bwd_dq_reference(*args),
                                      iters=10),
             "library_ms": lib_bwd, "library_covers": both,
@@ -593,8 +611,10 @@ def phase_timing():
             **_bound(6 * b * h * d * pairs,
                      3 * t_bytes + 2 * kv_bytes + 2 * row_bytes)})
         rows.append({
-            "name": "flash_bwd_dkv", "shape": shape, "timed_by": "events",
-            "ms": cuda_time_ms(lambda: fa._launch_dkv(*args)),
+            "name": "flash_bwd_dkv", "shape": shape, "timed_by": "cuda_graph",
+            "ms": graph_time_ms(dkv_kernel),
+            "events_ms": cuda_time_ms(dkv_kernel),
+            "host_us_per_call": host_time_us(dkv_kernel),
             "plain_ms": cuda_time_ms(lambda: fa._bwd_dkv_reference(*args),
                                      iters=10),
             "library_ms": lib_bwd, "library_covers": both,

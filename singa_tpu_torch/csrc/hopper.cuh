@@ -117,6 +117,18 @@ HK_DEV void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global memory at `src` into shared memory at `dst`; completion is
+// reported to `bar` in bytes, as for a tensor load
+HK_DEV void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                      uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // commit this thread's TMA stores and wait until their shared memory has
 // been read
 HK_DEV void tma_store_wait() {
@@ -131,6 +143,16 @@ HK_DEV void fence_proxy_async() {
 
 HK_DEV void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// two f32 at `addr` (8-byte aligned); volatile, so it stays after the
+// mbarrier wait that made them visible
+HK_DEV float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -20,8 +20,8 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "O_ROW_RTOL", "LSE_ATOL",
            "make_qkv", "flash_errors", "check_flash", "flash_fault_source",
            "flash_kernel", "FLASH_BWD_FAULTS", "GRAD_ROW_RTOL", "ROW_FLOOR",
            "flash_bwd_errors", "bwd_inputs", "check_flash_bwd",
-           "flash_bwd_fault_source",
-           "flash_bwd_kernel"]
+           "flash_bwd_fault_source", "flash_bwd_kernel",
+           "bwd_repeats_bitwise"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
@@ -157,24 +157,37 @@ GRAD_ROW_RTOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
 ROW_FLOOR = 0.1
 
 # name: (case, text of csrc/flash_bwd.cu, its faulty replacement); each
-# plants the fault in the bf16 kernels, which the faults phase runs
+# plants the fault in the bf16 wgmma kernels, which the faults phase runs
 FLASH_BWD_FAULTS = {
     # dQ forgets delta: ds = p * dp * scale
     "dq_drops_delta": (
         "gqa_causal_d128",
-        "s[j][e] = pe * (dp[j][e] - dlt[r]) * p.scale;",
-        "s[j][e] = pe * dp[j][e] * p.scale;"),
-    # dK/dV sums only G - 1 of each group's query heads
+        "dp[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) * p.scale;",
+        "dp[j] = s[j] * dp[j] * p.scale;"),
+    # dK/dV sums only G - 1 of each group's query heads (the producer and
+    # the consumers agree on the shorter walk, so nothing hangs)
     "dkv_skips_last_head": (
         "gqa_causal_d128",
-        "for (int gi = 0; gi < G; ++gi) {",
-        "for (int gi = 0; gi < G - 1; ++gi) {"),
+        "t.n = p.H / p.K * t.nq;",
+        "t.n = (p.H / p.K - 1) * t.nq;"),
     # dK/dV's causal test drops the diagonal: each query is read one
     # position early
     "dkv_causal_strict": (
         "slice",
-        "visible(p, q0 + ql, kj)",
-        "visible(p, q0 + ql - 1, kj)"),
+        "lo[r] = p.causal ? rel : INT_MIN;",
+        "lo[r] = p.causal ? rel + 1 : INT_MIN;"),
+    # the dQ consumers read K and V from the ring stage after the one
+    # whose "full" barrier they waited on
+    "dq_ring_reads_next_stage": (
+        "train",
+        "const uint32_t kst = ring + stage * T::kStageBytes;",
+        "const uint32_t kst = ring + (stage + 1) % kS * T::kStageBytes;"),
+    # the dK/dV consumers read lse and delta from the next ring stage
+    "dkv_reads_next_stage_rows": (
+        "train",
+        "const uint32_t lt = qst + 2 * T::kTileBytes;",
+        "const uint32_t lt = ring + (stage + 1) % kS * T::kStageBytes"
+        " + 2 * T::kTileBytes;"),
 }
 
 
@@ -220,6 +233,18 @@ def check_flash_bwd(label, dtype, dlse=False):
     grads = fa._flash_bwd_cuda(*args)
     ref = fa._flash_bwd_reference(*args)
     return flash_bwd_errors(grads, ref, dtype)
+
+
+def bwd_repeats_bitwise(label="train"):
+    """Launch the two backward kernels twice on case `label` in bf16:
+    whether each of dq, dk and dv is bitwise equal between the launches
+    (no atomics, so a race in a ring or at a barrier is what would make
+    them differ)."""
+    args = bwd_inputs(label, torch.bfloat16)
+    first = fa._flash_bwd_cuda(*args)
+    second = fa._flash_bwd_cuda(*args)
+    return {name: torch.equal(a, b)
+            for name, a, b in zip(("dq", "dk", "dv"), first, second)}
 
 
 def flash_bwd_fault_source(name) -> str:

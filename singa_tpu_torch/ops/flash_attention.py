@@ -23,8 +23,13 @@ K=8, T=1024, D=128, bf16, causal) the forward does ~17 GFLOP against
 The designs keep the (Tq, Tk) scores out of device memory.  The bf16
 forward is a persistent, warp-specialised kernel: TMA loads into a ring
 of K/V tiles, ``wgmma`` products with f32 accumulation, and o stored by
-TMA; the backward kernels run bf16 ``mma.sync``; f32 inputs take plain
-FMA kernels.  See the sources.
+TMA.  The bf16 backward kernels (head dims up to 128) share that
+design: dK/dV keeps a 128-key tile of K and V resident while a ring
+brings each query head's Q, dO, lse and delta tiles, and takes P^T and
+dS^T from registers into ``wgmma``; dQ keeps a 128-row tile of Q and dO
+resident while K/V tiles stream through a ring.  bf16 head dims above 128
+run the backward on ``mma.sync``; f32 inputs take plain FMA kernels.
+See the sources.
 
 `_FlashCore`, a ``torch.autograd.Function``, is the counterpart of the
 reference's ``jax.custom_vjp`` ``_flash_core_lse``: its forward saves
@@ -283,10 +288,13 @@ def _bwd_args(q, k, v, do, lse, delta):
                          f"{q.dtype}")
     B, Tq, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
+        # the bf16 kernels copy 64 rows at a time with 16-byte bulk copies
         if t.shape != (B, H, Tq, 1) or t.dtype != torch.float32 \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash backward needs a contiguous (B, H, Tq, "
-                             f"1) f32 {name}; got {tuple(t.shape)} {t.dtype}")
+                or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash backward needs a contiguous, 16-byte "
+                             f"aligned (B, H, Tq, 1) f32 {name}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
     if not _layout_ok(do, 16 // do.element_size()):
         do = do.contiguous()
     return do

@@ -78,6 +78,41 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     errs = kernel_check.flash_bwd_errors((q.grad, k.grad, v.grad), ref,
                                          torch.bfloat16)
     assert errs["ok"], errs
+    # the backward's wrapper refuses 192-row tiles, an lse that is not
+    # 16-byte aligned and f16; its bf16 entry points refuse sequence
+    # lengths that are not whole 128-row (128-key) tiles
+    args = list(kernel_check.bwd_inputs("mha_causal_d64", torch.bfloat16))
+    q, k, v, do, lse, delta = args[:6]
+    short = [t[:, :192] for t in (q, k, v, do)]
+    with pytest.raises(ValueError):
+        tfa._flash_bwd_cuda(*short, lse[:, :, :192].contiguous(),
+                            delta[:, :, :192].contiguous(), True, 0.125)
+    shifted = torch.empty(lse.numel() + 1, device=lse.device)[1:]
+    with pytest.raises(ValueError):
+        tfa._flash_bwd_cuda(q, k, v, do, shifted.view(lse.shape), delta,
+                            True, 0.125)
+    with pytest.raises(TypeError):
+        tfa._flash_bwd_cuda(q.half(), k.half(), v.half(), do.half(), lse,
+                            delta, True, 0.125)
+    dq_fn, dkv_fn = tfa._bwd_kernels()
+    dk = torch.empty_like(k)
+    B, T, H, D = q.shape
+    for fn, outs, out in ((dq_fn, [q], q), (dkv_fn, [dk, dk], dk)):
+        for tq, tk in ((192, 192), (256, 192), (192, 256)):
+            rc = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+                    1, B, H, k.shape[2], tq, tk, D,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    *do.stride()[:3], *out.stride()[:3], 0.125, 1, 0,
+                    torch.cuda.current_stream().cuda_stream)
+            assert rc == 1, (tq, tk, rc)          # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bitwise(cuda_device):
+    """Two launches on the training shape give the same bits: no atomics,
+    and no race in the rings or at the named barriers."""
+    assert all(kernel_check.bwd_repeats_bitwise("train").values())
 
 
 @pytest.mark.cuda
