@@ -16,20 +16,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
                launches of the backward kernels bitwise equal
   4. faults  — each planted fault must fail those limits on its case
   5. slice   — Llama(LlamaConfig.base()).generate() at B=4, P=1024, N=32,
-               bf16 weights: the flash forward must launch once per layer
-               per call; prefill logits with the kernel vs with its plain
-               version; prefill ms, decode ms/token, tokens/s, peak memory;
-               then a profile of one call
+               bf16 weights, captured (a CUDA graph of the prefill and
+               one of the decode step, replayed N - 1 times): the flash
+               forward must launch once per layer per call, and the
+               tokens must equal an eager call's bitwise; prefill logits
+               with the kernel vs with its plain version; prefill ms,
+               decode ms/token, tokens/s, peak memory, captured beside
+               eager; then a profile of one captured call
   6. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
-               T=1024 on a fixed batch, 2 warm-up and 10 timed steps; the
-               forward, dQ and dK/dV kernels must each launch once per
-               layer per step; losses finite and falling; one step's loss
-               and gradients with the kernels vs with their plain
-               versions, and with planted faults in place of the
-               kernels; step ms, tokens/s, MFU, peak memory; then a
-               profile of one step
-  7. timing  — each kernel, its plain version and the PyTorch call that
+               T=1024.  One step's loss and gradients with the kernels vs
+               with their plain versions, and with planted faults in
+               place of the kernels, eagerly; then through a captured
+               step (lr 0), sound and with one backward fault, each
+               captured afresh.  From the same initial weights, 4 steps
+               eager and 4 captured on four batches, losses held to each
+               other; eager steps timed and one profiled; then 10 timed
+               replays on a fixed batch: the forward, dQ and dK/dV
+               kernels must each launch once per layer per step; losses
+               finite and falling; step ms, tokens/s, MFU, peak memory,
+               capture seconds and the graph's ops and pool bytes; then
+               a profile of one replay
+  7. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+               with a save after step 2; a fresh model loads it and runs
+               steps 3-6 (eager, warm-up, capture, replay), whose losses
+               must equal the uninterrupted run's within the train limit
+  8. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -43,9 +55,12 @@ Then a line with the script's seconds, one {"kernels": [...]} line and,
 last, the device line.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
-the repository beside it and a CUDA card; without either it fails.
+the repository beside it and a CUDA card; without either it fails.  It
+writes one checkpoint under build/ and removes it.
 """
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -89,6 +104,14 @@ TRAIN_FAULTS = ("pv_swapped_v_rows", "pv_drops_late_keys",
                 "ring_reads_next_stage", "dq_drops_delta",
                 "dkv_skips_last_head", "dkv_causal_strict",
                 "dq_ring_reads_next_stage", "dkv_reads_next_stage_rows")
+# the fault also run through a captured step (the weakest backward
+# fault through the eager step: PERF.md)
+CAPTURED_FAULT = "dkv_causal_strict"
+# steps from the same initial weights, eager and captured, held to each
+# other by TRAIN_LOSS_RTOL; eager steps timed after them
+COMPARE_STEPS, EAGER_TIMED = 4, 5
+# the checkpoint phase: depth cut so the file stays under 2 GB
+CKPT_LAYERS, CKPT_SAVE_AFTER, CKPT_STEPS = 2, 2, 6
 
 
 def emit(obj):
@@ -268,6 +291,19 @@ class plain_attention:
         self.fa._flash_fwd_cuda, self.fa._flash_bwd_cuda = self.saved
 
 
+def _timed(fn):
+    """(fn's result, seconds) with the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _median_ms(fn, n=5):
+    return sorted(_timed(fn)[1] for _ in range(n))[n // 2] * 1e3
+
+
 def phase_slice():
     from singa_tpu_torch import device
     from singa_tpu_torch.models import Llama, LlamaConfig
@@ -276,61 +312,74 @@ def phase_slice():
 
     dev = device.create_device("cuda")
     cfg = LlamaConfig.base()
-    t0 = time.perf_counter()
-    m = Llama(cfg, device=dev,
-              generator=torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    m, build_s = _timed(lambda: Llama(
+        cfg, device=dev, generator=torch.Generator("cuda").manual_seed(0)))
     prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, P))
     kw = dict(max_new_tokens=N, param_dtype=torch.bfloat16)
+    S = P + N
 
+    # eager: the same steps, each op launched from the host
+    m.generate(prompts, use_graph=False, **kw)     # warm call
+    out_eager, eager_s = _timed(lambda: m.generate(prompts, use_graph=False,
+                                                   **kw))
+    # captured: the first call is the warm-up, the second captures
     fa.launches = 0
-    m.generate(prompts, **kw)                      # warm call
+    m.generate(prompts, **kw)
     warm_launches = fa.launches
-    torch.cuda.synchronize()
+    _, capture_call_s = _timed(lambda: m.generate(prompts, **kw))
     torch.cuda.reset_peak_memory_stats()
-
     fa.launches = 0                                # the main path's run
-    t0 = time.perf_counter()
-    out = m.generate(prompts, **kw)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
+    out, gen_s = _timed(lambda: m.generate(prompts, **kw))
     launches = fa.launches
     peak = torch.cuda.max_memory_allocated()
+    prog = m._gen_sessions[(B, P, S, torch.bfloat16, True)]._programs[
+        (0.0, None, None, None)]
+    graphs = prog.graphs
+    prefill_ms = _median_ms(graphs["prefill"].replay)
 
-    # prefill alone, and its logits with the kernel vs the plain version
+    # the eager prefill alone, and its logits with the kernel vs the
+    # plain version
     ids = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
-    _, _, _, S, params = m._gen_setup(prompts, N, torch.bfloat16)
+    params = {n: p.detach().to(torch.bfloat16)
+              for n, p in m.get_params().items()}
     with torch.no_grad(), _generate._bound(m, params):
         prefill = _generate.prefill_step(m, S)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg_kernel, _ = prefill(ids)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        prefill_ms = sorted(times)[len(times) // 2] * 1e3
+        eager_prefill_ms = _median_ms(lambda: prefill(ids))
+        lg_kernel, _ = prefill(ids)
         with plain_attention():
             lg_plain, _ = prefill(ids)
+    del params
     with plain_attention():
-        out_plain = m.generate(prompts, **kw)
+        out_plain = m.generate(prompts, use_graph=False, **kw)
     lg_kernel, lg_plain = lg_kernel.float(), lg_plain.float()
     dlogit = (lg_kernel - lg_plain).abs().max().item()
     ref_max = lg_plain.abs().max().item()
     agree = float((out[:, P:] == out_plain[:, P:]).mean())
 
-    # generate = prefill + N - 1 decode steps (the last pick needs none)
+    # generate = prefill + N - 1 decode steps
     decode_ms = (gen_s * 1e3 - prefill_ms) / (N - 1)
+    eager_decode_ms = (eager_s * 1e3 - eager_prefill_ms) / (N - 1)
     result = {
         "phase": "slice", "config": "LlamaConfig.base()",
         "params": m.num_params(), "B": B, "P": P, "N": N,
         "param_dtype": "bfloat16", "model_build_s": build_s,
+        "captured": graphs["decode"].graph is not None,
         "warm_launches": warm_launches, "launches": launches,
         "expected_launches": cfg.num_layers,
         "generate_ms": gen_s * 1e3, "prefill_ms": prefill_ms,
         "decode_ms_per_token": decode_ms,
         "tokens_per_s": B * N / gen_s,
+        "capture_call_ms": capture_call_s * 1e3,
+        "graphs": {n: {"num_ops": g.num_ops, "flops": g.flops(),
+                       "pool_bytes": g.pool_bytes,
+                       "capture_s": g.capture_seconds,
+                       "launches": g.launches}
+                   for n, g in graphs.items()},
+        "eager": {"generate_ms": eager_s * 1e3,
+                  "prefill_ms": eager_prefill_ms,
+                  "decode_ms_per_token": eager_decode_ms,
+                  "tokens_per_s": B * N / eager_s},
+        "tokens_equal_eager": bool((out == out_eager).all()),
         "peak_memory_bytes": peak,
         "prefill_logits_max_abs_diff": dlogit,
         "prefill_logits_max_abs": ref_max,
@@ -338,18 +387,24 @@ def phase_slice():
         "greedy_token_agreement_vs_plain": agree,
     }
     emit(result)
+    check(result["captured"], "generate() did not run captured graphs")
     check(warm_launches == cfg.num_layers and launches == cfg.num_layers,
           f"flash kernel launched {warm_launches}/{launches} times per "
           f"generate, expected {cfg.num_layers}")
+    check(graphs["prefill"].launches == {"flash_fwd": cfg.num_layers},
+          f"the prefill graph holds {graphs['prefill'].launches}")
     check(out.shape == (B, P + N) and out.dtype == np.int32,
           f"generate returned {out.shape} {out.dtype}")
     check((out[:, :P] == prompts).all(), "prompt not echoed")
     check(((out >= 0) & (out < cfg.vocab_size)).all(), "token out of range")
+    check(result["tokens_equal_eager"],
+          "captured greedy tokens differ from the eager call's")
     check(np.isfinite(lg_kernel.cpu().numpy()).all(), "non-finite logits")
     check(dlogit <= LOGIT_RTOL * ref_max,
           f"prefill logits differ by {dlogit} (max |logit| {ref_max})")
     phase_profile(lambda: m.generate(prompts, **kw),
-                  f"one generate call, B={B} P={P} N={N}")
+                  f"one captured generate call, B={B} P={P} N={N}",
+                  {"flash_fwd": cfg.num_layers})
     return launches
 
 
@@ -383,13 +438,27 @@ def _step_errors(loss, grads, loss_p, g_p):
             and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values())}
 
 
+def _captured_step_errors(m, ids, loss_p, g_p):
+    """A fresh captured step (lr 0: eager, warm-up, capture + replay,
+    all at the same weights) against the plain versions' loss and
+    gradients; the gradients are those the replay left in p.grad."""
+    from singa_tpu_torch import graph
+    graph.reset_graph()
+    x = torch.as_tensor(ids, device="cuda")
+    for _ in range(3):
+        _, loss = m.train_step(x)
+    check(m.graph is not None and m.graph.graph is not None,
+          "the third train_step did not capture")
+    params = m.get_params()
+    return _step_errors(loss.item(), {n: params[n].grad for n in GRAD_NAMES},
+                        loss_p, g_p)
+
+
 def phase_train(fault_libs):
     """LlamaConfig.base() training through the user's entry points:
-    set_optimizer, compile, train_step, at B=8 x T=1024 on a fixed
-    batch, bf16 activations over f32 masters."""
-    import dataclasses
-
-    from singa_tpu_torch import device, kernel_check, opt
+    set_optimizer, compile, train_step, at B=8 x T=1024, bf16
+    activations over f32 masters, the step captured as a CUDA graph."""
+    from singa_tpu_torch import device, graph, kernel_check, opt
     from singa_tpu_torch.models import Llama, LlamaConfig
     from singa_tpu_torch.ops import flash_attention as fa
 
@@ -399,9 +468,14 @@ def phase_train(fault_libs):
               generator=torch.Generator("cuda").manual_seed(0))
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TB, TT)).astype(np.int32)
+    batches = [torch.as_tensor(np.random.RandomState(1 + i).randint(
+        0, cfg.vocab_size, (TB, TT)).astype(np.int32), device="cuda")
+        for i in range(COMPARE_STEPS)]
+    x = torch.as_tensor(ids, device="cuda")
+    start = {n: p.detach().cpu() for n, p in m.get_params().items()}
 
     # the same step on the same weights with the plain versions, with the
-    # kernels and with each planted fault in place of a kernel
+    # kernels and with each planted fault in place of a kernel, eagerly
     with plain_attention():
         loss_p, g_p = _loss_and_grads(m, ids)
     sound = _step_errors(*_loss_and_grads(m, ids), loss_p, g_p)
@@ -411,60 +485,169 @@ def phase_train(fault_libs):
                 else kernel_check.flash_bwd_kernel)
         with swap(fault_libs[name]):
             faulty[name] = _step_errors(*_loss_and_grads(m, ids), loss_p, g_p)
+    # and through a captured step, made afresh for each kernel library
+    m.set_optimizer(opt.SGD(lr=0.0))
+    m.compile([ids], is_train=True, use_graph=True)
+    captured_sound = _captured_step_errors(m, ids, loss_p, g_p)
+    with kernel_check.flash_bwd_kernel(fault_libs[CAPTURED_FAULT]):
+        captured_fault = _captured_step_errors(m, ids, loss_p, g_p)
+    graph.reset_graph()                   # the graph kept the fault's kernels
     del g_p
 
-    m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
-    m.compile([ids], is_train=True, use_graph=True)
-    losses = [m.train_step(ids)[1].item() for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
+    # from the same initial weights: eager steps, then captured ones
+    runs = {}
+    for use_graph in (False, True):
+        m.set_params(start)
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        m.compile([ids], is_train=True, use_graph=use_graph)
+        runs[use_graph] = [m.train_step(b)[1].item() for b in batches]
+        if not use_graph:
+            torch.cuda.reset_peak_memory_stats()
+            eager_times = [_timed(lambda: m.train_step(x))[1]
+                           for _ in range(EAGER_TIMED)]
+            eager_peak = torch.cuda.max_memory_allocated()
+            phase_profile(lambda: m.train_step(x),
+                          f"one eager train step, B={TB} T={TT}",
+                          {k: cfg.num_layers for k in
+                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+            for p in m.get_params().values():
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    del start
+    compare = [abs(c - e) / abs(e) for c, e in zip(runs[True], runs[False])]
+    g = m.get_graph("train")
+
+    # the main path: replays of the captured step on a fixed batch
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the main path
-    times, per_step = [], []
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    times, per_step, losses = [], [], []
     for _ in range(TRAIN_STEPS):
         before = (fa.launches, fa.dq_launches, fa.dkv_launches)
-        t0 = time.perf_counter()
-        _, loss = m.train_step(ids)
+        (_, loss), t = _timed(lambda: m.train_step(x))
         losses.append(loss.item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append(t)
         per_step.append([a - b for a, b in zip(
             (fa.launches, fa.dq_launches, fa.dkv_launches), before)])
     launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
                 "flash_bwd_dkv": fa.dkv_launches}
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(times)[len(times) // 2]
+    eager_s = sorted(eager_times)[len(eager_times) // 2]
     flops = m.flops_per_token(TT) * TB * TT
+    peak_flops = PEAK_FLOPS[torch.bfloat16]
     result = {
         "phase": "train", "config": "LlamaConfig.base(), fused_loss=True",
         "optimizer": "SGD(lr=0.01, momentum=0.9)", "params": m.num_params(),
-        "B": TB, "T": TT, "warmup_steps": TRAIN_WARMUP,
+        "B": TB, "T": TT, "captured": g.graph is not None,
+        "capture_s": g.capture_seconds, "graph_num_ops": g.num_ops,
+        "graph_flops": g.flops(), "graph_pool_bytes": g.pool_bytes,
+        "graph_launches": g.launches,
         "timed_steps": TRAIN_STEPS, "step_ms": [t * 1e3 for t in times],
         "median_step_ms": step_s * 1e3, "tokens_per_s": TB * TT / step_s,
-        "flops_per_step": flops,
-        "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
-        "peak_memory_bytes": peak, "losses": losses,
-        "launches": launches, "launches_per_step": per_step,
-        "expected_per_step": cfg.num_layers,
+        "flops_per_step": flops, "mfu": flops / step_s / peak_flops,
+        "peak_memory_bytes": peak,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "losses": losses, "launches": launches,
+        "launches_per_step": per_step, "expected_per_step": cfg.num_layers,
+        "eager": {"step_ms": [t * 1e3 for t in eager_times],
+                  "median_step_ms": eager_s * 1e3,
+                  "tokens_per_s": TB * TT / eager_s,
+                  "mfu": flops / eager_s / peak_flops,
+                  "peak_memory_bytes": eager_peak},
+        "eager_vs_captured": {"eager_losses": runs[False],
+                              "captured_losses": runs[True],
+                              "rel_diff": compare,
+                              "bitwise": runs[False] == runs[True],
+                              "loss_rtol": TRAIN_LOSS_RTOL},
         "kernel_vs_plain": {**sound, "loss_plain": loss_p,
                             "loss_rtol": TRAIN_LOSS_RTOL,
                             "grad_rtol": TRAIN_GRAD_RTOL},
         "faults_vs_plain": faulty,
+        "captured_vs_plain": captured_sound,
+        "captured_fault_vs_plain": {CAPTURED_FAULT: captured_fault},
     }
     emit(result)
+    check(result["captured"], "train_step did not run a captured graph")
+    check(g.launches == {k: cfg.num_layers for k in launches},
+          f"the train graph holds {g.launches}")
     check(all(s == [cfg.num_layers] * 3 for s in per_step),
           f"flash kernels launched {per_step} times per step, expected "
           f"{cfg.num_layers} each")
+    check(max(compare) <= TRAIN_LOSS_RTOL,
+          f"captured losses {runs[True]} differ from eager {runs[False]}")
     check(np.isfinite(losses).all(), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(all(p.dtype == torch.float32 for p in m.get_params().values()),
           "masters are not f32")
     check(sound["ok"], f"loss or gradients with the kernels differ from "
           f"plain ({loss_p}): {sound}")
+    check(captured_sound["ok"], f"the captured step differs from plain: "
+          f"{captured_sound}")
     missed = [n for n in TRAIN_FAULTS if faulty[n]["ok"]]
     check(not missed, f"planted faults pass the step's limits: {missed}")
-    phase_profile(lambda: m.train_step(ids),
-                  f"one train step, B={TB} T={TT}")
+    check(not captured_fault["ok"], f"{CAPTURED_FAULT} passes the step's "
+          f"limits through a captured step: {captured_fault}")
+    phase_profile(lambda: m.train_step(x),
+                  f"one replayed train step, B={TB} T={TT}",
+                  {k: cfg.num_layers for k in launches})
     return launches
+
+
+def phase_checkpoint():
+    """Save after step CKPT_SAVE_AFTER of a captured run, load into a
+    fresh model, run the remaining steps: the losses must equal the
+    uninterrupted run's.  LlamaConfig.base() at its widths, cut to
+    CKPT_LAYERS layers."""
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.models import Llama, LlamaConfig
+
+    dev = device.create_device("cuda")
+    cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True,
+                              num_layers=CKPT_LAYERS)
+    rng = np.random.RandomState(11)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (TB, TT))
+                               .astype(np.int32), device="cuda")
+               for _ in range(CKPT_STEPS)]
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt.npz"
+
+    def model(seed):
+        m = Llama(cfg, device=dev,
+                  generator=torch.Generator("cuda").manual_seed(seed))
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        m.compile([batches[0]], is_train=True, use_graph=True)
+        return m
+
+    m = model(0)
+    whole = []
+    for i, b in enumerate(batches):
+        whole.append(m.train_step(b)[1].item())
+        if i + 1 == CKPT_SAVE_AFTER:
+            _, save_s = _timed(lambda: m.save_states(str(path)))
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = model(1)
+    try:
+        _, load_s = _timed(lambda: m.load_states(str(path)))
+        file_bytes = path.stat().st_size
+    finally:
+        path.unlink()
+    resumed = [m.train_step(b)[1].item() for b in batches[CKPT_SAVE_AFTER:]]
+    rel = [abs(r - w) / abs(w) for r, w in zip(resumed,
+                                                whole[CKPT_SAVE_AFTER:])]
+    emit({"phase": "checkpoint",
+          "config": f"LlamaConfig.base(), fused_loss=True, num_layers="
+                    f"{CKPT_LAYERS}", "params": m.num_params(),
+          "saved_after_step": CKPT_SAVE_AFTER, "file_bytes": file_bytes,
+          "save_s": save_s, "load_s": load_s,
+          "uninterrupted_losses": whole, "resumed_losses": resumed,
+          "rel_diff": rel, "bitwise": resumed == whole[CKPT_SAVE_AFTER:],
+          "loss_rtol": TRAIN_LOSS_RTOL,
+          "resumed_captured": m.graph.graph is not None})
+    check(max(rel) <= TRAIN_LOSS_RTOL,
+          f"resumed losses {resumed} differ from {whole}")
+    check(m.graph.graph is not None, "the resumed run did not capture")
 
 
 def _kernel_kind(name):
@@ -477,11 +660,13 @@ def _kernel_kind(name):
     return "other"
 
 
-def phase_profile(fn, what):
+def phase_profile(fn, what, expect):
     """Where one call's time goes on the card: device time of every
     kernel under torch.profiler, by kind, against the wall time of the
-    same (profiled) call.  Informational: a profiler that records no
-    device time reports "not measured" instead of failing the run."""
+    same (profiled) call, the host's idle share of the card, and each
+    hand-written kernel's launches by name, which must be `expect`.
+    A profiler that records no device time reports "not measured"
+    instead of failing the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -498,19 +683,26 @@ def phase_profile(fn, what):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    by_kind = {}
-    for name, (ms, _) in by_name.items():
+    by_kind, count = {}, {}
+    for name, (ms, n) in by_name.items():
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        count[kind] = count.get(kind, 0) + n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    seen = {k: count.get(k, 0) for k in expect}
     emit({"phase": "profile", "what": what,
           "wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms if busy_ms else "not measured",
           "device_busy_share": busy_ms / wall_ms if busy_ms
           else "not measured",
-          "device_ms_by_kind": by_kind,
+          "host_idle_ms": wall_ms - busy_ms if busy_ms else "not measured",
+          "device_ms_by_kind": by_kind, "kernels_by_name": seen,
+          "expected_kernels": expect,
           "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                           for k, v in top]})
+    if busy_ms:
+        check(seen == expect, f"the profile of {what} saw {seen} launches "
+              f"of the hand-written kernels, expected {expect}")
 
 
 def _bound(flops, nbytes):
@@ -659,16 +851,27 @@ def main():
         phase_kernels()
         phase_faults(faults)
     gen_launches = phase_slice()
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = phase_train(faults)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_checkpoint()
+    gc.collect()
+    torch.cuda.empty_cache()
     rows = phase_timing()
     kernels = []
     for r in rows:
         if r["shape"] != "train":
             continue
         source, replaces = KERNELS[r["name"]]
-        by_path = {"train": train_launches[r["name"]]}
+        by_path = {"train": {"launches": train_launches[r["name"]],
+                             "steps": TRAIN_STEPS,
+                             "per_step": train_launches[r["name"]]
+                             / TRAIN_STEPS}}
         if r["name"] == "flash_fwd":
-            by_path["generate"] = gen_launches
+            by_path["generate"] = {"launches": gen_launches, "calls": 1,
+                                   "per_call": gen_launches}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[r["name"]],

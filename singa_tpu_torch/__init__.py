@@ -23,7 +23,10 @@ from . import autograd
 from . import layer
 from . import model
 from . import opt
+from . import graph
 from . import ops
 from . import models
+from . import utils
 
-__all__ = ["device", "autograd", "layer", "model", "opt", "ops", "models"]
+__all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
+           "models", "utils"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,9 +40,49 @@ class Layer(nn.Module):
             p.param_name = name
         return params
 
+    def _get_buffers(self) -> Dict[str, torch.Tensor]:
+        """Persistent buffers (non-trainable states) keyed by attribute
+        path.  Non-persistent buffers, such as the RoPE tables a model
+        rebuilds from its config, are not states."""
+        params = dict(self.named_parameters())
+        return {n: t for n, t in self.state_dict(keep_vars=True).items()
+                if n not in params}
+
+    def get_states(self) -> Dict[str, torch.Tensor]:
+        """Everything a checkpoint holds: parameters and persistent
+        buffers, keyed by attribute path."""
+        out = dict(self.get_params())
+        out.update(self._get_buffers())
+        return out
+
+    def set_params(self, params: Dict) -> None:
+        """Copy each given array (numpy or tensor) into the parameter of
+        the same name, in its existing storage: a captured step reads
+        parameters by address, so a load never rebinds them.  Names this
+        layer does not have are ignored, as in the reference; a shape
+        that differs raises before anything is copied."""
+        _copy_into(self.get_params(), params)
+
+    def set_states(self, states: Dict) -> None:
+        """`set_params` over parameters and persistent buffers."""
+        _copy_into(self.get_states(), states)
+
     def _new_param(self, shape) -> nn.Parameter:
         return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                         device=self.device.torch_device))
+
+
+def _copy_into(dst: Dict[str, torch.Tensor], src: Dict) -> None:
+    names = [n for n in dst if n in src]
+    for n in names:
+        if tuple(src[n].shape) != tuple(dst[n].shape):
+            raise ValueError(f"{n}: shape {tuple(src[n].shape)} does not "
+                             f"match the layer's {tuple(dst[n].shape)}")
+    with torch.no_grad():
+        for n in names:
+            a = src[n]
+            dst[n].copy_(a if isinstance(a, torch.Tensor)
+                         else torch.tensor(np.asarray(a)))
 
 
 def _generator(dev: Device, generator: Optional[torch.Generator]):

@@ -3,26 +3,38 @@
 The user writes an imperative subclass (``forward``, ``train_one_batch``
 calling ``self.optimizer(loss)``), then ``set_optimizer``, ``compile``
 and ``train_step``.  The reference traces the step into one jitted XLA
-module; here `_StepExecutor` runs it eagerly on one device, with the
-reference's bookkeeping: one executor per (input shapes, dtypes, tag),
-made afresh when any of these changes; a separate eval executor; the
-optimizer's step counter advanced once per step; the optimizer's slots
-kept in its eager store.  Capturing the step (CUDA graphs) is later
-work.
+module; here `_StepExecutor` captures it as a CUDA graph on the card,
+with the reference's bookkeeping: one executor per (input shapes,
+dtypes, tag), made afresh when any of these changes; a separate eval
+executor; the optimizer's step counter advanced once per step; the
+optimizer's slots kept in its eager store.  ``Model.graph`` and
+``get_graph`` return the executor's ``graph.CapturedGraph``;
+``save_states``/``load_states`` go through ``utils.checkpoint``.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from . import autograd
 from .device import Device, get_default_device
+from .graph import CapturedGraph, record
 from .layer import Layer
 from .opt import Optimizer
 
 __all__ = ["Model", "Module", "model_device"]
+
+# every live model, so reset_graph() can drop their captured graphs
+_live_models = weakref.WeakSet()
+
+
+def _invalidate_all_graphs() -> None:
+    for m in list(_live_models):
+        m._executors.clear()
+        m._gen_sessions.clear()
 
 
 class Model(Layer):
@@ -38,6 +50,8 @@ class Model(Layer):
         self._executors: Dict[Any, "_StepExecutor"] = {}
         self._compiled_init = False
         self._step_count = 0
+        self._gen_sessions: Dict[Any, Any] = {}
+        _live_models.add(self)
 
     # -- reference API --------------------------------------------------------
     def set_optimizer(self, opt: Optimizer) -> None:
@@ -113,6 +127,28 @@ class Model(Layer):
     def _eval_body(self, batch):
         return self.forward(*batch)
 
+    @property
+    def graph(self) -> Optional[CapturedGraph]:
+        """The most recently made executor's step graph."""
+        return self.get_graph()
+
+    def get_graph(self, tag: Optional[str] = None) -> Optional[CapturedGraph]:
+        """A step graph, optionally of one kind of step ('train' |
+        'eval'): a model that ran both has one of each."""
+        for ex in reversed(list(self._executors.values())):
+            if ex.captured is not None and (tag is None or ex.tag == tag):
+                return ex.captured
+        return None
+
+    # -- state I/O ------------------------------------------------------------
+    def save_states(self, fpath: str, aux_states: Optional[Dict] = None) -> None:
+        from .utils import checkpoint
+        checkpoint.save_states(self, fpath, aux_states)
+
+    def load_states(self, fpath: str) -> Dict:
+        from .utils import checkpoint
+        return checkpoint.load_states(self, fpath)
+
     def _run_graph(self, tag: str, body, batch):
         dev = self.device.torch_device
         tensors = tuple(torch.as_tensor(b, device=dev) for b in batch)
@@ -131,17 +167,36 @@ Module = Model
 def _slot_compatible(restored, fresh) -> bool:
     """True when a restored slot has the same structure and shapes as a
     freshly made one."""
-    if fresh is None or isinstance(fresh, torch.Tensor):
-        return (restored is None if fresh is None else
-                isinstance(restored, torch.Tensor)
+    if fresh is None:
+        return restored is None
+    if isinstance(fresh, torch.Tensor):
+        return (isinstance(restored, torch.Tensor)
                 and restored.shape == fresh.shape)
+    if isinstance(fresh, dict):
+        return (isinstance(restored, dict) and restored.keys() == fresh.keys()
+                and all(_slot_compatible(restored[k], fresh[k])
+                        for k in fresh))
     return (isinstance(restored, tuple) and len(restored) == len(fresh)
             and all(_slot_compatible(r, f) for r, f in zip(restored, fresh)))
 
 
 class _StepExecutor:
     """Runs one kind of step ('train' or 'eval') of a model at one set
-    of input shapes and dtypes, eagerly on the model's device.
+    of input shapes and dtypes.
+
+    On a CUDA device the step is captured as a CUDA graph: the first
+    call runs the body eagerly and records its ops (`graph.record`), the
+    second runs it eagerly on a side stream (the warm-up capture needs),
+    the third captures it over static copies of the inputs and replays
+    it once (capture runs nothing), and every later call copies its
+    inputs into the static ones and replays.  Each call makes exactly
+    one real step.  What a step reads that changes between steps is on
+    the device: the batch (static inputs), the optimizer's step
+    (`Optimizer.step_tensor`, advanced inside the graph), the
+    parameters and slots (updated in place).  Outputs are cloned out of
+    the graph's pool, so a result held from one step is not overwritten
+    by the next.  A capture that fails raises; nothing falls back to
+    eager.  On the CPU device every call runs the body eagerly.
 
     A train executor owns the optimizer's slots: at construction it
     makes a fresh slot for each parameter, or takes one restored into
@@ -156,6 +211,12 @@ class _StepExecutor:
         self.is_train = tag == "train"
         self.param_tensors = dict(model.get_params())
         self.opt = model.optimizer if self.is_train else None
+        self.device = model.device.torch_device
+        self.calls = 0
+        self.captured: Optional[CapturedGraph] = None
+        self._stream = None
+        self._static_in = None
+        self._static_out = None
         self.slots: Dict = {}
         if self.opt is not None:
             est = self.opt._eager_state
@@ -173,21 +234,53 @@ class _StepExecutor:
                     self.slots[n] = fresh
             self.opt._eager_state = dict(self.slots)
 
-    def __call__(self, batch):
-        m, opt = self.model, self.opt
-        step_host = opt.step_counter if opt is not None else m._step_count
+    def _run(self, batch):
         saved_training = autograd.is_training()
         autograd.set_training(self.is_train)
         try:
             with torch.set_grad_enabled(self.is_train):
-                outs = self.body(batch)
+                return _detach(self.body(batch))
         finally:
             autograd.set_training(saved_training)
+
+    def __call__(self, batch):
+        m, opt = self.model, self.opt
+        step_host = opt.step_counter if opt is not None else m._step_count
+        if self.calls == 0:
+            outs, self.captured = record(self.tag, lambda: self._run(batch))
+        elif self.device.type != "cuda":
+            outs = self._run(batch)
+        elif self.calls == 1:
+            outs = self._warm_up(batch)
+        elif self.calls == 2:
+            outs = self._capture(batch)
+        else:
+            for s, t in zip(self._static_in, batch):
+                s.copy_(t)
+            self.captured.replay()
+            outs = _clone(self._static_out)
+        self.calls += 1
         m._step_count += 1
         if opt is not None:
             opt.step_counter = step_host + 1
             self.slots = dict(opt._eager_state)
-        return _detach(outs)
+        return outs
+
+    def _warm_up(self, batch):
+        self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            outs = self._run(batch)
+        current.wait_stream(self._stream)
+        return outs
+
+    def _capture(self, batch):
+        self._static_in = tuple(t.clone() for t in batch)
+        self._static_out = self.captured.capture(
+            lambda: self._run(self._static_in), self._stream)
+        self.captured.replay()
+        return _clone(self._static_out)
 
 
 def _detach(outs):
@@ -195,6 +288,14 @@ def _detach(outs):
         return outs.detach()
     if isinstance(outs, (tuple, list)):
         return type(outs)(_detach(o) for o in outs)
+    return outs
+
+
+def _clone(outs):
+    if isinstance(outs, torch.Tensor):
+        return outs.clone()
+    if isinstance(outs, (tuple, list)):
+        return type(outs)(_clone(o) for o in outs)
     return outs
 
 

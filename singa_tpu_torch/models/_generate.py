@@ -1,26 +1,37 @@
 """Autoregressive generation with a static KV cache, ported from
 ``singa_tpu/models/_generate.py`` (``prefill_step``, ``decode_step``,
-``GenerateMixin.generate`` and ``_pick_impl``).
+``_GenSession``, ``GenerateMixin.generate`` and ``_pick_impl``).
 
-The reference runs the pick→decode loop as one jitted ``lax.scan``; here
-it is a Python loop of eager steps.  Prefill runs the prompt forward
-(the flash kernel on the card when the shape tiles) and writes the
-caches; each decode step runs one token against the whole cache.
+The reference runs generation as two jitted programs: the prefill, and
+one ``lax.scan`` over every pick→decode step.  Here a `_GenSession`
+(one per batch, prompt length, total length and parameter dtype, kept
+on the model) captures two CUDA graphs on the card: the prefill with
+the first pick (the flash forward on the prompt), and one decode→pick
+step, replayed max_new_tokens - 1 times.  One step graph replayed is
+captured in a fraction of the time N steps would take, serves every
+call of the session, and costs one graph launch of host time per token.
+The decode position, the eos state and the generator are on the device,
+so each replay reads its own; the weights are copied (cast) into the
+session's static parameters inside the prefill graph, so every call
+sees the current masters.  With ``use_graph=False``, or on the CPU, the
+same steps run eagerly.
 
-Sampling draws from a ``torch.Generator`` on the model's device seeded
-by ``seed``.  Its streams are not the JAX package's (``jax.random``):
-sampled tokens agree with the reference in distribution, not in value.
+Sampling draws from the session's ``torch.Generator``, seeded by
+``seed``, registered with the graphs so every replay draws afresh.  Its
+streams are not the JAX package's (``jax.random``): sampled tokens agree
+with the reference in distribution, not in value.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import autograd
+from ..graph import CapturedGraph, record
 from ..model import model_device
 
 __all__ = ["GenerateMixin", "prefill_step", "decode_step"]
@@ -60,8 +71,9 @@ def prefill_step(model, total_len: int, last_only: bool = True):
 
 def decode_step(model):
     """Build the one-token decode closure: (tok (B, 1), pos, caches) ->
-    (logits (B, V), caches).  `pos` is an int (all rows at one depth)
-    or a (B,) tensor (every row at its own depth)."""
+    (logits (B, V), caches).  `pos` is an int (all rows at one depth),
+    a 0-d tensor (the same, on the device) or a (B,) tensor (every row
+    at its own depth)."""
 
     def decode(tok, pos, caches):
         logits, caches = model.forward_cached(tok, caches=caches, pos=pos)
@@ -92,18 +104,177 @@ def _pick_impl(logits, temperature: float, generator: torch.Generator,
                              torch.full_like(sorted_lg, float("inf")))
         cutoff = cutoff.amin(dim=-1, keepdim=True)
         lg = lg.masked_fill(lg < cutoff, float("-inf"))
+    # one draw of torch.multinomial(probs, 1) written out: argmax of
+    # probs / Exp(1) noise.  multinomial itself checks its input on the
+    # host, which a captured step cannot do
     probs = torch.softmax(lg, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)
+
+
+class _GenSession:
+    """The programs of generate() for one (batch, prompt, total length,
+    parameter dtype): on a CUDA device with `use_graph`, a captured
+    prefill and a captured decode step per set of pick options (greedy
+    or sampling controls, eos); otherwise the same steps run eagerly.
+
+    Static state: the parameters in the dtype asked for (the masters
+    themselves when none is), the prompt, the current token, its
+    position, the eos flags and the (B, N) tokens.  A call runs the
+    prefill (masters copied into the static parameters, prompt forward,
+    first pick) and N - 1 decode steps (one token forward at the device
+    position, next pick).  The first call of a captured program runs it
+    eagerly on a side stream (the warm-up), the second captures it and
+    every later one replays it."""
+
+    def __init__(self, model, batch: int, prompt_len: int, total_len: int,
+                 param_dtype, use_graph: bool):
+        self.model = model
+        self.prompt_len, self.total_len = prompt_len, total_len
+        dev = self.device = model_device(model).torch_device
+        self.capture = use_graph and dev.type == "cuda"
+        self.masters = {n: t.detach() for n, t in model.get_params().items()}
+        self.params = {n: (torch.empty_like(t, dtype=param_dtype)
+                           if param_dtype is not None
+                           and t.is_floating_point() else t)
+                       for n, t in self.masters.items()}
+        n_new = total_len - prompt_len
+        self.ids = torch.zeros((batch, prompt_len), dtype=torch.int32,
+                               device=dev)
+        self.toks = torch.zeros((batch, n_new), dtype=torch.int32,
+                                device=dev)
+        self.tok = torch.zeros(batch, dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self.gen = torch.Generator(dev)
+        self.caches = None
+        self._programs: Dict[Tuple, "_GenProgram"] = {}
+
+    def fits(self, model) -> bool:
+        """Whether the model's masters are still the ones this session
+        reads (a graph reads them by address)."""
+        params = model.get_params()
+        return params.keys() == self.masters.keys() and all(
+            params[n].data_ptr() == t.data_ptr()
+            for n, t in self.masters.items())
+
+    # -- the two steps --------------------------------------------------------
+    def _pick(self, logits, opts) -> None:
+        """Pick the next token of every row from (B, V) f32 logits and
+        write it at column pos - P of the tokens."""
+        temp, top_k, top_p, eos_id = opts
+        tok = _pick_impl(logits, temp, self.gen, top_k, top_p)
+        if eos_id is not None:
+            tok = torch.where(self.stopped, eos_id, tok)
+            self.done |= tok == eos_id
+            self.stopped.copy_(self.done.all())
+        self.tok.copy_(tok)
+        col = (self.pos - self.prompt_len).reshape(1)
+        self.toks.index_copy_(1, col, tok[:, None].to(torch.int32))
+
+    def _prefill(self, opts) -> None:
+        for n, t in self.params.items():
+            if t is not self.masters[n]:
+                t.copy_(self.masters[n])
+        with _bound(self.model, self.params):
+            logits, self.caches = prefill_step(self.model, self.total_len)(
+                self.ids)
+        self.pos.fill_(self.prompt_len)
+        self.done.zero_()
+        self.stopped.zero_()
+        self._pick(logits.float(), opts)
+
+    def _decode(self, opts) -> None:
+        with _bound(self.model, self.params):
+            logits, _ = decode_step(self.model)(self.tok[:, None], self.pos,
+                                                self.caches)
+        self.pos += 1
+        self._pick(logits.float(), opts)
+
+    # -- a call ---------------------------------------------------------------
+    def run(self, ids: np.ndarray, n_new: int, seed: int, opts) -> np.ndarray:
+        """(B, n_new) int32 tokens for prompt `ids`."""
+        prog = self._programs.get(opts)
+        if prog is None:
+            prog = self._programs[opts] = _GenProgram(self, opts)
+        self.ids.copy_(torch.as_tensor(ids, dtype=torch.int32))
+        self.gen.manual_seed(int(seed))
+        prog.run(n_new)
+        return self.toks.cpu().numpy()
+
+
+class _GenProgram:
+    """A session's prefill and decode step for one set of pick options:
+    eager, or captured CUDA graphs (see `_GenSession`)."""
+
+    def __init__(self, sess: _GenSession, opts):
+        self.sess, self.opts = sess, opts
+        self.calls = 0
+        self.graphs: Dict[str, CapturedGraph] = {}
+        self.caches = None
+        self._stream = None
+
+    def run(self, n_new: int) -> None:
+        sess, opts = self.sess, self.opts
+        if not sess.capture:
+            sess._prefill(opts)
+            for _ in range(n_new - 1):
+                sess._decode(opts)
+        elif self.calls == 0:
+            self._warm_up(n_new)
+        else:
+            if self.calls == 1:
+                self._capture()
+            self.graphs["prefill"].replay()
+            for _ in range(n_new - 1):
+                self.graphs["decode"].replay()
+        self.calls += 1
+
+    def _warm_up(self, n_new: int) -> None:
+        """The first call: eager, on the capture's side stream, with the
+        first run of each step recorded."""
+        sess, opts = self.sess, self.opts
+        self._stream = torch.cuda.Stream(sess.device)
+        current = torch.cuda.current_stream(sess.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            _, self.graphs["prefill"] = record(
+                "prefill", lambda: sess._prefill(opts))
+            for i in range(n_new - 1):
+                if i == 0:
+                    _, self.graphs["decode"] = record(
+                        "decode", lambda: sess._decode(opts))
+                else:
+                    sess._decode(opts)
+        current.wait_stream(self._stream)
+
+    def _capture(self) -> None:
+        """Capture the prefill, then the decode step over the caches the
+        prefill graph writes (kept here: the graphs read them)."""
+        sess, opts = self.sess, self.opts
+        gens = (sess.gen,) if opts[0] > 0 else ()
+        if gens and not hasattr(torch.cuda.CUDAGraph,
+                                "register_generator_state"):
+            raise RuntimeError(
+                f"sampled generate() cannot be captured with torch "
+                f"{torch.__version__}: its CUDAGraph has no "
+                f"register_generator_state; pass use_graph=False")
+        self.graphs["prefill"].capture(lambda: sess._prefill(opts),
+                                       self._stream, gens)
+        self.caches = sess.caches
+        if "decode" in self.graphs:
+            self.graphs["decode"].capture(lambda: sess._decode(opts),
+                                          self._stream, gens)
 
 
 class GenerateMixin:
     """Adds `generate()` to decoder models exposing
     `forward_cached(ids, caches, pos)` and `init_caches(batch, max_len)`."""
 
-    def _gen_setup(self, prompt_ids, max_new_tokens: int, param_dtype=None):
-        """Normalize the prompt, enforce max_position, and build the
-        parameters for this call (cast once to `param_dtype` if given:
-        decode is weight-read bound, so bf16 weights halve its bytes)."""
+    def _gen_setup(self, prompt_ids, max_new_tokens: int):
+        """Normalize the prompt to (B, P) and enforce max_position:
+        (ids, B, P, S) with S = P + max_new_tokens."""
         ids = np.asarray(prompt_ids)
         if ids.ndim == 1:
             ids = ids[None, :]
@@ -116,51 +287,44 @@ class GenerateMixin:
             raise ValueError(
                 f"prompt ({P}) + max_new_tokens ({max_new_tokens}) = {S} "
                 f"exceeds the model's max_position ({max_pos})")
-        params = {n: t.detach() for n, t in self.get_params().items()}
-        if param_dtype is not None:
-            params = {n: (a.to(param_dtype) if a.is_floating_point() else a)
-                      for n, a in params.items()}
-        return ids, B, P, S, params
+        return ids, B, P, S
+
+    def _gen_session(self, B: int, P: int, S: int, param_dtype,
+                     use_graph: bool) -> _GenSession:
+        key = (B, P, S, param_dtype, use_graph)
+        sess = self._gen_sessions.get(key)
+        if sess is None or not sess.fits(self):
+            sess = self._gen_sessions[key] = _GenSession(
+                self, B, P, S, param_dtype, use_graph)
+        return sess
 
     @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens: int,
                  temperature: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
-                 param_dtype: Optional[torch.dtype] = None) -> np.ndarray:
+                 param_dtype: Optional[torch.dtype] = None,
+                 use_graph: bool = True) -> np.ndarray:
         """Greedy (temperature=0) or sampled decoding, with optional
         top-k and/or nucleus (top-p) filtering when sampling.
 
         prompt_ids: int array (B, P).  Always returns a (B, P +
         max_new_tokens) int32 numpy array.  When `eos_id` is given, rows
         keep decoding until every row has emitted it; the remaining
-        positions are then filled with eos_id."""
-        ids, B, P, S, params = self._gen_setup(prompt_ids, max_new_tokens,
-                                               param_dtype)
-        dev = model_device(self).torch_device
+        positions are then filled with eos_id.  On a CUDA device the
+        prefill and the decode step run as captured CUDA graphs;
+        `use_graph=False` runs the same steps eagerly."""
+        ids, B, P, S = self._gen_setup(prompt_ids, max_new_tokens)
         temp = float(temperature) if temperature and temperature > 0 \
             else 0.0
-        gen = torch.Generator(dev)
-        gen.manual_seed(int(seed))
-        toks = torch.empty((B, max_new_tokens), dtype=torch.int32,
-                           device=dev)
-        with _bound(self, params):
-            logits, caches = prefill_step(self, S)(
-                torch.as_tensor(ids, dtype=torch.int32, device=dev))
-            logits = logits.float()
-            decode = decode_step(self)
-            done = torch.zeros(B, dtype=torch.bool, device=dev)
-            for i in range(max_new_tokens):
-                tok = _pick_impl(logits, temp, gen, top_k, top_p)
-                if eos_id is not None:
-                    done |= tok == eos_id
-                toks[:, i] = tok
-                if eos_id is not None and bool(done.all()):
-                    toks[:, i + 1:] = eos_id
-                    break
-                if i + 1 < max_new_tokens:
-                    # the last pick needs no forward: its logits go unused
-                    logits, caches = decode(toks[:, i:i + 1], P + i, caches)
-                    logits = logits.float()
-        return np.concatenate([ids.astype(np.int32),
-                               toks.cpu().numpy()], axis=1)
+        vocab = self.cfg.vocab_size
+        # greedy ignores the sampling controls, and out-of-range ones are
+        # no-ops: normalise them so they do not make new programs
+        if temp == 0.0 or not (top_k and 0 < top_k < vocab):
+            top_k = None
+        if temp == 0.0 or not (top_p and 0.0 < top_p < 1.0):
+            top_p = None
+        sess = self._gen_session(B, P, S, param_dtype, use_graph)
+        toks = sess.run(ids, max_new_tokens, seed,
+                        (temp, top_k, top_p, eos_id))
+        return np.concatenate([ids.astype(np.int32), toks], axis=1)

@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
 
 __all__ = ["load_reference_params"]
 
@@ -24,11 +23,4 @@ def load_reference_params(model, arrays: Dict[str, np.ndarray]) -> None:
     if missing or extra:
         raise KeyError(f"parameter names differ: missing {missing}, "
                        f"extra {extra}")
-    for name, p in params.items():
-        a = np.asarray(arrays[name])
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(a.shape)} does not "
-                             f"match the port's {tuple(p.shape)}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.tensor(np.asarray(arrays[name], np.float32)))
+    model.set_params(arrays)

@@ -53,7 +53,9 @@ _NEG_INF = -1e30
 _MAX_HEAD_DIM = 256
 
 #: kernel launches since the last reset, one count per kernel (plain
-#: counts: chip_smoke.py resets and reads them around the main paths)
+#: counts: chip_smoke.py resets and reads them around the main paths).
+#: A replay of a CUDA graph calls no wrapper: graph.CapturedGraph.replay
+#: adds the launches its capture recorded
 launches = 0          # flash_fwd
 dq_launches = 0       # flash_bwd dQ
 dkv_launches = 0      # flash_bwd dK/dV

@@ -34,8 +34,11 @@ def init_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
 
 def update_cache(ck, cv, k_new, v_new, pos):
     """Write k/v (B, T, K, D) for positions [pos, pos+T) into the cache,
-    in place.  `pos` is an int (every row at one depth) or a (B,) tensor
-    (row b writes at its own positions [pos[b], pos[b]+T))."""
+    in place.  `pos` is an int (every row at one depth), a 0-d tensor
+    (the same, read on the device: a captured decode step's position) or
+    a (B,) tensor (row b writes at its own positions [pos[b], pos[b]+T)).
+    A tensor position is written with index_put_, which does not sync
+    the host."""
     T = k_new.shape[1]
     if isinstance(pos, int):
         ck[:, pos:pos + T] = k_new.to(ck.dtype)

@@ -50,8 +50,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                offset=0) -> torch.Tensor:
     """Rotate-half RoPE of x (B, T, H, D) at positions [offset, offset+T).
 
-    `offset` is an int (all rows at one depth) or a (B,) tensor (row b
-    rotates at its own positions, as continuous-batching decode needs).
+    `offset` is an int (all rows at one depth), a 0-d tensor (the same,
+    read on the device) or a (B,) tensor (row b rotates at its own
+    positions, as continuous-batching decode needs).
     Rotation runs in f32; the result is cast back to x's dtype."""
     T = x.shape[1]
     if isinstance(offset, torch.Tensor):

@@ -181,3 +181,198 @@ def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in m.get_params().values())
+
+
+# -- captured steps (CUDA graphs) -----------------------------------------------
+
+# the captured train step against the eager one, relative (losses; the
+# parameters by Frobenius norm): the same kernels on the same inputs,
+# launched from a graph instead of from the host
+CAPTURE_RTOL = 2e-5
+
+
+def _small_llama(cuda_device, seed=0):
+    """Tiny Llama at head_dim 32 (the smallest the kernels tile), long
+    enough (T >= 512) for the flash route."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, max_position=1024,
+                              fused_loss=True)
+    return Llama(cfg, device=cuda_device,
+                 generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def _batches(n, b=2, t=512, vocab=256):
+    rng = np.random.RandomState(7)
+    return [torch.as_tensor(rng.randint(0, vocab, (b, t)), device="cuda")
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_captured_train_step_matches_eager(cuda_device):
+    batches = _batches(6)
+    runs = {}
+    for use_graph in (False, True):
+        m = _small_llama(cuda_device)
+        m.set_optimizer(topt.AdamW(lr=topt.WarmupCosine(3e-3, 2, 6)))
+        m.compile([batches[0]], is_train=True, use_graph=use_graph)
+        held, losses, per_step = [], [], []
+        for x in batches:
+            before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+            _, loss = m.train_step(x)
+            held.append(loss)
+            losses.append(loss.item())
+            per_step.append(tuple(a - b for a, b in zip(
+                (tfa.launches, tfa.dq_launches, tfa.dkv_launches), before)))
+        # a loss returned at step k keeps its value after later steps
+        assert [t.item() for t in held] == losses
+        assert per_step == [(m.cfg.num_layers,) * 3] * len(batches)
+        runs[use_graph] = (losses, m.get_params(), m)
+    (le, pe, _), (lc, pc, mc) = runs[False], runs[True]
+    np.testing.assert_allclose(lc, le, rtol=CAPTURE_RTOL)
+    assert len(set(le)) == len(le)
+    for n, p in pe.items():
+        rel = ((pc[n] - p).norm() / p.norm()).item()
+        assert rel <= CAPTURE_RTOL, (n, rel)
+    g = mc.get_graph("train")
+    assert g.graph is not None and g.pool_bytes > 0 and g.capture_seconds
+    assert g.launches == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                          "flash_bwd_dkv": 2}
+    # the FLOPs the counter sees: every matrix product but attention's,
+    # which runs in the flash kernels
+    c, T = mc.cfg, 512
+    expect = (mc.flops_per_token(T) - 12 * c.num_layers * c.dim * T) * 2 * T
+    assert abs(g.flops() - expect) <= 0.01 * expect
+
+
+@pytest.mark.cuda
+def test_captured_bodies_do_not_sync_the_host(cuda_device):
+    m = _small_llama(cuda_device)
+    m.set_optimizer(topt.GradAccum(topt.AdamW(lr=topt.CosineDecay(1e-3, 9)),
+                                   2))
+    x = _batches(1)[0]
+    m.compile([x], is_train=True, use_graph=True)
+    m.train_step(x)                       # builds and binds the kernels
+    sess = m._gen_session(2, 512, 516, torch.bfloat16, True)
+    torch.cuda.synchronize()
+    # the bodies that get captured, run eagerly: the train step's
+    # warm-up, and the session's prefill and decode steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m.train_step(x)
+        for temp in (0.0, 1.0):
+            opts = (temp, 8 if temp else None, None, 3)
+            sess._prefill(opts)
+            sess._decode(opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    m.train_step(x)                       # capture + replay
+    assert m.graph.graph is not None
+
+
+def _fault_lib(name, tmp_path):
+    from singa_tpu_torch import _build
+    src = tmp_path / f"{name}.cu"
+    src.write_text(kernel_check.flash_bwd_fault_source(name))
+    return _build.build([src])[0].lib
+
+
+@pytest.mark.cuda
+def test_planted_fault_through_a_fresh_capture_fails(cuda_device, tmp_path):
+    from singa_tpu_torch import graph as tgraph
+    m = _small_llama(cuda_device)
+    m.set_optimizer(topt.SGD(lr=0.0))      # every step's gradient at x0
+    x = _batches(1)[0]
+    m.compile([x], is_train=True, use_graph=True)
+    params = m.get_params()
+
+    def grads_after(calls):
+        for _ in range(calls):
+            m.train_step(x)
+        return {n: p.grad.clone() for n, p in params.items()}
+
+    def worst(g, ref):
+        return max(((g[n] - ref[n]).norm() / ref[n].norm()).item()
+                   for n in ref)
+    eager = grads_after(1)
+    tgraph.reset_graph()
+    with kernel_check.flash_bwd_kernel(
+            _fault_lib("dkv_causal_strict", tmp_path)):
+        faulty = grads_after(3)            # eager, warm-up, capture
+        assert m.graph.graph is not None
+    tgraph.reset_graph()                   # the graph kept the fault
+    sound = grads_after(3)
+    assert worst(sound, eager) <= 1e-2
+    assert worst(faulty, eager) > 5e-2
+
+
+@pytest.mark.cuda
+def test_captured_generate_equals_eager_bitwise(cuda_device):
+    m = _small_llama(cuda_device)
+    prompt = np.random.RandomState(3).randint(0, 256, (2, 512))
+    kw = dict(max_new_tokens=8, param_dtype=torch.bfloat16)
+    eager = m.generate(prompt, use_graph=False, **kw)
+    outs = [m.generate(prompt, **kw) for _ in range(3)]  # warm, capture, replay
+    for out in outs:
+        np.testing.assert_array_equal(out, eager)
+    for eos in (int(eager[0, 512]), int(eager[1, 514])):
+        e = m.generate(prompt, eos_id=eos, use_graph=False, **kw)
+        for _ in range(3):
+            np.testing.assert_array_equal(
+                m.generate(prompt, eos_id=eos, **kw), e)
+    # a train step between two calls: the next call reads the new weights
+    m.set_optimizer(topt.SGD(lr=0.5))
+    m.compile([prompt], is_train=True, use_graph=True)
+    m.train_step(prompt)
+    after = m.generate(prompt, use_graph=False, **kw)
+    assert not np.array_equal(after, eager)
+    np.testing.assert_array_equal(m.generate(prompt, **kw), after)
+
+
+@pytest.mark.cuda
+def test_captured_sampling_draws_afresh_on_every_replay(cuda_device):
+    m = _small_llama(cuda_device)
+    prompt = np.random.RandomState(4).randint(0, 256, (2, 512))
+    kw = dict(max_new_tokens=8, temperature=1.0, top_k=50, top_p=0.95)
+    runs = [m.generate(prompt, seed=s, **kw) for s in (1, 1, 1, 2, 3)]
+    for r in runs[1:3]:
+        np.testing.assert_array_equal(r, runs[0])
+    assert len({r.tobytes() for r in runs}) == 3
+    assert ((runs[0] >= 0) & (runs[0] < 256)).all()
+    # the replayed steps differ from each other: the draw is not frozen
+    assert len({tuple(c) for c in runs[4][:, 512:].T}) > 1
+
+
+@pytest.mark.cuda
+def test_captured_eval_step_matches_eager(cuda_device):
+    m = _small_llama(cuda_device)
+    xs = _batches(4)
+    with torch.no_grad():
+        eager = [m(x) for x in xs]          # not compiled: eager forward
+    m.compile([xs[0]], is_train=False, use_graph=True)
+    outs = [m(x) for x in xs]               # eager, warm-up, capture, replay
+    assert m.get_graph("eval").graph is not None
+    for got, want in zip(outs, eager):      # each kept its own value
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_resume_from_a_checkpoint_recaptures(cuda_device, tmp_path):
+    xs = _batches(6)
+
+    def model(seed):
+        m = _small_llama(cuda_device, seed)
+        m.set_optimizer(topt.AdamW(lr=topt.WarmupCosine(3e-3, 2, 6)))
+        m.compile([xs[0]], is_train=True, use_graph=True)
+        return m
+    m = model(0)
+    whole = []
+    for i, x in enumerate(xs):
+        whole.append(m.train_step(x)[1].item())
+        if i == 3:                          # after a replayed step
+            m.save_states(str(tmp_path / "c.npz"))
+    r = model(1)
+    r.load_states(str(tmp_path / "c.npz"))
+    resumed = [r.train_step(x)[1].item() for x in xs[4:]]
+    np.testing.assert_allclose(resumed, whole[4:], rtol=CAPTURE_RTOL)
+    for n, p in m.get_params().items():
+        rel = ((r.get_params()[n] - p).norm() / p.norm()).item()
+        assert rel <= CAPTURE_RTOL, (n, rel)
