@@ -18,11 +18,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
   5. slice   — Llama(LlamaConfig.base()).generate() at B=4, P=1024, N=32,
                bf16 weights, captured (a CUDA graph of the prefill and
                one of the decode step, replayed N - 1 times): the flash
-               forward must launch once per layer per call, and the
-               tokens must equal an eager call's bitwise; prefill logits
-               with the kernel vs with its plain version; prefill ms,
-               decode ms/token, tokens/s, peak memory, captured beside
-               eager; then a profile of one captured call
+               forward must run once per layer per call, as the kernel
+               counts its launches on the card, and the tokens must
+               equal an eager call's bitwise; prefill logits with the
+               kernel vs with its plain version; prefill ms, decode
+               ms/token, tokens/s, peak memory, captured beside eager;
+               the card's memory as sessions of other prompt lengths
+               are added; then a profile of one captured call
   6. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
@@ -33,7 +35,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                eager and 4 captured on four batches, losses held to each
                other; eager steps timed and one profiled; then 10 timed
                replays on a fixed batch: the forward, dQ and dK/dV
-               kernels must each launch once per layer per step; losses
+               kernels must each run once per layer per step, as they
+               count their launches on the card; losses
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
@@ -52,7 +55,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                with back-to-back event timing and the wrapper's host time
                per call reported beside
 Then a line with the script's seconds, one {"kernels": [...]} line and,
-last, the device line.
+last, the device line.  Every launch count of the main paths is read
+from the counters the kernels advance on the card
+(flash_attention.device_launches), so replays of CUDA graphs are counted
+as they run.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
 the repository beside it and a CUDA card; without either it fails.  It
@@ -81,6 +87,8 @@ PEAK_BYTES_PER_S = 3.35e12
 LOGIT_RTOL = 5e-2
 
 B, P, N = 4, 1024, 32
+# the prompt lengths of the sessions added to show the card's memory
+SESSION_PROMPTS = (256, 512, 768)
 
 # training: B=8 x T=1024 token ids, 2 warm-up steps then 10 timed ones
 TB, TT = 8, 1024
@@ -323,18 +331,17 @@ def phase_slice():
     out_eager, eager_s = _timed(lambda: m.generate(prompts, use_graph=False,
                                                    **kw))
     # captured: the first call is the warm-up, the second captures
-    fa.launches = 0
+    fa.reset_device_launches()
     m.generate(prompts, **kw)
-    warm_launches = fa.launches
+    warm_launches = fa.device_launches()
     _, capture_call_s = _timed(lambda: m.generate(prompts, **kw))
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0                                # the main path's run
+    fa.reset_device_launches()                     # the main path's run
     out, gen_s = _timed(lambda: m.generate(prompts, **kw))
-    launches = fa.launches
+    launches = fa.device_launches()
     peak = torch.cuda.max_memory_allocated()
-    prog = m._gen_sessions[(B, P, S, torch.bfloat16, True)]._programs[
-        (0.0, None, None, None)]
-    graphs = prog.graphs
+    graphs = m._gen_sessions[(B, P, S, torch.bfloat16,
+                              (0.0, None, None, None))].graphs
     prefill_ms = _median_ms(graphs["prefill"].replay)
 
     # the eager prefill alone, and its logits with the kernel vs the
@@ -356,6 +363,23 @@ def phase_slice():
     ref_max = lg_plain.abs().max().item()
     agree = float((out[:, P:] == out_plain[:, P:]).mean())
 
+    # the card's memory as sessions of other prompt lengths are added:
+    # each holds its caches and graph pools, all share one bf16 weight copy
+    def memory(p):
+        return {"prompt_len": p, "sessions": len(m._gen_sessions),
+                "allocated_bytes": torch.cuda.memory_allocated(),
+                "reserved_bytes": torch.cuda.memory_reserved(),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+    sessions = [memory(P)]
+    for p in SESSION_PROMPTS:
+        for _ in range(2):                         # warm-up, capture
+            m.generate(prompts[:, :p], **kw)
+        sessions.append(memory(p))
+    weight_copies = len(m._gen_params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       m._gen_params[torch.bfloat16][1].values())
+    shared = len({id(s.params) for s in m._gen_sessions.values()}) == 1
+
     # generate = prefill + N - 1 decode steps
     decode_ms = (gen_s * 1e3 - prefill_ms) / (N - 1)
     eager_decode_ms = (eager_s * 1e3 - eager_prefill_ms) / (N - 1)
@@ -365,7 +389,8 @@ def phase_slice():
         "param_dtype": "bfloat16", "model_build_s": build_s,
         "captured": graphs["decode"].graph is not None,
         "warm_launches": warm_launches, "launches": launches,
-        "expected_launches": cfg.num_layers,
+        "expected_launches": {"flash_fwd": cfg.num_layers,
+                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
         "generate_ms": gen_s * 1e3, "prefill_ms": prefill_ms,
         "decode_ms_per_token": decode_ms,
         "tokens_per_s": B * N / gen_s,
@@ -381,6 +406,10 @@ def phase_slice():
                   "tokens_per_s": B * N / eager_s},
         "tokens_equal_eager": bool((out == out_eager).all()),
         "peak_memory_bytes": peak,
+        "memory_by_session": sessions,
+        "bf16_weight_copies": weight_copies,
+        "bf16_weight_bytes": weight_bytes,
+        "sessions_share_weights": shared,
         "prefill_logits_max_abs_diff": dlogit,
         "prefill_logits_max_abs": ref_max,
         "logit_rtol": LOGIT_RTOL,
@@ -388,9 +417,12 @@ def phase_slice():
     }
     emit(result)
     check(result["captured"], "generate() did not run captured graphs")
-    check(warm_launches == cfg.num_layers and launches == cfg.num_layers,
-          f"flash kernel launched {warm_launches}/{launches} times per "
-          f"generate, expected {cfg.num_layers}")
+    check(warm_launches == launches == result["expected_launches"],
+          f"the kernels ran {warm_launches} (warm-up) and {launches} "
+          f"(captured) times in a generate call, expected "
+          f"{result['expected_launches']}")
+    check(weight_copies == 1 and shared, f"the sessions hold "
+          f"{weight_copies} bf16 weight copies (shared: {shared})")
     check(graphs["prefill"].launches == {"flash_fwd": cfg.num_layers},
           f"the prefill graph holds {graphs['prefill'].launches}")
     check(out.shape == (B, P + N) and out.dtype == np.int32,
@@ -405,7 +437,7 @@ def phase_slice():
     phase_profile(lambda: m.generate(prompts, **kw),
                   f"one captured generate call, B={B} P={P} N={N}",
                   {"flash_fwd": cfg.num_layers})
-    return launches
+    return launches["flash_fwd"]
 
 
 def _loss_and_grads(m, ids):
@@ -520,17 +552,16 @@ def phase_train(fault_libs):
 
     # the main path: replays of the captured step on a fixed batch
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.reset_device_launches()
     times, per_step, losses = [], [], []
     for _ in range(TRAIN_STEPS):
-        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        before = fa.device_launches()
         (_, loss), t = _timed(lambda: m.train_step(x))
         losses.append(loss.item())
         times.append(t)
-        per_step.append([a - b for a, b in zip(
-            (fa.launches, fa.dq_launches, fa.dkv_launches), before)])
-    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                "flash_bwd_dkv": fa.dkv_launches}
+        after = fa.device_launches()
+        per_step.append([after[k] - before[k] for k in fa.KERNELS])
+    launches = fa.device_launches()
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(times)[len(times) // 2]
     eager_s = sorted(eager_times)[len(eager_times) // 2]
@@ -664,19 +695,23 @@ def phase_profile(fn, what, expect):
     """Where one call's time goes on the card: device time of every
     kernel under torch.profiler, by kind, against the wall time of the
     same (profiled) call, the host's idle share of the card, and each
-    hand-written kernel's launches by name, which must be `expect`.
-    A profiler that records no device time reports "not measured"
-    instead of failing the run."""
+    hand-written kernel's launches, which must be `expect`: as the
+    kernels counted them on the card, and by name in the profile.  A
+    profiler that records no device time reports "not measured" for the
+    times and the names instead of failing the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from singa_tpu_torch.ops import flash_attention as fa
 
-    torch.cuda.synchronize()
+    fa.reset_device_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = fa.device_launches()
+    counted = {k: counted[k] for k in expect}
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -697,9 +732,11 @@ def phase_profile(fn, what, expect):
           else "not measured",
           "host_idle_ms": wall_ms - busy_ms if busy_ms else "not measured",
           "device_ms_by_kind": by_kind, "kernels_by_name": seen,
-          "expected_kernels": expect,
+          "kernels_counted_on_card": counted, "expected_kernels": expect,
           "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                           for k, v in top]})
+    check(counted == expect, f"the kernels counted {counted} launches in "
+          f"{what}, expected {expect}")
     if busy_ms:
         check(seen == expect, f"the profile of {what} saw {seen} launches "
               f"of the hand-written kernels, expected {expect}")

@@ -104,7 +104,9 @@
 //
 // C entry points singa_flash_bwd_dq(...) and singa_flash_bwd_dkv(...)
 // launch on the given stream and return cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments they do not take).
+// cudaErrorInvalidValue for arguments they do not take).  Each launch
+// that runs adds one to the device counter `count` points at (see
+// hopper::count_launch), also when it is replayed from a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,6 +134,7 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   int off;     // Tk - Tq
+  unsigned long long* count;  // launches that ran (null: not counted)
 };
 
 // The Pallas kernels' tile-skip predicates (flash_attention.py:126-131,
@@ -258,6 +261,7 @@ __device__ __forceinline__ void mma_rows_rowsT(float (&x)[NJ][4],
 template <int DMAX, int BN>
 __global__ void __launch_bounds__(128)
     flash_bwd_dq_bf16_kernel(const Params p) {
+  hopper::count_launch(p.count);
   constexpr int NT = 128, BM = 64;
   constexpr int LDS = DMAX + 8;  // padded smem row (elements)
   constexpr int NDT = DMAX / 8;  // 8-wide dQ column tiles
@@ -348,6 +352,7 @@ __global__ void __launch_bounds__(128)
 template <int DMAX>
 __global__ void __launch_bounds__(DMAX > 128 ? 256 : 128)
     flash_bwd_dkv_bf16_kernel(const Params p) {
+  hopper::count_launch(p.count);
   constexpr int NSPLIT = DMAX > 128 ? 2 : 1;
   constexpr int NT = 128 * NSPLIT;
   constexpr int BN = 64;           // keys per block
@@ -521,6 +526,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tdv, const Params p) {
   using T = DkvTile<DP>;
   using namespace hopper;
+  count_launch(p.count);
   constexpr int kS = T::kStages;
   constexpr int kTurn = 1;    // named barriers kTurn + wg: turns to issue
   constexpr int kStaged = 3;  // named barriers kStaged + wg: epilogue
@@ -823,6 +829,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tdq, const Params p) {
   using T = DqTile<DP>;
   using namespace hopper;
+  count_launch(p.count);
   constexpr int kS = T::kStages;
   constexpr int kTurn = 1;    // named barriers kTurn + wg: turns to issue
   constexpr int kStaged = 3;  // named barriers kStaged + wg: epilogue
@@ -1053,6 +1060,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dq_wgmma_kernel(
 // dQ: one block of 128 threads per (b, h, 32-row q tile), 64-key tiles.
 template <int DMAX>
 __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
+  hopper::count_launch(p.count);
   constexpr int NT = 128, BM = 32, BN = 64;
   constexpr int CPT = BN / 4;    // keys per lane
   constexpr int DPT = DMAX / 4;  // dQ columns per lane
@@ -1140,6 +1148,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
 template <int DMAX>
 __global__ void __launch_bounds__(256)
     flash_bwd_dkv_f32_kernel(const Params p) {
+  hopper::count_launch(p.count);
   constexpr int NT = 256, BN = 64, BQ = 32;
   constexpr int CPT = BQ / 4;    // queries per lane
   constexpr int DPT = DMAX / 4;  // dK/dV columns per lane
@@ -1402,7 +1411,7 @@ extern "C" int singa_flash_bwd_dq(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     long long sdqb, long long sdqt, long long sdqh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* count, void* stream) {
   if (bad_args(dtype, B, H, K, Tq, Tk, D))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
@@ -1410,7 +1419,8 @@ extern "C" int singa_flash_bwd_dq(
            B, H, K, Tq, Tk, D,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
            sdqb, sdqt, sdqh, 0, 0, 0,
-           scale, causal, window, Tk - Tq};
+           scale, causal, window, Tk - Tq,
+           static_cast<unsigned long long*>(count)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (D <= 64) return (int)launch_dq_wgmma<64>(p, s);
@@ -1431,7 +1441,7 @@ extern "C" int singa_flash_bwd_dkv(
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
     long long sdkb, long long sdkt, long long sdkh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* count, void* stream) {
   if (bad_args(dtype, B, H, K, Tq, Tk, D))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
@@ -1439,7 +1449,8 @@ extern "C" int singa_flash_bwd_dkv(
            B, H, K, Tq, Tk, D,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
            0, 0, 0, sdkb, sdkt, sdkh,
-           scale, causal, window, Tk - Tq};
+           scale, causal, window, Tk - Tq,
+           static_cast<unsigned long long*>(count)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (D <= 64) return (int)launch_dkv_wgmma<64>(p, s);

@@ -67,7 +67,9 @@
 //
 // C entry point: singa_flash_fwd(...) launches on the given stream and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
-// does not take).
+// does not take).  Each launch that runs adds one to the device counter
+// `count` points at (see hopper::count_launch), also when it is replayed
+// from a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +96,7 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   int off;     // Tk - Tq
+  unsigned long long* count;  // launches that ran (null: not counted)
 };
 
 // The Pallas kernel's tile-skip predicates (flash_attention.py:73-78) for
@@ -178,6 +181,7 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap to, const Params p) {
   using T = FwdTile<DP>;
   using namespace hopper;
+  count_launch(p.count);
   constexpr int kS = T::kStages;
   constexpr int kTurn = 1;    // named barriers kTurn + wg: turns to issue
   constexpr int kStaged = 3;  // named barriers kStaged (+ 1 + wg): epilogue
@@ -431,6 +435,7 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_wgmma_kernel(
 
 template <int DMAX>
 __global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
+  hopper::count_launch(p.count);
   constexpr int NT = 256;
   constexpr int CPT = kBN / 4;   // score columns per lane
   constexpr int DPT = DMAX / 4;  // output columns per lane
@@ -596,14 +601,15 @@ extern "C" int singa_flash_fwd(
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* count, void* stream) {
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Tq <= 0 || Tk <= 0 ||
       Tq % 128 != 0 || Tk % 128 != 0 || D < 8 || D % 8 != 0 || D > 256 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, static_cast<float*>(lse), B, H, K, Tq, Tk, D,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-           scale, causal, window, Tk - Tq};
+           scale, causal, window, Tk - Tq,
+           static_cast<unsigned long long*>(count)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {

@@ -32,6 +32,15 @@
 
 namespace hopper {
 
+// One count for each launch that runs, eager or replayed from a CUDA
+// graph: the first thread of the first block adds one to `count` (a
+// device counter of the caller's; null: not counted).
+HK_DEV void count_launch(unsigned long long* count) {
+  if (count != nullptr && threadIdx.x == 0 && blockIdx.x == 0 &&
+      blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(count, 1ull);
+}
+
 // ---------------------------------------------------------------------------
 // shared-memory addresses, mbarriers
 // ---------------------------------------------------------------------------

@@ -20,10 +20,13 @@ step is recorded the same way and ``graph`` stays None.
 ``hlo_text``, ``compiled_hlo``, ``save_hlo`` and ``Schedule`` read XLA's
 modules and jaxprs and have no counterpart here.
 
-A replay launches no wrapper, so the flash kernels' launch counters
-(``ops.flash_attention``) would not move: ``replay`` adds the launches
-the capture recorded, once per replay, and the capture takes back the
-counts of the wrapper calls it recorded but did not run.
+A graph's ``launches`` are the hand-written kernels' launches that its
+capture recorded (the wrappers' host counters).  A replay calls no
+wrapper: the launches that ran, replays included, are counted on the
+card by the kernels themselves (``ops.flash_attention.device_launches``).
+
+``reset_graph`` moves an epoch; every executor and generate() session
+remembers the epoch it was made in and is made anew once it has moved.
 """
 
 from __future__ import annotations
@@ -37,22 +40,27 @@ from torch.utils.flop_counter import flop_registry
 
 from .ops import flash_attention as _fa
 
-__all__ = ["CapturedGraph", "record", "reset_graph", "kernel_launches"]
+__all__ = ["CapturedGraph", "record", "reset_graph", "epoch",
+           "kernel_launches"]
 
 #: each hand-written kernel's name and its counter in ops.flash_attention
 _COUNTERS = {"flash_fwd": "launches", "flash_bwd_dq": "dq_launches",
              "flash_bwd_dkv": "dkv_launches"}
 
 
+#: moved by reset_graph(): graphs made in an earlier epoch are stale
+_epoch = 0
+
+
+def epoch() -> int:
+    """How many times reset_graph() has run."""
+    return _epoch
+
+
 def kernel_launches() -> Dict[str, int]:
-    """The hand-written kernels' launch counters, by kernel name."""
+    """The hand-written kernels' wrapper launch counters, by kernel
+    name."""
     return {k: getattr(_fa, attr) for k, attr in _COUNTERS.items()}
-
-
-def _add_launches(counts: Dict[str, int], sign: int = 1) -> None:
-    for k, n in counts.items():
-        attr = _COUNTERS[k]
-        setattr(_fa, attr, getattr(_fa, attr) + sign * n)
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:
@@ -133,12 +141,9 @@ class CapturedGraph:
         reserved = torch.cuda.memory_reserved(dev)
         before = kernel_launches()
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=stream):
-                out = fn()
-        finally:
-            recorded = _since(before)
-            _add_launches(recorded, -1)       # recorded, not launched
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn()
+        recorded = _since(before)
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = {k: n for k, n in recorded.items() if n}
@@ -147,7 +152,6 @@ class CapturedGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        _add_launches(self.launches)
 
 
 def record(name: str, fn: Callable[[], Any]):
@@ -160,9 +164,9 @@ def record(name: str, fn: Callable[[], Any]):
 
 
 def reset_graph(device=None) -> None:
-    """Drop every model's captured graphs, so that the next step or
-    generate() call captures anew (reference ``Device.ResetGraph``);
+    """Make every model's captured graphs stale, so that its next step
+    or generate() call captures anew (reference ``Device.ResetGraph``);
     needed after a kernel library is swapped, since a graph keeps the
     kernels it captured."""
-    from . import model as model_mod
-    model_mod._invalidate_all_graphs()
+    global _epoch
+    _epoch += 1

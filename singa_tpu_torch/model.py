@@ -14,7 +14,6 @@ optimizer's slots kept in its eager store.  ``Model.graph`` and
 
 from __future__ import annotations
 
-import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -22,19 +21,11 @@ import torch
 from . import autograd
 from .device import Device, get_default_device
 from .graph import CapturedGraph, record
+from .graph import epoch as graph_epoch
 from .layer import Layer
 from .opt import Optimizer
 
 __all__ = ["Model", "Module", "model_device"]
-
-# every live model, so reset_graph() can drop their captured graphs
-_live_models = weakref.WeakSet()
-
-
-def _invalidate_all_graphs() -> None:
-    for m in list(_live_models):
-        m._executors.clear()
-        m._gen_sessions.clear()
 
 
 class Model(Layer):
@@ -51,7 +42,7 @@ class Model(Layer):
         self._compiled_init = False
         self._step_count = 0
         self._gen_sessions: Dict[Any, Any] = {}
-        _live_models.add(self)
+        self._gen_params: Dict[Any, Any] = {}
 
     # -- reference API --------------------------------------------------------
     def set_optimizer(self, opt: Optimizer) -> None:
@@ -136,7 +127,8 @@ class Model(Layer):
         """A step graph, optionally of one kind of step ('train' |
         'eval'): a model that ran both has one of each."""
         for ex in reversed(list(self._executors.values())):
-            if ex.captured is not None and (tag is None or ex.tag == tag):
+            if ex.captured is not None and ex.epoch == graph_epoch() \
+                    and (tag is None or ex.tag == tag):
                 return ex.captured
         return None
 
@@ -153,6 +145,8 @@ class Model(Layer):
         dev = self.device.torch_device
         tensors = tuple(torch.as_tensor(b, device=dev) for b in batch)
         key = tuple((tuple(t.shape), t.dtype) for t in tensors) + (tag,)
+        if any(e.epoch != graph_epoch() for e in self._executors.values()):
+            self._executors.clear()          # reset_graph() made them stale
         ex = self._executors.get(key)
         if ex is None:
             ex = _StepExecutor(self, tag, body)
@@ -212,6 +206,7 @@ class _StepExecutor:
         self.param_tensors = dict(model.get_params())
         self.opt = model.optimizer if self.is_train else None
         self.device = model.device.torch_device
+        self.epoch = graph_epoch()
         self.calls = 0
         self.captured: Optional[CapturedGraph] = None
         self._stream = None

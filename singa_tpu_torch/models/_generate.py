@@ -4,17 +4,27 @@
 
 The reference runs generation as two jitted programs: the prefill, and
 one ``lax.scan`` over every pick→decode step.  Here a `_GenSession`
-(one per batch, prompt length, total length and parameter dtype, kept
-on the model) captures two CUDA graphs on the card: the prefill with
-the first pick (the flash forward on the prompt), and one decode→pick
-step, replayed max_new_tokens - 1 times.  One step graph replayed is
-captured in a fraction of the time N steps would take, serves every
-call of the session, and costs one graph launch of host time per token.
-The decode position, the eos state and the generator are on the device,
-so each replay reads its own; the weights are copied (cast) into the
-session's static parameters inside the prefill graph, so every call
-sees the current masters.  With ``use_graph=False``, or on the CPU, the
-same steps run eagerly.
+(one per batch, prompt length, total length, parameter dtype and pick
+options, kept on the model) captures two CUDA graphs on the card: the
+prefill with the first pick (the flash forward on the prompt), and one
+decode→pick step, replayed max_new_tokens - 1 times.  One step graph
+replayed is captured in a fraction of the time N steps would take,
+serves every call of the session, and costs one graph launch of host
+time per token.  The decode position, the eos state and the generator
+are on the device, so each replay reads its own.  The pick options are
+host constants of the graphs, hence part of the session's key.  On the
+CPU a session runs the same steps eagerly.
+
+The weights are cast inside the prefill graph into one static copy per
+parameter dtype, which all the model's sessions share, so every call
+sees the current masters.  A session holds its caches and its graphs'
+pools: a model keeps at most `MAX_SESSIONS` of them and drops the least
+recently used.
+
+``use_graph=False`` runs `_generate_eager`, which keeps no state: the
+parameters are cast for the call, the position is a host int and the
+loop stops once every row has emitted eos.  Its tokens equal a
+session's.
 
 Sampling draws from the session's ``torch.Generator``, seeded by
 ``seed``, registered with the graphs so every replay draws afresh.  Its
@@ -24,17 +34,22 @@ with the reference in distribution, not in value.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
-from typing import Dict, Optional, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import autograd
 from ..graph import CapturedGraph, record
+from ..graph import epoch as graph_epoch
 from ..model import model_device
 
 __all__ = ["GenerateMixin", "prefill_step", "decode_step"]
+
+#: the most generate() sessions a model keeps (least recently used first
+#: out): each holds (B, S) caches for every layer and its graphs' pools
+MAX_SESSIONS = 4
 
 
 @contextmanager
@@ -112,32 +127,47 @@ def _pick_impl(logits, temperature: float, generator: torch.Generator,
     return torch.argmax(probs / noise, dim=-1)
 
 
-class _GenSession:
-    """The programs of generate() for one (batch, prompt, total length,
-    parameter dtype): on a CUDA device with `use_graph`, a captured
-    prefill and a captured decode step per set of pick options (greedy
-    or sampling controls, eos); otherwise the same steps run eagerly.
+def _static_params(model, dtype) -> Dict[str, torch.Tensor]:
+    """The parameters the sessions read, in `dtype`: one static copy per
+    dtype, shared by all the model's sessions and refreshed from the
+    masters by each session's prefill; the masters themselves when
+    `dtype` is None.  Made anew when the masters are no longer the
+    tensors it was made for."""
+    masters = {n: t.detach() for n, t in model.get_params().items()}
+    if dtype is None:
+        return masters
+    addrs = tuple((n, t.data_ptr()) for n, t in masters.items())
+    held = model._gen_params.get(dtype)
+    if held is None or held[0] != addrs:
+        held = model._gen_params[dtype] = (addrs, {
+            n: (torch.empty_like(t, dtype=dtype) if t.is_floating_point()
+                else t) for n, t in masters.items()})
+    return held[1]
 
-    Static state: the parameters in the dtype asked for (the masters
-    themselves when none is), the prompt, the current token, its
-    position, the eos flags and the (B, N) tokens.  A call runs the
-    prefill (masters copied into the static parameters, prompt forward,
-    first pick) and N - 1 decode steps (one token forward at the device
-    position, next pick).  The first call of a captured program runs it
-    eagerly on a side stream (the warm-up), the second captures it and
-    every later one replays it."""
+
+class _GenSession:
+    """generate() for one (batch, prompt length, total length, parameter
+    dtype, pick options): on a CUDA device a captured prefill and a
+    captured decode step; on the CPU the same steps run eagerly.
+
+    Static state: the shared parameters in the dtype asked for (see
+    `_static_params`), the prompt, the current token, its position, the
+    eos flags and the (B, N) tokens.  A call runs the prefill (masters
+    cast into the static parameters, prompt forward, first pick) and
+    N - 1 decode steps (one token forward at the device position, next
+    pick).  The first call runs the steps eagerly (on a card, on the
+    capture's side stream: the warm-up) and records each step's first
+    run; on a card the second call captures them and every later one
+    replays them."""
 
     def __init__(self, model, batch: int, prompt_len: int, total_len: int,
-                 param_dtype, use_graph: bool):
-        self.model = model
+                 param_dtype, opts):
+        self.model, self.opts = model, opts
         self.prompt_len, self.total_len = prompt_len, total_len
         dev = self.device = model_device(model).torch_device
-        self.capture = use_graph and dev.type == "cuda"
+        self.epoch = graph_epoch()
         self.masters = {n: t.detach() for n, t in model.get_params().items()}
-        self.params = {n: (torch.empty_like(t, dtype=param_dtype)
-                           if param_dtype is not None
-                           and t.is_floating_point() else t)
-                       for n, t in self.masters.items()}
+        self.params = _static_params(model, param_dtype)
         n_new = total_len - prompt_len
         self.ids = torch.zeros((batch, prompt_len), dtype=torch.int32,
                                device=dev)
@@ -149,21 +179,25 @@ class _GenSession:
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
         self.gen = torch.Generator(dev)
         self.caches = None
-        self._programs: Dict[Tuple, "_GenProgram"] = {}
+        self.calls = 0
+        self.graphs: Dict[str, CapturedGraph] = {}
+        self._stream = None
 
     def fits(self, model) -> bool:
-        """Whether the model's masters are still the ones this session
-        reads (a graph reads them by address)."""
+        """Whether the session is of the current graph epoch and the
+        model's masters are still the ones it reads (a graph reads them
+        by address)."""
         params = model.get_params()
-        return params.keys() == self.masters.keys() and all(
-            params[n].data_ptr() == t.data_ptr()
-            for n, t in self.masters.items())
+        return self.epoch == graph_epoch() \
+            and params.keys() == self.masters.keys() and all(
+                params[n].data_ptr() == t.data_ptr()
+                for n, t in self.masters.items())
 
     # -- the two steps --------------------------------------------------------
-    def _pick(self, logits, opts) -> None:
+    def _pick(self, logits) -> None:
         """Pick the next token of every row from (B, V) f32 logits and
         write it at column pos - P of the tokens."""
-        temp, top_k, top_p, eos_id = opts
+        temp, top_k, top_p, eos_id = self.opts
         tok = _pick_impl(logits, temp, self.gen, top_k, top_p)
         if eos_id is not None:
             tok = torch.where(self.stopped, eos_id, tok)
@@ -173,7 +207,7 @@ class _GenSession:
         col = (self.pos - self.prompt_len).reshape(1)
         self.toks.index_copy_(1, col, tok[:, None].to(torch.int32))
 
-    def _prefill(self, opts) -> None:
+    def _prefill(self) -> None:
         for n, t in self.params.items():
             if t is not self.masters[n]:
                 t.copy_(self.masters[n])
@@ -183,46 +217,26 @@ class _GenSession:
         self.pos.fill_(self.prompt_len)
         self.done.zero_()
         self.stopped.zero_()
-        self._pick(logits.float(), opts)
+        self._pick(logits.float())
 
-    def _decode(self, opts) -> None:
+    def _decode(self) -> None:
         with _bound(self.model, self.params):
             logits, _ = decode_step(self.model)(self.tok[:, None], self.pos,
                                                 self.caches)
         self.pos += 1
-        self._pick(logits.float(), opts)
+        self._pick(logits.float())
 
     # -- a call ---------------------------------------------------------------
-    def run(self, ids: np.ndarray, n_new: int, seed: int, opts) -> np.ndarray:
+    def run(self, ids: np.ndarray, n_new: int, seed: int) -> np.ndarray:
         """(B, n_new) int32 tokens for prompt `ids`."""
-        prog = self._programs.get(opts)
-        if prog is None:
-            prog = self._programs[opts] = _GenProgram(self, opts)
         self.ids.copy_(torch.as_tensor(ids, dtype=torch.int32))
         self.gen.manual_seed(int(seed))
-        prog.run(n_new)
-        return self.toks.cpu().numpy()
-
-
-class _GenProgram:
-    """A session's prefill and decode step for one set of pick options:
-    eager, or captured CUDA graphs (see `_GenSession`)."""
-
-    def __init__(self, sess: _GenSession, opts):
-        self.sess, self.opts = sess, opts
-        self.calls = 0
-        self.graphs: Dict[str, CapturedGraph] = {}
-        self.caches = None
-        self._stream = None
-
-    def run(self, n_new: int) -> None:
-        sess, opts = self.sess, self.opts
-        if not sess.capture:
-            sess._prefill(opts)
-            for _ in range(n_new - 1):
-                sess._decode(opts)
-        elif self.calls == 0:
+        if self.calls == 0:
             self._warm_up(n_new)
+        elif self.device.type != "cuda":
+            self._prefill()
+            for _ in range(n_new - 1):
+                self._decode()
         else:
             if self.calls == 1:
                 self._capture()
@@ -230,42 +244,73 @@ class _GenProgram:
             for _ in range(n_new - 1):
                 self.graphs["decode"].replay()
         self.calls += 1
+        return self.toks.cpu().numpy()
 
     def _warm_up(self, n_new: int) -> None:
-        """The first call: eager, on the capture's side stream, with the
-        first run of each step recorded."""
-        sess, opts = self.sess, self.opts
-        self._stream = torch.cuda.Stream(sess.device)
-        current = torch.cuda.current_stream(sess.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            _, self.graphs["prefill"] = record(
-                "prefill", lambda: sess._prefill(opts))
+        """The first call: eager (on a card, on the capture's side
+        stream), with the first run of each step recorded."""
+        ctx = nullcontext()
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            ctx = torch.cuda.stream(self._stream)
+        with ctx:
+            _, self.graphs["prefill"] = record("prefill", self._prefill)
             for i in range(n_new - 1):
                 if i == 0:
-                    _, self.graphs["decode"] = record(
-                        "decode", lambda: sess._decode(opts))
+                    _, self.graphs["decode"] = record("decode", self._decode)
                 else:
-                    sess._decode(opts)
-        current.wait_stream(self._stream)
+                    self._decode()
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
     def _capture(self) -> None:
         """Capture the prefill, then the decode step over the caches the
-        prefill graph writes (kept here: the graphs read them)."""
-        sess, opts = self.sess, self.opts
-        gens = (sess.gen,) if opts[0] > 0 else ()
+        prefill graph writes."""
+        gens = (self.gen,) if self.opts[0] > 0 else ()
         if gens and not hasattr(torch.cuda.CUDAGraph,
                                 "register_generator_state"):
             raise RuntimeError(
                 f"sampled generate() cannot be captured with torch "
                 f"{torch.__version__}: its CUDAGraph has no "
                 f"register_generator_state; pass use_graph=False")
-        self.graphs["prefill"].capture(lambda: sess._prefill(opts),
-                                       self._stream, gens)
-        self.caches = sess.caches
+        self.graphs["prefill"].capture(self._prefill, self._stream, gens)
         if "decode" in self.graphs:
-            self.graphs["decode"].capture(lambda: sess._decode(opts),
-                                          self._stream, gens)
+            self.graphs["decode"].capture(self._decode, self._stream, gens)
+
+
+def _generate_eager(model, ids: np.ndarray, total_len: int, n_new: int,
+                    seed: int, opts, param_dtype) -> np.ndarray:
+    """(B, n_new) int32 tokens, each step launched from the host, with
+    no state kept: the parameters cast for this call, the position a
+    host int, and no forward once every row has emitted eos."""
+    temp, top_k, top_p, eos_id = opts
+    dev = model_device(model).torch_device
+    params = {n: t.detach() for n, t in model.get_params().items()}
+    if param_dtype is not None:
+        params = {n: (t.to(param_dtype) if t.is_floating_point() else t)
+                  for n, t in params.items()}
+    gen = torch.Generator(dev)
+    gen.manual_seed(int(seed))
+    B, P = ids.shape
+    toks = torch.empty((B, n_new), dtype=torch.int32, device=dev)
+    with _bound(model, params):
+        logits, caches = prefill_step(model, total_len)(
+            torch.as_tensor(ids, dtype=torch.int32, device=dev))
+        decode = decode_step(model)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(n_new):
+            tok = _pick_impl(logits.float(), temp, gen, top_k, top_p)
+            if eos_id is not None:
+                done |= tok == eos_id
+            toks[:, i] = tok
+            if eos_id is not None and bool(done.all()):
+                toks[:, i + 1:] = eos_id
+                break
+            if i + 1 < n_new:
+                # the last pick needs no forward: its logits go unused
+                logits, caches = decode(toks[:, i:i + 1], P + i, caches)
+    return toks.cpu().numpy()
 
 
 class GenerateMixin:
@@ -290,12 +335,21 @@ class GenerateMixin:
         return ids, B, P, S
 
     def _gen_session(self, B: int, P: int, S: int, param_dtype,
-                     use_graph: bool) -> _GenSession:
-        key = (B, P, S, param_dtype, use_graph)
-        sess = self._gen_sessions.get(key)
+                     opts) -> _GenSession:
+        """The session for (B, P, S, param_dtype, opts), made if need be;
+        kept last in `_gen_sessions`, whose order is least recently used
+        first."""
+        key = (B, P, S, param_dtype, opts)
+        sess = self._gen_sessions.pop(key, None)
         if sess is None or not sess.fits(self):
-            sess = self._gen_sessions[key] = _GenSession(
-                self, B, P, S, param_dtype, use_graph)
+            sess = None
+            for k in [k for k, s in self._gen_sessions.items()
+                      if not s.fits(self)]:
+                del self._gen_sessions[k]
+            while len(self._gen_sessions) >= MAX_SESSIONS:
+                del self._gen_sessions[next(iter(self._gen_sessions))]
+            sess = _GenSession(self, B, P, S, param_dtype, opts)
+        self._gen_sessions[key] = sess
         return sess
 
     @torch.no_grad()
@@ -313,7 +367,8 @@ class GenerateMixin:
         keep decoding until every row has emitted it; the remaining
         positions are then filled with eos_id.  On a CUDA device the
         prefill and the decode step run as captured CUDA graphs;
-        `use_graph=False` runs the same steps eagerly."""
+        `use_graph=False` launches each step from the host and keeps no
+        state."""
         ids, B, P, S = self._gen_setup(prompt_ids, max_new_tokens)
         temp = float(temperature) if temperature and temperature > 0 \
             else 0.0
@@ -324,7 +379,11 @@ class GenerateMixin:
             top_k = None
         if temp == 0.0 or not (top_p and 0.0 < top_p < 1.0):
             top_p = None
-        sess = self._gen_session(B, P, S, param_dtype, use_graph)
-        toks = sess.run(ids, max_new_tokens, seed,
-                        (temp, top_k, top_p, eos_id))
+        opts = (temp, top_k, top_p, eos_id)
+        if use_graph:
+            toks = self._gen_session(B, P, S, param_dtype, opts).run(
+                ids, max_new_tokens, seed)
+        else:
+            toks = _generate_eager(self, ids, S, max_new_tokens, seed, opts,
+                                   param_dtype)
         return np.concatenate([ids.astype(np.int32), toks], axis=1)

@@ -38,6 +38,11 @@ delta = rowsum(dO * O) - dlse in plain torch and runs the two backward
 kernels.  On a CPU tensor every step computes the kernels' plain
 versions (`_flash_fwd_reference`, `_flash_bwd_reference`); on a CUDA
 tensor the wrappers launch the kernels or raise.
+
+Launches are counted twice: by the wrappers on the host (`launches`,
+`dq_launches`, `dkv_launches`: the launches they made, eagerly or into
+a CUDA graph under capture), and by the kernels on the card
+(`device_launches`: the launches that ran, replays of graphs included).
 """
 
 from __future__ import annotations
@@ -47,18 +52,26 @@ import math
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_with_lse"]
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "device_launches", "reset_device_launches"]
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 256
 
-#: kernel launches since the last reset, one count per kernel (plain
-#: counts: chip_smoke.py resets and reads them around the main paths).
-#: A replay of a CUDA graph calls no wrapper: graph.CapturedGraph.replay
-#: adds the launches its capture recorded
+#: the wrappers' launches since the last reset, one count per kernel:
+#: each wrapper adds one where it launches its kernel, eagerly or into a
+#: CUDA graph being captured.  A replay of a graph calls no wrapper and
+#: moves none of these; `device_launches` counts the launches that ran
 launches = 0          # flash_fwd
 dq_launches = 0       # flash_bwd dQ
 dkv_launches = 0      # flash_bwd dK/dV
+
+#: the kernels, in the order of their device counters
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: per card, one int64 counter per kernel that the kernel itself advances
+#: each time a launch of it runs (also when a graph replays the launch):
+#: made at the first launch on that card, never inside a capture
+_device_counts = {}
 
 
 def _tileable(Tq, Tk, D) -> bool:
@@ -140,6 +153,48 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _card(device=None) -> int:
+    device = torch.device("cuda" if device is None else device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _count_ptr(device, kernel: str) -> int:
+    """The address of `kernel`'s device counter on `device`."""
+    card = _card(device)
+    counts = _device_counts.get(card)
+    if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the flash kernels' launch counters are made at their first "
+                "eager launch on a card; run the step once before capturing")
+        counts = _device_counts[card] = torch.zeros(
+            len(KERNELS), dtype=torch.int64, device=torch.device("cuda", card))
+    return counts.data_ptr() + 8 * KERNELS.index(kernel)
+
+
+def device_launches(device=None) -> dict:
+    """Launches of each kernel that ran on the card (default: the
+    current one) since the last `reset_device_launches`, as the kernels
+    counted them: eager launches and launches replayed from CUDA graphs
+    alike.  Waits for the card."""
+    counts = _device_counts.get(_card(device)) if _device_counts else None
+    if counts is None:
+        return dict.fromkeys(KERNELS, 0)
+    torch.cuda.synchronize(counts.device)
+    return dict(zip(KERNELS, counts.tolist()))
+
+
+def reset_device_launches(device=None) -> None:
+    """Set the card's kernel launch counters to 0 (after the launches
+    already queued)."""
+    counts = _device_counts.get(_card(device)) if _device_counts else None
+    if counts is not None:
+        torch.cuda.synchronize(counts.device)
+        counts.zero_()
+        torch.cuda.synchronize(counts.device)
+
+
 #: the built kernels' bound C entry points, set at their first launch
 _fn = None
 _dq_fn = None
@@ -153,7 +208,7 @@ def bind(lib):
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_int64] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
@@ -166,7 +221,7 @@ def bind_bwd(lib):
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
                        + [ctypes.c_int64] * 15
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_void_p])
     return dq, dkv
 
 
@@ -205,7 +260,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window=None):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o.stride()[:3],
                 float(scale), int(bool(causal)),
-                0 if window is None else int(window), _stream(q))
+                0 if window is None else int(window),
+                _count_ptr(q.device, "flash_fwd"), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc}")
     launches += 1
@@ -316,7 +372,8 @@ def _launch_dq(q, k, v, do, lse, delta, causal, scale, window=None):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], *dq.stride()[:3],
                 float(scale), int(bool(causal)),
-                0 if window is None else int(window), _stream(q))
+                0 if window is None else int(window),
+                _count_ptr(q.device, "flash_bwd_dq"), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd dQ kernel launch failed: "
                            f"cudaError {rc}")
@@ -340,7 +397,8 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale, window=None):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], *dk.stride()[:3],
                 float(scale), int(bool(causal)),
-                0 if window is None else int(window), _stream(q))
+                0 if window is None else int(window),
+                _count_ptr(q.device, "flash_bwd_dkv"), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd dK/dV kernel launch failed: "
                            f"cudaError {rc}")

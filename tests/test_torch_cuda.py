@@ -38,8 +38,10 @@ def cuda_device():
 @pytest.mark.parametrize("case", list(kernel_check.FLASH_CASES))
 def test_kernel_matches_plain_version(cuda_device, case, dtype):
     before = tfa.launches
+    ran = tfa.device_launches()["flash_fwd"]
     errs = kernel_check.check_flash(case, dtype)
     assert tfa.launches == before + 1
+    assert tfa.device_launches()["flash_fwd"] == ran + 1
     assert errs["ok"], errs
 
 
@@ -103,7 +105,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
                     1, B, H, k.shape[2], tq, tk, D,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     *do.stride()[:3], *out.stride()[:3], 0.125, 1, 0,
-                    torch.cuda.current_stream().cuda_stream)
+                    None, torch.cuda.current_stream().cuda_stream)
             assert rc == 1, (tq, tk, rc)          # cudaErrorInvalidValue
     torch.cuda.synchronize()
 
@@ -172,12 +174,14 @@ def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
     ids = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 512))
     m.compile([ids], is_train=True, use_graph=True)
     losses = []
-    for _ in range(3):
-        tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
+    # eager, warm-up, capture + replay, replay: counted on the card
+    for _ in range(4):
+        tfa.reset_device_launches()
         _, loss = m.train_step(ids)
         losses.append(loss.item())
-        assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == \
-            (cfg.num_layers,) * 3
+        assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS,
+                                                      cfg.num_layers)
+    assert m.graph.graph is not None
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in m.get_params().values())
@@ -216,15 +220,15 @@ def test_captured_train_step_matches_eager(cuda_device):
         m.compile([batches[0]], is_train=True, use_graph=use_graph)
         held, losses, per_step = [], [], []
         for x in batches:
-            before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+            tfa.reset_device_launches()
             _, loss = m.train_step(x)
             held.append(loss)
             losses.append(loss.item())
-            per_step.append(tuple(a - b for a, b in zip(
-                (tfa.launches, tfa.dq_launches, tfa.dkv_launches), before)))
+            per_step.append(tfa.device_launches())
         # a loss returned at step k keeps its value after later steps
         assert [t.item() for t in held] == losses
-        assert per_step == [(m.cfg.num_layers,) * 3] * len(batches)
+        assert per_step == [dict.fromkeys(tfa.KERNELS, m.cfg.num_layers)] \
+            * len(batches)
         runs[use_graph] = (losses, m.get_params(), m)
     (le, pe, _), (lc, pc, mc) = runs[False], runs[True]
     np.testing.assert_allclose(lc, le, rtol=CAPTURE_RTOL)
@@ -251,17 +255,18 @@ def test_captured_bodies_do_not_sync_the_host(cuda_device):
     x = _batches(1)[0]
     m.compile([x], is_train=True, use_graph=True)
     m.train_step(x)                       # builds and binds the kernels
-    sess = m._gen_session(2, 512, 516, torch.bfloat16, True)
+    sessions = [m._gen_session(2, 512, 516, torch.bfloat16,
+                               (temp, 8 if temp else None, None, 3))
+                for temp in (0.0, 1.0)]
     torch.cuda.synchronize()
     # the bodies that get captured, run eagerly: the train step's
-    # warm-up, and the session's prefill and decode steps
+    # warm-up, and the sessions' prefill and decode steps
     torch.cuda.set_sync_debug_mode("error")
     try:
         m.train_step(x)
-        for temp in (0.0, 1.0):
-            opts = (temp, 8 if temp else None, None, 3)
-            sess._prefill(opts)
-            sess._decode(opts)
+        for sess in sessions:
+            sess._prefill()
+            sess._decode()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     m.train_step(x)                       # capture + replay
@@ -310,7 +315,13 @@ def test_captured_generate_equals_eager_bitwise(cuda_device):
     prompt = np.random.RandomState(3).randint(0, 256, (2, 512))
     kw = dict(max_new_tokens=8, param_dtype=torch.bfloat16)
     eager = m.generate(prompt, use_graph=False, **kw)
-    outs = [m.generate(prompt, **kw) for _ in range(3)]  # warm, capture, replay
+    outs = []
+    for _ in range(3):                    # warm-up, capture + replay, replay
+        tfa.reset_device_launches()
+        outs.append(m.generate(prompt, **kw))
+        assert tfa.device_launches() == {"flash_fwd": m.cfg.num_layers,
+                                         "flash_bwd_dq": 0,
+                                         "flash_bwd_dkv": 0}
     for out in outs:
         np.testing.assert_array_equal(out, eager)
     for eos in (int(eager[0, 512]), int(eager[1, 514])):

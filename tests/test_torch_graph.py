@@ -1,8 +1,9 @@
 """Step capture bookkeeping of the port (singa_tpu_torch.graph, the step
 executor, generate()'s _GenSession) on the CPU, where a step is recorded
 but no CUDA graph is made: what a CapturedGraph reports, reset_graph,
-the launch counting of replays, and greedy tokens of the session against
-the JAX package's (tiny Llama in f32: identical)."""
+what a replay counts, the sessions' shared weights and their limit, and
+greedy tokens of the session and of the eager path against the JAX
+package's (tiny Llama in f32: identical)."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import graph as tgraph
 from singa_tpu_torch import opt as topt
 from singa_tpu_torch.models import Llama, LlamaConfig, load_reference_params
+from singa_tpu_torch.models import _generate as tgenerate
 from singa_tpu_torch.ops import flash_attention as tfa
 
 B, T = 2, 64
@@ -89,15 +91,22 @@ def test_reset_graph_forces_a_new_executor():
     m.train_step(ids)
     ex = next(iter(m._executors.values()))
     m.generate(ids[:, :P], max_new_tokens=2)
-    assert m._gen_sessions
+    sess = next(iter(m._gen_sessions.values()))
+    assert sess.fits(m)
     tgraph.reset_graph()
-    assert not m._executors and not m._gen_sessions and m.graph is None
+    assert m.graph is None and not sess.fits(m)
     m.train_step(ids)
+    assert len(m._executors) == 1
     assert next(iter(m._executors.values())) is not ex
     assert m.optimizer.step_counter == 2
+    m.generate(ids[:, :P], max_new_tokens=2)
+    assert len(m._gen_sessions) == 1
+    assert next(iter(m._gen_sessions.values())) is not sess
 
 
-def test_replay_adds_the_launches_the_capture_recorded():
+def test_replay_moves_no_wrapper_counter():
+    """A replay calls no wrapper: the wrappers' counters stay, and the
+    launches that ran are counted on the card (none here)."""
     class _Graph:
         replays = 0
 
@@ -112,12 +121,25 @@ def test_replay_adds_the_launches_the_capture_recorded():
     before = tgraph.kernel_launches()
     for _ in range(3):
         g.replay()
-    after = tgraph.kernel_launches()
     assert g.graph.replays == 3
-    assert {k: after[k] - before[k] for k in after} == \
-        {"flash_fwd": 6, "flash_bwd_dq": 3, "flash_bwd_dkv": 0}
-    tfa.launches, tfa.dq_launches = before["flash_fwd"], \
-        before["flash_bwd_dq"]
+    assert tgraph.kernel_launches() == before
+    tfa.reset_device_launches()
+    assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS, 0)
+
+
+def test_cpu_steps_count_wrapper_launches_only_on_the_card():
+    """On the CPU the plain versions run: no wrapper launch and no
+    device counter, also through the recorded step."""
+    m = _model(fused_loss=True)
+    m.set_optimizer(topt.SGD(lr=0.01))
+    ids = np.random.RandomState(0).randint(0, 256, (B, T)).astype(np.int32)
+    m.compile([ids], is_train=True, use_graph=True)
+    before = tgraph.kernel_launches()
+    m.train_step(ids)
+    m.train_step(ids)
+    assert tgraph.kernel_launches() == before
+    assert m.graph.launches == {}
+    assert not tfa._device_counts
 
 
 # -- generate()'s session --------------------------------------------------------------
@@ -146,6 +168,10 @@ def test_session_is_kept_per_shape_and_follows_the_masters(pair):
     tm.generate(prompt[:1], max_new_tokens=N, param_dtype=torch.bfloat16)
     assert len(tm._gen_sessions) == 2
     assert next(iter(tm._gen_sessions.values())) is sess
+    # the two sessions read one bf16 copy of the weights
+    other = list(tm._gen_sessions.values())[1]
+    assert other.params is sess.params
+    assert all(t.dtype == torch.bfloat16 for t in sess.params.values())
     # the session's static weights are refreshed from the masters on
     # every call: a call after the masters change sees the change
     w = tm.get_params()["lm_head.W"]
@@ -162,3 +188,33 @@ def test_session_is_kept_per_shape_and_follows_the_masters(pair):
     np.testing.assert_array_equal(
         tm.generate(prompt, max_new_tokens=N, param_dtype=torch.bfloat16), a)
     assert all(p.dtype == torch.float32 for p in tm.get_params().values())
+
+
+def test_sessions_are_capped_least_recently_used_first(pair):
+    _, tm, prompt = pair
+    tm._gen_sessions.clear()
+    cap = tgenerate.MAX_SESSIONS
+    lengths = list(range(2, 3 + cap))
+    for p in lengths:
+        tm.generate(prompt[:, :p], max_new_tokens=2)
+    tm.generate(prompt[:, :lengths[1]], max_new_tokens=2)   # used again
+    tm.generate(prompt[:, :P], max_new_tokens=2)
+    kept = [k[1] for k in tm._gen_sessions]
+    assert len(kept) == cap
+    assert kept[-2:] == [lengths[1], P]
+    assert lengths[0] not in kept and lengths[2] not in kept
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_eager_generate_keeps_no_state_and_equals_the_session(pair, dtype):
+    _, tm, prompt = pair
+    tm._gen_sessions.clear()
+    tm._gen_params.clear()
+    kw = dict(max_new_tokens=N, param_dtype=dtype)
+    eager = tm.generate(prompt, use_graph=False, **kw)
+    assert not tm._gen_sessions and not tm._gen_params
+    np.testing.assert_array_equal(tm.generate(prompt, **kw), eager)
+    for eos in (int(eager[0, P]), int(eager[1, P + 2])):
+        np.testing.assert_array_equal(
+            tm.generate(prompt, eos_id=eos, use_graph=False, **kw),
+            tm.generate(prompt, eos_id=eos, **kw))
