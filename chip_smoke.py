@@ -25,7 +25,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
                ms/token, tokens/s, peak memory, captured beside eager;
                the card's memory as sessions of other prompt lengths
                are added; then a profile of one captured call
-  6. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+  6. serve   — the paged ServeEngine (singa_tpu_torch.serve) over
+               Llama(LlamaConfig.base()) with bf16 weights, 8 slots,
+               max_len 1024, blocks of 32: its prefill-chunk and decode
+               programs captured as CUDA graphs.  16 requests (8 sharing
+               a 256-token system prompt), 64 new tokens each, submitted
+               at once, then a burst past max_queue (QueueFull).  Checks:
+               compiled_counts() == (1, 1) after the traffic and after a
+               recovery; a teacher-forced oracle (each request's prompt
+               and tokens through one plain causal forward: every engine
+               token's logit within SERVE_DELTA of that position's
+               largest) which a planted fault in scatter_token_kv must
+               fail; streams bitwise equal without prefix sharing, through
+               a recovery forced by decode faults past the retries and a
+               retried prefill fault, and under preemption; no flash
+               launch on the card over the engine runs.  TTFT, prefill
+               chunk and decode tick times, tokens/s, prefix hits,
+               preemptions, memory, one profiled decode tick, and the
+               same prompts through sequential generate() calls
+  7. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
                with their plain versions, and with planted faults in
@@ -40,11 +58,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
-  7. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+  8. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
                with a save after step 2; a fresh model loads it and runs
                steps 3-6 (eager, warm-up, capture, replay), whose losses
                must equal the uninterrupted run's within the train limit
-  8. timing  — each kernel, its plain version and the PyTorch call that
+  9. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -72,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -120,6 +139,25 @@ CAPTURED_FAULT = "dkv_causal_strict"
 COMPARE_STEPS, EAGER_TIMED = 4, 5
 # the checkpoint phase: depth cut so the file stays under 2 GB
 CKPT_LAYERS, CKPT_SAVE_AFTER, CKPT_STEPS = 2, 2, 6
+
+# the serve phase: ServeEngine(num_slots, max_len, block_size) over
+# LlamaConfig.base() with bf16 weights; 16 requests, half of them behind
+# one system prompt, max_new_tokens each
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK = 8, 1024, 32
+SERVE_REQUESTS, SERVE_SYSTEM, SERVE_NEW = 16, 256, 64
+# the block pool of the preemption run: enough for the largest request,
+# too few for a wave of eight to grow
+SERVE_PREEMPT_BLOCKS = 97
+# teacher-forced oracle: at every generated position the engine's token
+# logit must be within SERVE_DELTA of the plain forward's largest logit.
+# Held on an engine computing in f32 over SERVE_ORACLE requests: with
+# random weights the logits lie close together, and in bf16 a sound
+# engine's gaps and those of the planted scatter fault overlap
+# (PERF.md, section 6).  The bf16 engine's gaps are held to SERVE_BF16_GAP,
+# a few bf16 steps of its logits, against gross faults
+SERVE_ORACLE = 4
+SERVE_DELTA = 1e-3
+SERVE_BF16_GAP = 0.0625
 
 
 def emit(obj):
@@ -437,7 +475,313 @@ def phase_slice():
     phase_profile(lambda: m.generate(prompts, **kw),
                   f"one captured generate call, B={B} P={P} N={N}",
                   {"flash_fwd": cfg.num_layers})
-    return launches["flash_fwd"]
+    return launches["flash_fwd"], m
+
+
+def serve_prompts(vocab):
+    """The serve phase's 16 prompts, from a numpy seed: 8 share a
+    256-token system prompt with private suffixes of 64-512 tokens, 8
+    are private prompts of 128-768 tokens; interleaved."""
+    rng = np.random.RandomState(5)
+    system = rng.randint(0, vocab, SERVE_SYSTEM)
+    half = SERVE_REQUESTS // 2
+    shared = [np.concatenate([system, rng.randint(0, vocab, n)])
+              for n in rng.randint(64, 513, half)]
+    private = [rng.randint(0, vocab, n) for n in rng.randint(128, 769, half)]
+    return [p.astype(np.int32) for pair in zip(shared, private)
+            for p in pair]
+
+
+def serve_engine(m, **kw):
+    """A ServeEngine over `m` at the phase's shape, warmed up: one
+    request of two chunks and three tokens runs each program's first
+    (eager) dispatch and its capture, then the metrics start afresh."""
+    from singa_tpu_torch.serve import ServeEngine
+    from singa_tpu_torch.serve.metrics import ServeMetrics
+    kw = {"param_dtype": torch.bfloat16, **kw}
+    eng = ServeEngine(m, SERVE_SLOTS, SERVE_MAX_LEN, block_size=SERVE_BLOCK,
+                      backoff_base=0.001, backoff_max=0.01, **kw)
+    warm = np.random.RandomState(99).randint(0, m.cfg.vocab_size,
+                                             SERVE_BLOCK + 8)
+    eng.submit(warm, max_new_tokens=3)
+    eng.run_until_idle()
+    eng.metrics = ServeMetrics(flight=eng.flight)
+    return eng
+
+
+def serve_traffic(eng, prompts):
+    """Submit every prompt at once and run to idle: (streams, seconds)."""
+    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    _, secs = _timed(eng.run_until_idle)
+    return [list(map(int, h.tokens)) for h in hs], secs
+
+
+def _gap_summary(gaps, agree):
+    return {"max_gap": float(gaps.max()),
+            "gap_p99": float(np.quantile(gaps, 0.99)),
+            "positions": int(gaps.size),
+            "positions_over_delta": int((gaps > SERVE_DELTA).sum()),
+            "argmax_agreement": agree}
+
+
+def teacher_forced_gaps(m, eng, prompts, streams):
+    """Each request's prompt and engine tokens through one plain causal
+    forward under the engine's bf16 weights: at every generated position
+    the forward's largest logit minus its logit of the engine's token
+    (0 where they agree).  (all gaps, share of positions where the
+    engine's token is the forward's argmax)."""
+    from singa_tpu_torch.models import _generate
+    gaps = []
+    with torch.no_grad(), _generate._bound(m, eng._params), \
+            plain_attention():
+        for p, toks in zip(prompts, streams):
+            ids = torch.as_tensor(np.concatenate([p, toks[:-1]])[None],
+                                  dtype=torch.int64, device=eng._device)
+            lg = m(ids)[0, p.size - 1:].float()
+            tok = torch.as_tensor(toks, device=eng._device)
+            gaps.append(lg.max(-1).values
+                        - lg.gather(1, tok[:, None])[:, 0])
+    gaps = torch.cat(gaps)
+    return gaps.cpu().numpy(), float((gaps == 0).float().mean())
+
+
+def f32_model(cfg):
+    """`cfg` at seed 0 (the weights of the slice phase's model) on the
+    card, computing in f32 (the card's default is bf16 activations)."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import Llama
+    dev = device.create_device("cuda")
+    dev.default_dtype = torch.float32
+    return Llama(cfg, device=dev,
+                 generator=torch.Generator("cuda").manual_seed(0))
+
+
+def oracle_f32(cfg, prompts):
+    """The teacher-forced oracle on an engine computing in f32 (f32
+    weights, arena and activations) over `prompts`, sound and with the
+    planted scatter fault: {"sound": (gaps, agreement), "fault": ...}."""
+    m = f32_model(cfg)
+    out = {}
+    for name, ctx in (("sound", nullcontext()), ("fault",
+                                                 late_token_scatter())):
+        with ctx:
+            eng = serve_engine(m, param_dtype=None)
+            streams, _ = serve_traffic(eng, prompts)
+        out[name] = teacher_forced_gaps(m, eng, prompts, streams)
+        eng.close()
+    return out
+
+
+class late_token_scatter:
+    """Swap kv_cache.scatter_token_kv for a planted fault that writes
+    each decode token one offset late in its block (for a fresh
+    engine's capture)."""
+
+    def __enter__(self):
+        from singa_tpu_torch.ops import kv_cache
+        self.kv, self.saved = kv_cache, kv_cache.scatter_token_kv
+        bs = SERVE_BLOCK
+
+        def late(ck, cv, block, offset, k_tok, v_tok):
+            return self.saved(ck, cv, block, (offset + 1) % bs, k_tok, v_tok)
+        kv_cache.scatter_token_kv = late
+
+    def __exit__(self, *exc):
+        self.kv.scatter_token_kv = self.saved
+
+
+def phase_serve(m):
+    """The paged ServeEngine over `m` (LlamaConfig.base(), f32 masters)
+    serving bf16 weights: traffic, checks and readings."""
+    from singa_tpu_torch import faults
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.serve import QueueFull
+
+    cfg = m.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    fa.reset_device_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = serve_engine(m)
+    counts_warm = eng.compiled_counts()
+    streams, secs = serve_traffic(eng, prompts)
+    snap = eng.metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts_traffic = eng.compiled_counts()
+    # a burst past max_queue between two steps is refused
+    burst = np.random.RandomState(98).randint(0, cfg.vocab_size, 8)
+    hs = []
+    try:
+        for _ in range(eng.sched.max_queue + 1):
+            hs.append(eng.submit(burst, max_new_tokens=1))
+        queue_full = False
+    except QueueFull:
+        queue_full = True
+    eng.run_until_idle()
+    # recovery: three decode faults in a row (past the two retries) at
+    # the 20th tick, and one transient prefill fault; same traffic
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("serve.decode", "error", at=20 + i)
+         for i in range(3)]
+        + [faults.FaultSpec("serve.prefill", "error", at=5)])
+    before = eng.metrics.snapshot()
+    with faults.active(plan):
+        rec_streams, rec_secs = serve_traffic(eng, prompts)
+    after = eng.metrics.snapshot()
+    recovery = {
+        "fired": plan.fire_count(),
+        "recoveries": after["recoveries"] - before["recoveries"],
+        "prefill_retries": after["retries"].get("serve.prefill", 0)
+        - before["retries"].get("serve.prefill", 0),
+        "decode_retries": after["retries"].get("serve.decode", 0)
+        - before["retries"].get("serve.decode", 0),
+        "replay_mismatches": after["replay_mismatches"]
+        - before["replay_mismatches"],
+        "streams_equal": rec_streams == streams, "seconds": rec_secs,
+        "compiled_counts": eng.compiled_counts()}
+    launches = fa.device_launches()       # the main engine's runs
+    arena_bytes = sum(t.numel() * t.element_size()
+                      for kv in eng.pool.caches for t in kv)
+    graphs = {"prefill_chunk": eng._prefill.graph, "decode": eng._decode.graph}
+    pool_bytes = {n: g.pool_bytes for n, g in graphs.items()}
+    # replays of the two captured programs on the idle engine (the same
+    # kernels as under traffic: the decode tick's work does not depend
+    # on how many slots are live)
+    tick_ms = _median_ms(eng._decode, n=21)
+    tick_device_ms = cuda_time_ms(eng._decode, iters=20, warmup=2)
+    chunk_ms = _median_ms(eng._prefill, n=21)
+    chunk_device_ms = cuda_time_ms(eng._prefill, iters=20, warmup=2)
+    phase_profile(lambda: (eng._decode(), eng._toks.cpu()),
+                  f"one decode tick of the serve engine ({SERVE_SLOTS} "
+                  f"slots, replay + token fetch)",
+                  dict.fromkeys(fa.KERNELS, 0))
+    gaps, agree = teacher_forced_gaps(m, eng, prompts, streams)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fa.reset_device_launches()
+    eng = serve_engine(m, share_prefix=False)
+    private_streams, private_secs = serve_traffic(eng, prompts)
+    private_snap = eng.metrics.snapshot()
+    eng.close()
+    del eng
+    eng = serve_engine(m, num_blocks=SERVE_PREEMPT_BLOCKS)
+    preempt_streams, preempt_secs = serve_traffic(eng, prompts)
+    preempt_snap = eng.metrics.snapshot()
+    preempt_counts = eng.compiled_counts()
+    eng.close()
+    del eng
+    with late_token_scatter():
+        eng = serve_engine(m)
+        fault_streams, _ = serve_traffic(eng, prompts[:SERVE_SLOTS])
+    fault_gaps, fault_agree = teacher_forced_gaps(
+        m, eng, prompts[:SERVE_SLOTS], fault_streams)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = oracle_f32(cfg, prompts[:SERVE_ORACLE])
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: n + launches[k] for k, n in fa.device_launches().items()}
+
+    # the same prompts through sequential generate() calls (one warm
+    # call first), as bench.py times its sequential baseline
+    kw = dict(max_new_tokens=SERVE_NEW, param_dtype=torch.bfloat16)
+    m.generate(prompts[0][None], **kw)
+    t0 = time.perf_counter()
+    seq = [m.generate(p[None], **kw)[0, p.size:] for p in prompts]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_agree = float(np.mean([np.mean(np.asarray(s) == np.asarray(e))
+                               for s, e in zip(seq, streams)]))
+
+    n_tok = sum(len(t) for t in streams)
+    ttft = snap["ttft_ms"]
+    result = {
+        "phase": "serve", "config": "LlamaConfig.base()",
+        "param_dtype": "bfloat16", "num_slots": SERVE_SLOTS,
+        "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK,
+        "requests": len(prompts), "max_new_tokens": SERVE_NEW,
+        "prompt_lens": [int(p.size) for p in prompts],
+        "compiled_counts": {"after_warm_up": counts_warm,
+                            "after_traffic": counts_traffic,
+                            "after_recovery": recovery["compiled_counts"],
+                            "preemption_engine": preempt_counts},
+        "seconds": secs, "tokens": n_tok, "tokens_per_s": n_tok / secs,
+        "ttft_ms": {"p50": ttft["p50"], "p99": ttft["p99"],
+                    "max": ttft["max"]},
+        "token_ms": snap["token_ms"],
+        "prefill_chunk_ms": chunk_ms, "prefill_chunk_device_ms":
+        chunk_device_ms, "decode_tick_ms": tick_ms,
+        "decode_tick_device_ms": tick_device_ms,
+        "prefix_hits": snap["prefix_hits"],
+        "prefix_hit_tokens": snap["prefix_hit_tokens"],
+        "preempted": snap["preempted"], "steps": snap["steps"],
+        "arena_bytes": arena_bytes, "graph_pool_bytes": pool_bytes,
+        "peak_memory_bytes": peak,
+        "graphs": {n: {"num_ops": g.num_ops, "flops": g.flops(),
+                       "capture_s": g.capture_seconds}
+                   for n, g in graphs.items()},
+        "queue_full_on_burst": queue_full,
+        "teacher_forced_bf16": {
+            "limit": SERVE_BF16_GAP, "sound": _gap_summary(gaps, agree),
+            "planted_fault": _gap_summary(fault_gaps, fault_agree),
+            "fault_requests": SERVE_SLOTS},
+        "teacher_forced_f32": {
+            "delta": SERVE_DELTA, "requests": SERVE_ORACLE,
+            "sound": _gap_summary(*f32["sound"]),
+            "planted_fault": _gap_summary(*f32["fault"])},
+        "planted_fault": "scatter_token_kv writes one offset late",
+        "recovery": recovery,
+        "no_prefix_sharing": {"streams_equal": private_streams == streams,
+                              "seconds": private_secs,
+                              "tokens_per_s": n_tok / private_secs,
+                              "ttft_ms": private_snap["ttft_ms"]},
+        "preemption": {"num_blocks": SERVE_PREEMPT_BLOCKS,
+                       "preempted": preempt_snap["preempted"],
+                       "replay_mismatches":
+                       preempt_snap["replay_mismatches"],
+                       "streams_equal": preempt_streams == streams,
+                       "seconds": preempt_secs},
+        "flash_launches": launches,
+        "sequential_generate": {"seconds": seq_s,
+                                "tokens_per_s": n_tok / seq_s,
+                                "token_agreement_with_engine": seq_agree},
+        "speedup_vs_sequential": seq_s / secs,
+    }
+    emit(result)
+    check(counts_traffic == (1, 1) and recovery["compiled_counts"] == (1, 1)
+          and preempt_counts == (1, 1),
+          f"compiled_counts {result['compiled_counts']}, expected (1, 1)")
+    check(all(len(t) == SERVE_NEW for t in streams)
+          and all(0 <= x < cfg.vocab_size for t in streams for x in t),
+          "the engine's streams are short or out of range")
+    check(queue_full, "a burst past max_queue was not refused")
+    check(snap["prefix_hits"] >= SERVE_REQUESTS // 2 - 1,
+          f"only {snap['prefix_hits']} prefix hits")
+    check(float(gaps.max()) <= SERVE_BF16_GAP, f"bf16 engine tokens fail "
+          f"the teacher-forced check: max gap {gaps.max()}")
+    check(float(f32["sound"][0].max()) <= SERVE_DELTA, f"f32 engine tokens "
+          f"fail the teacher-forced oracle: max gap "
+          f"{f32['sound'][0].max()} > {SERVE_DELTA}")
+    check(float(f32["fault"][0].max()) > SERVE_DELTA, f"the planted scatter "
+          f"fault passes the oracle: max gap {f32['fault'][0].max()}")
+    check(result["no_prefix_sharing"]["streams_equal"],
+          "streams without prefix sharing differ")
+    check(recovery["streams_equal"] and recovery["recoveries"] == 1
+          and recovery["prefill_retries"] >= 1,
+          f"recovery run: {recovery}")
+    check(result["preemption"]["streams_equal"]
+          and preempt_snap["preempted"] >= 1,
+          f"preemption run: {result['preemption']}")
+    check(launches == dict.fromkeys(fa.KERNELS, 0),
+          f"the flash kernels ran {launches} times on the serve path")
+    # requests the engines served: five warm-ups, the burst and the runs
+    served = 5 + len(hs) + 4 * len(prompts) + SERVE_SLOTS
+    return launches, served
 
 
 def _loss_and_grads(m, ids):
@@ -887,7 +1231,9 @@ def main():
         faults = phase_build(Path(tmp))
         phase_kernels()
         phase_faults(faults)
-    gen_launches = phase_slice()
+    gen_launches, m = phase_slice()
+    serve_launches, served = phase_serve(m)
+    del m
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(faults)
@@ -909,6 +1255,8 @@ def main():
         if r["name"] == "flash_fwd":
             by_path["generate"] = {"launches": gen_launches, "calls": 1,
                                    "per_call": gen_launches}
+        by_path["serve"] = {"launches": serve_launches[r["name"]],
+                            "requests": served}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[r["name"]],

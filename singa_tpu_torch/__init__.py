@@ -27,6 +27,9 @@ from . import graph
 from . import ops
 from . import models
 from . import utils
+from . import obs
+from . import faults
+from . import serve
 
 __all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
-           "models", "utils"]
+           "models", "utils", "obs", "faults", "serve"]

@@ -14,15 +14,18 @@ optimizer's slots kept in its eager store.  ``Model.graph`` and
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from . import autograd
+from . import autograd, faults
 from .device import Device, get_default_device
 from .graph import CapturedGraph, record
 from .graph import epoch as graph_epoch
 from .layer import Layer
+from .obs import attr as obs_attr
+from .obs import events as obs_events
 from .opt import Optimizer
 
 __all__ = ["Model", "Module", "model_device"]
@@ -104,13 +107,17 @@ class Model(Layer):
 
     def train_step(self, *batch):
         """Run train_one_batch (through the step executor in graph
-        mode)."""
+        mode).  Each call is a ``model.train_step`` span (obs.events;
+        host wall clock)."""
         self.train(True)
-        if self.graph_mode:
-            return self._run_graph("train", self._train_body, batch)
-        out = self.train_one_batch(*batch)
-        self._step_count += 1
-        return out
+        with obs_events.span("model.train_step", model=type(self).__name__,
+                             step=self._step_count,
+                             compiled=self.graph_mode):
+            if self.graph_mode:
+                return self._run_graph("train", self._train_body, batch)
+            out = self.train_one_batch(*batch)
+            self._step_count += 1
+            return out
 
     def _train_body(self, batch):
         return self.train_one_batch(*batch)
@@ -241,6 +248,34 @@ class _StepExecutor:
     def __call__(self, batch):
         m, opt = self.model, self.opt
         step_host = opt.step_counter if opt is not None else m._step_count
+        name = f"{type(m).__name__.lower()}.{self.tag}"
+        # "device.execute" injection site: error/hang fire on the host
+        # before anything of the step runs (the static buffers are
+        # intact, so the caller may retry this same step); nan corrupts
+        # the step's outputs after a clean run
+        faults.fire("device.execute", graph=name, step=step_host)
+        # a replay returns before the card has run it: a ledger times
+        # the step with the device synchronised around it, and only a
+        # ledger does (no ledger, no sync)
+        led = obs_attr.get()
+        if led is not None:
+            _sync(self.device)
+            t0 = time.perf_counter()
+        with obs_events.span("graph.execute", graph=name, step=step_host):
+            outs = self._dispatch(batch, name)
+        if led is not None:
+            _sync(self.device)
+            led.note("train_step" if self.is_train else f"{self.tag}_step",
+                     time.perf_counter() - t0)
+        outs = faults.corrupt("device.execute", outs)
+        self.calls += 1
+        m._step_count += 1
+        if opt is not None:
+            opt.step_counter = step_host + 1
+            self.slots = dict(opt._eager_state)
+        return outs
+
+    def _dispatch(self, batch, name):
         if self.calls == 0:
             outs, self.captured = record(self.tag, lambda: self._run(batch))
         elif self.device.type != "cuda":
@@ -248,17 +283,13 @@ class _StepExecutor:
         elif self.calls == 1:
             outs = self._warm_up(batch)
         elif self.calls == 2:
-            outs = self._capture(batch)
+            with obs_events.span("graph.compile", graph=name):
+                outs = self._capture(batch)
         else:
             for s, t in zip(self._static_in, batch):
                 s.copy_(t)
             self.captured.replay()
             outs = _clone(self._static_out)
-        self.calls += 1
-        m._step_count += 1
-        if opt is not None:
-            opt.step_counter = step_host + 1
-            self.slots = dict(opt._eager_state)
         return outs
 
     def _warm_up(self, batch):
@@ -276,6 +307,11 @@ class _StepExecutor:
             lambda: self._run(self._static_in), self._stream)
         self.captured.replay()
         return _clone(self._static_out)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _detach(outs):

@@ -34,18 +34,21 @@ with the reference in distribution, not in value.
 
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import autograd, faults
 from ..graph import CapturedGraph, record
 from ..graph import epoch as graph_epoch
-from ..model import model_device
+from ..model import _sync, model_device
+from ..obs import attr as obs_attr
+from ..obs import events as obs_events
 
-__all__ = ["GenerateMixin", "prefill_step", "decode_step"]
+__all__ = ["GenerateMixin", "prefill_step", "decode_step", "resume_step"]
 
 #: the most generate() sessions a model keeps (least recently used first
 #: out): each holds (B, S) caches for every layer and its graphs' pools
@@ -95,6 +98,23 @@ def decode_step(model):
         return logits[:, 0, :], caches
 
     return decode
+
+
+def resume_step(model):
+    """Build the chunked-prefill closure of the paged serving engine:
+    (ids (B, C), pos, caches) -> (logits (B, C, V), caches).  Unlike
+    `prefill_step` it takes the caller's caches and a device scalar
+    offset `pos`, so a prompt prefills as a sequence of fixed-(B, C)
+    chunks: each chunk writes its k/v at [pos, pos + C) and attends the
+    cache below pos + C (``cached_sdpa``'s bottom-right-aligned causal
+    window).  `pos` stays a tensor even at 0: an int 0 would route the
+    chunk through the prompt path instead of the cache."""
+
+    def resume(ids, pos, caches):
+        logits, caches = model.forward_cached(ids, caches=caches, pos=pos)
+        return logits, caches
+
+    return resume
 
 
 def _pick_impl(logits, temperature: float, generator: torch.Generator,
@@ -228,21 +248,37 @@ class _GenSession:
 
     # -- a call ---------------------------------------------------------------
     def run(self, ids: np.ndarray, n_new: int, seed: int) -> np.ndarray:
-        """(B, n_new) int32 tokens for prompt `ids`."""
+        """(B, n_new) int32 tokens for prompt `ids`.  The host seams of
+        the step executor wrap the call: the ``device.execute`` fault
+        site fires before anything runs, a ``graph.compile`` span covers
+        the capture and a ``graph.execute`` span the run, and an
+        installed ``obs.attr`` ledger times it with the card
+        synchronised around it."""
+        name = f"{type(self.model).__name__.lower()}.generate"
+        faults.fire("device.execute", graph=name, step=self.calls)
         self.ids.copy_(torch.as_tensor(ids, dtype=torch.int32))
         self.gen.manual_seed(int(seed))
-        if self.calls == 0:
-            self._warm_up(n_new)
-        elif self.device.type != "cuda":
-            self._prefill()
-            for _ in range(n_new - 1):
-                self._decode()
-        else:
-            if self.calls == 1:
-                self._capture()
-            self.graphs["prefill"].replay()
-            for _ in range(n_new - 1):
-                self.graphs["decode"].replay()
+        led = obs_attr.get()
+        if led is not None:
+            _sync(self.device)
+            t0 = time.perf_counter()
+        with obs_events.span("graph.execute", graph=name, step=self.calls):
+            if self.calls == 0:
+                self._warm_up(n_new)
+            elif self.device.type != "cuda":
+                self._prefill()
+                for _ in range(n_new - 1):
+                    self._decode()
+            else:
+                if self.calls == 1:
+                    with obs_events.span("graph.compile", graph=name):
+                        self._capture()
+                self.graphs["prefill"].replay()
+                for _ in range(n_new - 1):
+                    self.graphs["decode"].replay()
+        if led is not None:
+            _sync(self.device)
+            led.note("generate", time.perf_counter() - t0)
         self.calls += 1
         return self.toks.cpu().numpy()
 
@@ -380,6 +416,10 @@ class GenerateMixin:
         if temp == 0.0 or not (top_p and 0.0 < top_p < 1.0):
             top_p = None
         opts = (temp, top_k, top_p, eos_id)
+        if max_new_tokens == 0:
+            # nothing to generate: the prompt, as the reference's
+            # length-0 decode loop returns it (no session, no forward)
+            return ids.astype(np.int32)
         if use_graph:
             toks = self._gen_session(B, P, S, param_dtype, opts).run(
                 ids, max_new_tokens, seed)

@@ -1,6 +1,7 @@
 """KV-cache primitives for autoregressive decoding, ported from
 ``singa_tpu/ops/kv_cache.py`` (``init_cache``, ``update_cache``,
-``cached_sdpa``).
+``cached_sdpa``, and the paged arena's ``gather_block_kv``,
+``scatter_block_kv`` and ``scatter_token_kv`` at full precision).
 
 A static cache: preallocated (B, S_max, K, D) buffers plus an explicit
 validity window.  Prefill attends within the prompt through the regular
@@ -8,8 +9,11 @@ attention stack (the flash kernel when the shape tiles); decode steps
 (Tq = 1) run the masked reference math against the whole cache, as in
 the JAX package.
 
-Difference from the reference: ``update_cache`` writes into the given
-buffers in place (the reference is functional) and returns them.
+Difference from the reference: ``update_cache`` and the two paged
+scatters write into the given buffers in place (the reference is
+functional) and return them, so a captured serving program writes the
+arena it was captured over.  Indices are device tensors, read on the
+card: none of these ops syncs the host.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import List, Tuple
 
 import torch
 
-__all__ = ["init_cache", "update_cache", "cached_sdpa"]
+__all__ = ["init_cache", "update_cache", "cached_sdpa", "gather_block_kv",
+           "scatter_block_kv", "scatter_token_kv"]
 
 
 def init_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
@@ -76,3 +81,53 @@ def cached_sdpa(q, ck, cv, limit, scale: float = None, mask=None,
     if mask is not None:
         valid = valid & torch.as_tensor(mask, device=q.device)
     return _sdpa_reference(q, ck, cv, False, valid, scale)
+
+
+def gather_block_kv(ck, cv, table):
+    """Gather a contiguous per-request view out of a paged block arena.
+
+    ``ck``/``cv``: (num_blocks, block_size, K, D) block pools.
+    ``table``: (B, max_blocks) integer block table — row b's logical
+    block i lives in physical block ``table[b, i]``.  Returns new dense
+    (B, max_blocks * block_size, K, D) views.  The gather is a
+    fixed-shape ``index_select`` on the leading axis, so the paged arena
+    rides one captured program no matter which physical blocks a
+    request holds (stale/unallocated table entries read garbage that
+    the attention ``limit`` mask makes unreachable)."""
+    B, M = table.shape
+    idx = table.reshape(-1).long()
+
+    def dense(c):
+        return c.index_select(0, idx).reshape((B, M * c.shape[1])
+                                              + tuple(c.shape[2:]))
+
+    return dense(ck), dense(cv)
+
+
+def scatter_block_kv(ck, cv, block, k_blk, v_blk):
+    """Write one block's worth of k/v into the paged arena, in place.
+
+    ``block`` is a physical block id: an int, or a 0-d or (1,) device
+    tensor (a captured chunk's block, read on the card); ``k_blk`` /
+    ``v_blk`` are (block_size, K, D).  The chunked-prefill counterpart
+    of :func:`gather_block_kv`."""
+    b = torch.as_tensor(block, device=ck.device).reshape(1).long()
+    ck.index_copy_(0, b, k_blk[None].to(ck.dtype))
+    cv.index_copy_(0, b, v_blk[None].to(cv.dtype))
+    return ck, cv
+
+
+def scatter_token_kv(ck, cv, block, offset, k_tok, v_tok):
+    """Write ONE position's k/v per batch row into the paged arena, in
+    place.
+
+    ``block``/``offset``: (B,) integer device vectors — row b's token
+    lands at ``[block[b], offset[b]]``.  ``k_tok``/``v_tok``: (B, K, D).
+    The decode-over-block-tables counterpart of :func:`update_cache`'s
+    per-row vector path; rows sharing a target (inactive slots
+    redirected to the null block) resolve arbitrarily, which is safe
+    because the null block is never inside any row's validity window."""
+    b, o = block.long(), offset.long()
+    ck[b, o] = k_tok.to(ck.dtype)
+    cv[b, o] = v_tok.to(cv.dtype)
+    return ck, cv

@@ -1,6 +1,6 @@
-"""singa_tpu_torch.utils — checkpoints (``utils.checkpoint``), ported
-from ``singa_tpu/utils``."""
+"""singa_tpu_torch.utils — checkpoints (``utils.checkpoint``) and
+failure detection (``utils.failure``), ported from ``singa_tpu/utils``."""
 
-from . import checkpoint
+from . import checkpoint, failure
 
-__all__ = ["checkpoint"]
+__all__ = ["checkpoint", "failure"]

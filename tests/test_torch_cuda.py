@@ -387,3 +387,112 @@ def test_resume_from_a_checkpoint_recaptures(cuda_device, tmp_path):
     for n, p in m.get_params().items():
         rel = ((r.get_params()[n] - p).norm() / p.norm()).item()
         assert rel <= CAPTURE_RTOL, (n, rel)
+
+
+# -- the paged serve engine ---------------------------------------------------
+
+def _serve_prompts(n, vocab, lo=5, hi=70, seed=11):
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, 40)
+    return [np.concatenate([system, rng.randint(0, vocab, rng.randint(lo, hi))])
+            if i % 2 else rng.randint(0, vocab, rng.randint(lo, hi))
+            for i in range(n)]
+
+
+def _serve(eng, prompts, n=12):
+    hs = [eng.submit(p, max_new_tokens=n) for p in prompts]
+    eng.run_until_idle()
+    return [list(map(int, h.tokens)) for h in hs]
+
+
+def _eager(eng):
+    """Make `eng` launch both programs' bodies from the host at every
+    dispatch (never captured): the oracle for its captured twin."""
+    eng._prefill, eng._decode = eng._prefill_body, eng._decode_body
+    return eng
+
+
+def _serve_models(cuda_device):
+    """Tiny, and LlamaConfig.base() cut to two layers."""
+    base = dataclasses.replace(LlamaConfig.base(), num_layers=2)
+    return [Llama(cfg, device=cuda_device,
+                  generator=torch.Generator("cuda").manual_seed(0))
+            for cfg in (dataclasses.replace(LlamaConfig.tiny(),
+                                            max_position=256), base)]
+
+
+@pytest.mark.cuda
+def test_serve_engine_captures_two_graphs_and_keeps_them(cuda_device):
+    """compiled_counts() is (1, 1) after warm-up, across traffic, a
+    recovery and preemption; captured streams equal an all-eager twin's
+    bitwise, and repeated traffic gives the same streams."""
+    from singa_tpu_torch.serve import ServeEngine
+    for m in _serve_models(cuda_device):
+        prompts = _serve_prompts(8, m.cfg.vocab_size)
+        kw = dict(block_size=16, param_dtype=torch.bfloat16)
+        eager = _serve(_eager(ServeEngine(m, 4, 128, **kw)), prompts)
+        eng = ServeEngine(m, 4, 128, **kw)
+        first = _serve(eng, prompts)
+        assert eng.compiled_counts() == (1, 1)
+        assert eng._decode.graph.graph is not None
+        assert eng._prefill.graph.graph is not None
+        assert first == eager
+        assert _serve(eng, prompts) == eager
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts[:4]]
+        eng.step()
+        eng.step()
+        eng.recover("test")
+        eng.run_until_idle()
+        assert [list(map(int, h.tokens)) for h in hs] == eager[:4]
+        assert eng.compiled_counts() == (1, 1)
+        assert eng.metrics.replay_mismatches == 0
+        small = ServeEngine(m, 4, 128, num_blocks=12, **kw)
+        assert _serve(small, prompts) == eager
+        assert small.metrics.preempted >= 1
+        assert small.metrics.replay_mismatches == 0
+
+
+@pytest.mark.cuda
+def test_serve_replay_sees_host_writes_between_ticks(cuda_device):
+    """After capture, a block-table row, a position and an active flag
+    written on the host are what the next decode replay reads."""
+    from singa_tpu_torch.serve import ServeEngine
+    m = _serve_models(cuda_device)[0]
+    eng = ServeEngine(m, 4, 128, block_size=16)
+    _serve(eng, _serve_prompts(4, m.cfg.vocab_size))   # warm-up + capture
+    pool = eng.pool
+    slot, (b0, b1) = pool.alloc_slot(), pool.alloc_blocks(2)
+    pool.map_slot(slot, [b0, b1])
+    pool.activate(slot, 20)               # next write: block b1, offset 4
+    for ck, cv in pool.caches:
+        ck[b1].zero_()
+    eng._decode()
+    torch.cuda.synchronize()
+    want = [0] * 4
+    want[slot] = 21
+    assert pool.positions().tolist() == want
+    ck = pool.caches[0][0]
+    assert bool(ck[b1, 4].abs().sum() > 0)
+    assert bool(ck[b1, 5:].abs().sum() == 0)
+    assert bool(ck[b1, :4].abs().sum() == 0)
+    pool.release(slot)
+    eng._decode()
+    torch.cuda.synchronize()
+    assert pool.positions().tolist() == [0] * 4
+
+
+@pytest.mark.cuda
+def test_serve_bodies_do_not_sync_the_host(cuda_device):
+    from singa_tpu_torch.serve import ServeEngine
+    m = _serve_models(cuda_device)[0]
+    eng = ServeEngine(m, 4, 128, block_size=16)
+    _serve(eng, _serve_prompts(4, m.cfg.vocab_size))
+    eng._chunk[:16].fill_(3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._prefill_body()
+        eng._decode_body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.compiled_counts() == (1, 1)

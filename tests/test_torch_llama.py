@@ -100,6 +100,12 @@ def test_greedy_generate_token_identical(pair):
     out = tm.generate(prompt, max_new_tokens=N)
     assert out.dtype == np.int32 and out.shape == (2, P + N)
     np.testing.assert_array_equal(out, ref)
+    # no new tokens: the (B, P) prompt, on the session and eager paths
+    ref0 = jm.generate(prompt, max_new_tokens=0)
+    for use_graph in (True, False):
+        out0 = tm.generate(prompt, max_new_tokens=0, use_graph=use_graph)
+        assert out0.dtype == np.int32 and out0.shape == (2, P)
+        np.testing.assert_array_equal(out0, ref0)
 
 
 def test_greedy_generate_eos_matches(pair):
