@@ -292,6 +292,25 @@ def test_injected_faults_match_reference(pair, case):
     assert (te.pool.ref == 0).all() and te.pool.free_count == SLOTS
 
 
+def test_heartbeat_hang_drives_recovery(pair):
+    """A decode that hangs past the heartbeat timeout asks for a
+    recovery at the next step boundary; streams stay equal.  The
+    monitor wakes once a second, so a 1.2 s hang holds a wake at least
+    0.2 s into it, past the 0.05 s timeout."""
+    _, tm, _, _ = pair
+    prompts = _prompts([6, 9])
+    clean = _generate(tm, prompts, 6)
+    eng = ServeEngine(tm, 2, MAX_LEN, block_size=BS, heartbeat_timeout_s=0.05,
+                      recover_on_hang=True, **FAST)
+    plan = _plan(tfaults, [("serve.decode", "hang",
+                            dict(at=2, delay_s=1.2))])
+    with tfaults.active(plan):
+        assert _tokens(_serve(eng, prompts, 6)) == clean
+    assert plan.fire_count() == 1
+    assert eng.metrics.recoveries == 1
+    assert eng.compiled_counts() == (1, 1)
+
+
 def test_recovery_resets_in_place_and_keeps_programs(pair):
     _, tm, _, te = pair
     prompts = _prompts([9, 4], seed=5)
