@@ -50,25 +50,13 @@ AND enough blocks for its prompt (minus the shared prefix), and decode
 grows a slot by one block when its position crosses a block boundary.
 When growth finds no free or evictable block, the youngest running
 request is PREEMPTED — its blocks are released and it re-queues at the
-head, to be replayed later.
+head, to be re-prefilled later.
 
-**Replay through the decode program.**  The reference re-admits a
-preempted or recovered request by re-prefilling prompt + tokens-so-far
-in chunks, and relies on greedy decode being idempotent.  On a card
-that is not exact: a position's k/v computed in a 32-row chunk and in
-the (num_slots,)-row decode round differently (other GEMM shapes, other
-attention shapes), and a bf16 rounding that falls the other way can
-flip a later greedy pick.  So the port re-prefills only the PROMPT —
-the same chunks at the same offsets as the first admission, hence the
-same bits — and then replays the tokens already generated through the
-decode program, one per tick, feeding each recorded token back in
-place of the pick (nothing is delivered until the replay has caught
-up).  Every k/v and every new pick is then computed exactly as in an
-uninterrupted run, and a replayed pick that differs from the recorded
-token is counted (``metrics.replay_mismatches``), which a reproducible
-card keeps at 0.  Streams stay bitwise equal through preemption and
-recovery; the replay costs one tick per generated token instead of
-one chunk per block.
+A preempted or recovered request is re-admitted as in the reference:
+prompt + tokens-so-far re-prefilled in chunks, the last chunk's pick
+delivered as its next token.  Greedy decode makes that idempotent; on
+a card ``chip_smoke.py`` holds the streams bitwise equal to an
+uninterrupted run's through a recovery and under preemption.
 
 Resilience, every path exercised by deterministic chaos tests
 (``singa_tpu_torch.faults``):
@@ -88,8 +76,7 @@ Resilience, every path exercised by deterministic chaos tests
   past retries, or a Heartbeat detects a hang (``recover_on_hang``),
   the arena is reset IN PLACE (the same storage zeroed, tables,
   refcounts and prefix cache emptied, so nothing is recaptured) and
-  every in-flight request is replayed: its prompt re-prefilled, its
-  tokens fed back through decode.
+  every in-flight request is re-prefilled from prompt + tokens.
 * **drain/close** — ``drain()`` refuses new submissions while
   completing everything in the system; ``close()`` drains and releases
   the arena and the graphs.
@@ -314,9 +301,6 @@ class ServeEngine:
                               block_size=block_size, num_blocks=num_blocks,
                               dtype=arena_dtype)
         self._running: Dict[int, Request] = {}      # slot -> request
-        # slot -> index of the next recorded token a replaying request
-        # feeds back (see "Replay through the decode program")
-        self._replay: Dict[int, int] = {}
         dev, bs = self._device, self.pool.block_size
         # device-resident per-slot last tokens: written by prefill (the
         # request's first token) and decode (each next token); the host
@@ -717,10 +701,11 @@ class ServeEngine:
     def _admit_traced(self, req: Request) -> int:
         slot = self.pool.alloc_slot()
         assert slot is not None, "admission with no free slot"
-        # only the prompt is prefilled; a request re-admitted by
-        # preemption or recovery replays its tokens through decode
-        # ticks afterwards (its blocks cover the whole replay)
-        P = req.prompt.size
+        # replay_ids == prompt for a fresh request; for a request
+        # re-admitted by preemption or recovery it is prompt +
+        # tokens-so-far, whose greedy prefill pick IS the next token
+        replay = req.replay_ids()
+        P = replay.size
         bs = self.pool.block_size
         first = not req.tokens
         owned: List[int] = []
@@ -748,12 +733,11 @@ class ServeEngine:
                              shared=start0):
                 for start in range(start0, P, bs):
                     self._dispatch("serve.prefill", self._prefill_chunk,
-                                   (req.prompt[start:start + bs], start,
-                                    slot), rid=req.rid)
+                                   (replay[start:start + bs], start, slot),
+                                   rid=req.rid)
                 # the designed per-admission sync: one (num_slots,)
-                # fetch delivers the prefill token (a replaying request
-                # already has it)
-                tok = int(self._toks.cpu()[slot]) if first else None
+                # fetch delivers the prefill token
+                tok = int(self._toks.cpu()[slot])
         except (RuntimeError, OSError) as e:
             if isinstance(e, failure.FailureDetected):
                 raise
@@ -776,34 +760,17 @@ class ServeEngine:
         req.slot = slot
         req.state = RUNNING
         self._running[slot] = req
-        if not first:
-            self._replay_from(slot, req, tok=None)
-            return 0
-        self.metrics.on_admit()
-        done = req.deliver(tok)       # prefill yields the first token
+        if first:
+            self.metrics.on_admit()
+        done = req.deliver(tok)       # prefill yields the (next) token
         self.metrics.on_deliver(req.rid, len(req.tokens))
-        self.metrics.on_first_token(req.ttft_s)
+        if first:
+            self.metrics.on_first_token(req.ttft_s)
         if req.on_token is not None:
             req.on_token(tok, req.handle)
         if done:
             self._finalize(slot)
         return 1
-
-    def _replay_from(self, slot: int, req: Request,
-                     tok: Optional[int]) -> None:
-        """Advance a replaying slot by one recorded token: count a pick
-        ``tok`` that differs from the token recorded for this position,
-        and feed the recorded token in for the next tick (a fill on the
-        device, no sync).  Once the last recorded token is fed, the slot
-        leaves the replay and its next pick is delivered as new."""
-        r = self._replay.get(slot, 0)
-        if tok is not None and tok != req.tokens[r]:
-            self.metrics.on_replay_mismatch()
-        self._toks[slot].fill_(req.tokens[r])
-        if r + 1 < len(req.tokens):
-            self._replay[slot] = r + 1
-        else:
-            self._replay.pop(slot, None)
 
     def _quarantine(self, req: Request, err: Exception,
                     site: str = "serve.prefill",
@@ -847,7 +814,6 @@ class ServeEngine:
         victim_slot = max(self._running,
                           key=lambda s: self._running[s].rid)
         req = self._running.pop(victim_slot)
-        self._replay.pop(victim_slot, None)
         self.pool.release(victim_slot)
         req.state = QUEUED
         req.slot = None
@@ -867,9 +833,6 @@ class ServeEngine:
         for slot in list(self._running):
             req = self._running[slot]
             tok = int(toks[slot])
-            if slot in self._replay:
-                self._replay_from(slot, req, tok)
-                continue
             with obs_trace.activate(req.trace_id):
                 done = req.deliver(tok)
                 self.metrics.on_token(dt)
@@ -883,7 +846,6 @@ class ServeEngine:
         return delivered
 
     def _finalize(self, slot: int, evicted: bool = False) -> None:
-        self._replay.pop(slot, None)
         req = self._running.pop(slot)
         self.pool.release(slot)
         req.state = EVICTED if evicted else FINISHED
@@ -892,12 +854,13 @@ class ServeEngine:
 
     # -- recovery ----------------------------------------------------------
     def recover(self, reason: str = "requested") -> None:
-        """Reset the arena and replay every in-flight request: the path
-        behind Heartbeat hang detection, also callable directly after an
-        external device event.  Each running request is requeued at the
-        HEAD of the queue; its prompt is re-prefilled and its tokens fed
-        back through decode, so the final streams are bit-identical to
-        an uninterrupted run."""
+        """Reset the arena and re-prefill every in-flight request: the
+        path behind Heartbeat hang detection, also callable directly
+        after an external device event.  Each running request is
+        requeued at the HEAD of the queue and re-prefilled from
+        ``prompt + tokens-so-far``; greedy decode makes that replay
+        idempotent, so the final streams are bit-identical to an
+        uninterrupted run."""
         self._recover(reason)
 
     def _recover(self, reason: str) -> None:
@@ -911,7 +874,6 @@ class ServeEngine:
         with events.span("serve.recover", reason=reason):
             inflight = sorted(self._running.values(), key=lambda r: r.rid)
             self._running.clear()
-            self._replay.clear()
             # the same storage reset in place: the two captured programs
             # read it by address, so recovery never recaptures.  The
             # prefix cache dies with the arena's contents

@@ -32,12 +32,6 @@ name                        kind       meaning
                                        blocks to an exhausted pool and
                                        re-queued (replayed later,
                                        stream unchanged)
-``serve.replay_mismatches`` counter   a replayed decode pick that differs
-                                       from the token recorded for its
-                                       position (the port replays a
-                                       preempted or recovered request
-                                       through decode; 0 where the card
-                                       computes reproducibly)
 ``serve.prefix_hits``       counter    an admission mapped >= 1 resident
                                        shared-prefix block copy-free
 ``serve.prefix_hit_tokens`` counter    prompt tokens whose prefill was
@@ -103,7 +97,6 @@ class ServeMetrics:
         self.quarantined = 0
         self.recoveries = 0
         self.preempted = 0
-        self.replay_mismatches = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.steps = 0
@@ -161,11 +154,6 @@ class ServeMetrics:
         self.preempted += 1
         events.counter("serve.preempted", 1)
         self._note("counter", "serve.preempted")
-
-    def on_replay_mismatch(self) -> None:
-        self.replay_mismatches += 1
-        events.counter("serve.replay_mismatches", 1)
-        self._note("counter", "serve.replay_mismatches")
 
     # -- paged arena / prefix cache ------------------------------
     def on_prefix_hit(self, tokens: int) -> None:
@@ -233,7 +221,6 @@ class ServeMetrics:
             "quarantined": self.quarantined,
             "recoveries": self.recoveries,
             "preempted": self.preempted,
-            "replay_mismatches": self.replay_mismatches,
             "prefix_hits": self.prefix_hits,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "steps": self.steps,

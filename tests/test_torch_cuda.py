@@ -445,11 +445,9 @@ def test_serve_engine_captures_two_graphs_and_keeps_them(cuda_device):
         eng.run_until_idle()
         assert [list(map(int, h.tokens)) for h in hs] == eager[:4]
         assert eng.compiled_counts() == (1, 1)
-        assert eng.metrics.replay_mismatches == 0
         small = ServeEngine(m, 4, 128, num_blocks=12, **kw)
         assert _serve(small, prompts) == eager
         assert small.metrics.preempted >= 1
-        assert small.metrics.replay_mismatches == 0
 
 
 @pytest.mark.cuda
