@@ -42,14 +42,45 @@ Phases, each printing JSON lines; any failure exits non-zero:
                causal forward: every engine token's logit within a limit
                of that position's largest), which a planted fault must
                fail: in bf16 one writing decode k/v into the null block,
-               in f32 (4 requests) one writing it one offset late; no
+               in f32 (4 requests, base() cut to 4 layers) one writing
+               it one offset late; no
                flash launch on the card, counted from the main engine's
                warm-up to its last rerun, and over the other engines.
                TTFT, prefill chunk and decode tick times, tokens/s,
                prefix hits, memory, one profiled decode tick, and four
                of the prompts through sequential captured generate()
                calls
-  7. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+  7. spec    — speculative decoding on the serve engine (spec_k=3), over
+               the serve phase's first wave: self-speculation
+               (draft_model = the target), a disagreeing draft
+               (base() cut to 2 layers, seed 1), a serve.verify fault
+               past the retries (one plain-decode fallback tick) and a
+               recovery mid-wave; each run's streams held bitwise to
+               the plain engine's.  spec_compiled_counts() is
+               (1, 0, 1, 0), (1, 1, 1, 0) after the fallback.  Accept
+               rate, tokens per dispatch, verify round ms, tokens/s and
+               TTFT beside the plain engine's; no flash launch
+  8. mem     — the int8 arena and the bf16 one at the serve arena's
+               bytes over 24 slots (the 16 prompts and 8 again, no
+               prefix sharing, 16 new tokens each): peak concurrency,
+               tokens/s, TTFT, tick; the referee (an int8 draft arena
+               under the bf16 target) whose accept rate must reach a
+               limit that a planted scatter dropping the scales must
+               not; quantize_kv on the card equal to the CPU's; the
+               spill tier on a 96-block pool (4 system-prompt requests,
+               the 8 private prompts, 4 more system-prompt requests):
+               the system prompt's blocks spilled and restored by one
+               restore program, the third wave's streams equal to an
+               engine without the tier's, which a planted restore into
+               the next block must break; no flash launch
+  9. beam    — generate_beam on two of the slice phase's prompts (P=1024,
+               N=32, 4 beams, bf16 weights), without and with an eos id:
+               the captured session (prefill graph, one beam tick
+               replayed N times) against the eager search bitwise, 16
+               flash launches per call counted on the card, num_beams=1
+               against greedy generate(), the scores against a
+               teacher-forced f32 forward; call and tick ms, pool bytes
+ 10. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
                with their plain versions, and with planted faults in
@@ -64,11 +95,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
-  8. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+ 11. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
                with a save after step 2; a fresh model loads it and runs
                steps 3-6 (eager, warm-up, capture, replay), whose losses
                must equal the uninterrupted run's within the train limit
-  9. timing  — each kernel, its plain version and the PyTorch call that
+ 12. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -96,7 +127,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import nullcontext
+import warnings
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -165,7 +197,38 @@ SERVE_PREEMPT_BLOCKS = 92
 # 0.0156, one writing every decode token's k/v into the null block 0.242
 SERVE_ORACLE = 4
 SERVE_DELTA = 1e-3
+# the f32 oracle's engine runs base() cut to this depth, at full width:
+# it reads the engine's scatter and gather, which depth does not change,
+# and the whole script stays near its time budget
+SERVE_ORACLE_LAYERS = 4
 SERVE_BF16_GAP = 0.0625
+
+# the spec phase: a verify window of SPEC_K proposals; the disagreeing
+# draft is LlamaConfig.base() cut to SPEC_DRAFT_LAYERS layers, seed 1
+SPEC_K, SPEC_DRAFT_LAYERS = 3, 2
+# the mem phase: the int8 and bf16 arenas at the serve arena's bytes
+# serve the 16 prompts and 8 of them again over INT8_SLOTS slots without
+# prefix sharing, so demand (~410 blocks) exceeds the bf16 arena's
+# capacity (256 blocks) and not the int8 one's (511): with sharing the
+# bf16 arena held all 16 requests at once, as the int8 one did
+# (PERF.md, section 4).  These runs and the spill waves take MEM_NEW new
+# tokens a request (they read admission and prefill: concurrency, TTFT,
+# restores)
+INT8_SLOTS, MEM_NEW = 24, 16
+# the referee (an int8 draft arena under the bf16 target, self-
+# speculation): a sound arena's accept rate must reach this, the planted
+# scatter that drops the scales must not.  Readings on an H100 (PERF.md,
+# section 5): sound 0.926, scales dropped 0.528
+REFEREE_MIN_ACCEPT = 0.75
+# the spill run: a pool too small to keep the system prompt's blocks
+# while the 8 private prompts run, and the host store's capacity
+SPILL_POOL, SPILL_STORE = 96, 256
+# the beam phase: two of the slice phase's prompts, four beams, and the
+# returned scores against a teacher-forced f32 forward, relative: the
+# search runs bf16 weights and activations, each of 32 log-softmax
+# terms off by bf16 roundings of the logits
+BEAM_B, BEAM_K, BEAM_N = 2, 4, 32
+BEAM_SCORE_RTOL = 1e-2
 
 
 def emit(obj):
@@ -500,7 +563,7 @@ def serve_prompts(vocab):
             for p in pair]
 
 
-def serve_engine(m, **kw):
+def serve_engine(m, slots=SERVE_SLOTS, **kw):
     """A ServeEngine over `m` at the phase's shape, warmed up: one
     request of two chunks and three tokens runs each program's first
     (eager) dispatch and its capture, then the metrics start afresh.
@@ -508,22 +571,38 @@ def serve_engine(m, **kw):
     from singa_tpu_torch.serve import ServeEngine
     from singa_tpu_torch.serve.metrics import ServeMetrics
     kw = {"param_dtype": torch.bfloat16, **kw}
-    eng = ServeEngine(m, SERVE_SLOTS, SERVE_MAX_LEN, block_size=SERVE_BLOCK,
+    eng = ServeEngine(m, slots, SERVE_MAX_LEN, block_size=SERVE_BLOCK,
                       backoff_base=0.001, backoff_max=0.01, **kw)
     warm = np.random.RandomState(99).randint(0, m.cfg.vocab_size,
                                              SERVE_BLOCK + 8)
-    eng.submit(warm, max_new_tokens=3)
+    # long enough for two verify rounds on a spec engine
+    eng.submit(warm, max_new_tokens=3 + 2 * eng.spec_k)
     eng.run_until_idle()
     warm_requests = eng.metrics.admitted
     eng.metrics = ServeMetrics(flight=eng.flight)
     return eng, warm_requests
 
 
+def traffic(eng, prompts, recover_after=None, new_tokens=SERVE_NEW):
+    """Submit every prompt at once and run to idle (with `recover_after`,
+    step that many times, force a recovery, then run to idle):
+    (streams, seconds, each request's TTFT in ms)."""
+    hs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+
+    def run():
+        if recover_after is not None:
+            for _ in range(recover_after):
+                eng.step()
+            eng.recover("chip_smoke: mid-wave")
+        eng.run_until_idle()
+    _, secs = _timed(run)
+    return ([list(map(int, h.tokens)) for h in hs], secs,
+            [h.ttft_s * 1e3 for h in hs])
+
+
 def serve_traffic(eng, prompts):
     """Submit every prompt at once and run to idle: (streams, seconds)."""
-    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
-    _, secs = _timed(eng.run_until_idle)
-    return [list(map(int, h.tokens)) for h in hs], secs
+    return traffic(eng, prompts)[:2]
 
 
 def recovery_plan():
@@ -536,30 +615,44 @@ def recovery_plan():
         + [faults.FaultSpec("serve.prefill", "error", at=5)])
 
 
-def wave_run(eng, wave, expect, plan=None):
-    """`wave` through `eng` (under a fault plan, if given): whether its
-    streams equal `expect`, how many differ and the first position at
-    which one does, its seconds, and what the engine's counters moved
-    by."""
-    from singa_tpu_torch import faults
-    before = eng.metrics.snapshot()
-    with faults.active(plan) if plan is not None else nullcontext():
-        got, secs = serve_traffic(eng, wave)
-    after = eng.metrics.snapshot()
+def _differ(got, expect):
+    """Whether the streams equal `expect`, how many differ and the first
+    position at which one does."""
     differ = [next(i for i, (a, b) in enumerate(zip(g, e)) if a != b)
               for g, e in zip(got, expect) if g != e]
-    out = {"streams_equal": got == expect,
-           "requests_differing": len(differ),
-           "first_differing_token": min(differ) if differ else None,
-           "seconds": secs, "compiled_counts": eng.compiled_counts()}
-    for key in ("admitted", "recoveries", "preempted", "steps"):
+    return {"streams_equal": got == expect,
+            "requests_differing": len(differ),
+            "first_differing_token": min(differ) if differ else None}
+
+
+def wave_run(eng, wave, expect, plan=None, recover_after=None,
+             keep_streams=False):
+    """`wave` through `eng` (under a fault plan, or with a recovery
+    after `recover_after` steps, if given): whether its streams equal
+    `expect`, how many differ and the first position at which one does,
+    its seconds and TTFT p50, the programs made and what the engine's
+    counters moved by (and, with `keep_streams`, the streams beside)."""
+    from singa_tpu_torch import faults
+    before = eng.metrics.snapshot()
+    with faults.active(plan) if plan is not None else nullcontext(), \
+            warnings.catch_warnings():
+        # a spec engine's fallback tick warns; the counters tell it
+        warnings.simplefilter("ignore")
+        got, secs, ttft = traffic(eng, wave, recover_after)
+    after = eng.metrics.snapshot()
+    out = {**_differ(got, expect), "seconds": secs,
+           "ttft_p50_ms": float(np.median(ttft)),
+           "compiled_counts": (eng.spec_compiled_counts()
+                               if eng.spec_k else eng.compiled_counts())}
+    for key in ("admitted", "recoveries", "preempted", "steps",
+                "spec_rounds", "spec_fallbacks"):
         out[key] = after[key] - before[key]
     for site in ("serve.prefill", "serve.decode"):
         out[site.split(".")[1] + "_retries"] = (
             after["retries"].get(site, 0) - before["retries"].get(site, 0))
     if plan is not None:
         out["fired"] = plan.fire_count()
-    return out
+    return (out, got) if keep_streams else out
 
 
 def _gap_summary(gaps, agree, limit):
@@ -603,8 +696,8 @@ def faulty_gaps(m, fault, prompts, **kw):
 
 
 def f32_model(cfg):
-    """`cfg` at seed 0 (the weights of the slice phase's model) on the
-    card, computing in f32 (the card's default is bf16 activations)."""
+    """`cfg` at seed 0 on the card, computing in f32 (the card's default
+    is bf16 activations)."""
     from singa_tpu_torch import device
     from singa_tpu_torch.models import Llama
     dev = device.create_device("cuda")
@@ -617,7 +710,7 @@ def oracle_f32(cfg, prompts):
     """The teacher-forced oracle on an engine computing in f32 (f32
     weights, arena and activations) over `prompts`, sound and with the
     planted scatter fault: {"sound": (gaps, agreement), "fault": ...}."""
-    m = f32_model(cfg)
+    m = f32_model(dataclasses.replace(cfg, num_layers=SERVE_ORACLE_LAYERS))
     eng, _ = serve_engine(m, param_dtype=None)
     streams, _ = serve_traffic(eng, prompts)
     out = {"sound": teacher_forced_gaps(m, eng, prompts, streams)}
@@ -669,7 +762,9 @@ def phase_serve(m):
     serving bf16 weights: traffic, checks and readings.  Returns the
     main engine's flash launches and the requests it admitted, from the
     card's counters zeroed before its warm-up and read after its
-    traffic, burst, fault runs and the runs without prefix sharing."""
+    traffic, burst, fault runs and the runs without prefix sharing, and
+    what the later serving phases reuse: the prompts, the streams, the
+    first wave's rerun and the engine's tick and arena."""
     from singa_tpu_torch.models import _generate
     from singa_tpu_torch.ops import flash_attention as fa
     from singa_tpu_torch.serve import QueueFull
@@ -847,7 +942,498 @@ def phase_serve(m):
           f"the serve path")
     check(other_launches == zero, f"the flash kernels ran {other_launches} "
           f"times in the other engines")
+    return launches, requests, {
+        "prompts": prompts, "streams": streams, "wave": expect,
+        "plain_wave": plain, "decode_tick_ms": tick_ms,
+        "decode_tick_device_ms": tick_device_ms,
+        "arena_bytes": arena_bytes, "peak_memory_bytes": peak}
+
+
+def vs_plain(streams, expect):
+    """A speculative run's streams against the plain engine's
+    (`expect`): bitwise, and the share of tokens that agree."""
+    return {**_differ(streams, expect),
+            "token_agreement_with_plain": float(np.mean(
+                [np.mean(np.asarray(g) == np.asarray(e))
+                 for g, e in zip(streams, expect)]))}
+
+
+def _graph_bytes(*programs):
+    return {p.name: p.graph.pool_bytes for p in programs
+            if p.graph is not None}
+
+
+def draft_model(cfg):
+    """LlamaConfig.base() cut to SPEC_DRAFT_LAYERS layers, random weights
+    from seed 1: a draft that disagrees with the target."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import Llama
+    return Llama(dataclasses.replace(cfg, num_layers=SPEC_DRAFT_LAYERS),
+                 device=device.create_device("cuda"),
+                 generator=torch.Generator("cuda").manual_seed(1))
+
+
+def phase_spec(m, ctx):
+    """Speculative decoding (spec_k=SPEC_K) over the serve phase's first
+    wave: self-speculation (a cold run, then a rerun over the warm
+    prefix cache, timed as the serve phase's plain rerun is), a
+    disagreeing draft, a verify fault past the retries (plain-decode
+    fallback) and a recovery mid-wave, each held bitwise to the plain
+    engine's streams: the bf16 verify window picks what the decode step
+    picks (PERF.md, section 6), so no f32 engine stands in.  Returns the
+    flash launches of the main spec engine (none expected) and the
+    requests it admitted."""
+    from singa_tpu_torch import faults
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = m.cfg
+    wave, expect = ctx["prompts"][:SERVE_SLOTS], ctx["wave"]
+    fa.reset_device_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng, warm_requests = serve_engine(m, draft_model=m, spec_k=SPEC_K)
+    counts_warm = eng.spec_compiled_counts()
+    streams, secs, ttft = traffic(eng, wave)
+    snap = eng.metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = eng.spec_compiled_counts()
+    self_spec = vs_plain(streams, expect)
+    rerun = wave_run(eng, wave, expect)
+    plan = faults.FaultPlan([faults.FaultSpec("serve.verify", "error",
+                                              at=6 + i) for i in range(3)])
+    fault = wave_run(eng, wave, expect, plan)
+    recovery = wave_run(eng, wave, expect, recover_after=6)
+    launches = fa.device_launches()
+    requests = warm_requests + eng.metrics.admitted
+    round_ms = _median_ms(eng._verify, n=21)
+    round_device_ms = cuda_time_ms(eng._verify, iters=20, warmup=2)
+    graph_bytes = _graph_bytes(eng._prefill, eng._decode, eng._verify)
+    phase_profile(lambda: (eng._verify(), eng._spec_out.cpu()),
+                  f"one verify round of the spec engine (k={SPEC_K}, "
+                  f"{SERVE_SLOTS} slots, replay + fetch)",
+                  dict.fromkeys(fa.KERNELS, 0))
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a disagreeing draft: every round still yields one target token
+    dm = draft_model(cfg)
+    eng, _ = serve_engine(m, draft_model=dm, spec_k=SPEC_K)
+    d_streams, d_secs, _ = traffic(eng, wave)
+    d_snap = eng.metrics.snapshot()
+    disagree = vs_plain(d_streams, expect)
+    d_counts = eng.spec_compiled_counts()
+    eng.close()
+    del eng, dm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_tok = sum(len(t) for t in streams)
+    plain = ctx["plain_wave"]
+    result = {
+        "phase": "spec", "config": "LlamaConfig.base()",
+        "param_dtype": "bfloat16", "spec_k": SPEC_K,
+        "num_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+        "requests": len(wave), "max_new_tokens": SERVE_NEW,
+        "compiled_counts": {"after_warm_up": counts_warm,
+                            "after_traffic": counts,
+                            "after_fallback": fault["compiled_counts"],
+                            "after_recovery": recovery["compiled_counts"]},
+        "self_speculation": {
+            "accept_rate": snap["accept_rate"],
+            "tokens_per_dispatch": snap["tokens_per_dispatch"],
+            "spec_rounds": snap["spec_rounds"],
+            "cold": {"seconds": secs, "tokens_per_s": n_tok / secs,
+                     "ttft_p50_ms": float(np.median(ttft))},
+            "rerun": {**rerun, "tokens_per_s": n_tok / rerun["seconds"]},
+            "token_ms": snap["token_ms"], **self_spec},
+        "plain_engine_rerun": {"seconds": plain["seconds"],
+                         "tokens_per_s": n_tok / plain["seconds"],
+                         "ttft_p50_ms": plain["ttft_p50_ms"],
+                         "decode_tick_ms": ctx["decode_tick_ms"],
+                         "decode_tick_device_ms":
+                         ctx["decode_tick_device_ms"]},
+        "verify_round_ms": round_ms,
+        "verify_round_device_ms": round_device_ms,
+        "graph_pool_bytes": graph_bytes, "peak_memory_bytes": peak,
+        "disagreeing_draft": {
+            "draft": f"LlamaConfig.base() cut to {SPEC_DRAFT_LAYERS} "
+                     f"layers, seed 1",
+            "accept_rate": d_snap["accept_rate"],
+            "tokens_per_dispatch": d_snap["tokens_per_dispatch"],
+            "spec_rounds": d_snap["spec_rounds"],
+            "slot_dispatches": d_snap["slot_dispatches"],
+            "seconds": d_secs, "tokens_per_s": n_tok / d_secs,
+            "compiled_counts": d_counts, **disagree},
+        "verify_fault": fault, "recovery": recovery,
+        "main_engine": {"requests_admitted": requests,
+                        "flash_launches": launches},
+        "phase_seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    check(counts == (1, 0, 1, 0), f"spec_compiled_counts {counts} after "
+          f"the traffic, expected (1, 0, 1, 0)")
+    check(fault["compiled_counts"] == (1, 1, 1, 0)
+          and recovery["compiled_counts"] == (1, 1, 1, 0)
+          and d_counts == (1, 0, 1, 0),
+          f"spec_compiled_counts {result['compiled_counts']}, "
+          f"disagreeing draft {d_counts}")
+    check(fault["spec_fallbacks"] >= 1 and fault["fired"] == 3,
+          f"the verify fault did not fall back: {fault}")
+    check(recovery["recoveries"] == 1, f"recovery run: {recovery}")
+    for name, h in (("self-speculation", self_spec), ("its rerun", rerun),
+                    ("the disagreeing draft", disagree),
+                    ("the verify fault", fault), ("the recovery", recovery)):
+        check(h["streams_equal"], f"{name}'s streams differ from the plain "
+              f"engine's: {h}")
+    check(snap["accept_rate"] is not None and snap["accept_rate"] > 0.5,
+          f"self-speculation accept rate {snap['accept_rate']}")
+    check(d_snap["accept_rate"] < 0.05
+          and d_snap["spec_rounds"] == d_snap["slot_dispatches"]
+          and d_snap["tokens_per_dispatch"] >= 1.0,
+          f"disagreeing draft: {result['disagreeing_draft']}")
+    check(launches == dict.fromkeys(fa.KERNELS, 0),
+          f"the flash kernels ran {launches} times on the spec path")
     return launches, requests
+
+
+def equal_bytes_run(m, prompts, kv_dtype, num_blocks):
+    """All of `prompts` at once over INT8_SLOTS slots and `num_blocks`
+    blocks, without prefix sharing: (engine summary, streams).  Peak
+    concurrency is read between steps."""
+    eng, _ = serve_engine(m, slots=INT8_SLOTS, num_blocks=num_blocks,
+                          kv_dtype=kv_dtype, share_prefix=False)
+    hs = [eng.submit(p, max_new_tokens=MEM_NEW) for p in prompts]
+    peak = 0
+
+    def run():
+        nonlocal peak
+        while eng.pending:
+            eng.step()
+            peak = max(peak, eng.pool.active_count)
+    _, secs = _timed(run)
+    snap = eng.metrics.snapshot()
+    n_tok = sum(len(h.tokens) for h in hs)
+    out = {"kv_dtype": kv_dtype or "bfloat16", "num_blocks": num_blocks,
+           "block_bytes": eng.pool.block_bytes,
+           "arena_bytes": num_blocks * eng.pool.block_bytes,
+           "peak_concurrency": peak, "seconds": secs,
+           "tokens_per_s": n_tok / secs,
+           "ttft_ms": {k: snap["ttft_ms"][k] for k in ("p50", "p99")},
+           "decode_tick_ms": _median_ms(eng._decode, n=21),
+           "compiled_counts": eng.compiled_counts(),
+           "graph_pool_bytes": _graph_bytes(eng._prefill, eng._decode)}
+    streams = [list(map(int, h.tokens)) for h in hs]
+    eng.close()
+    return out, streams
+
+
+def scales_dropped():
+    """Planted fault: the verify window's int8 scatter stores the codes
+    without their scales (the positions keep the scales they held), as
+    a scatter that forgot half of QuantKV would."""
+    from singa_tpu_torch.ops import kv_cache
+
+    def make(scatter):
+        def faulty(ck, cv, blocks, offsets, k, v):
+            if not isinstance(ck, kv_cache.QuantKV):
+                return scatter(ck, cv, blocks, offsets, k, v)
+            for c, x in ((ck, k), (cv, v)):
+                c.q[blocks.long(), offsets.long()] = kv_cache.quantize_kv(x)[0]
+            return ck, cv
+        return faulty
+    return _swap(kv_cache, "scatter_tokens_kv", make)
+
+
+def misplaced_restore(num_blocks):
+    """Planted fault: every restored block written one block further on
+    (wrapping), so the prefix cache keys a block that holds other
+    content."""
+    from singa_tpu_torch.serve import mem
+
+    def make(write):
+        return lambda restore, blocks, payloads: write(
+            restore, [(b + 1) % num_blocks for b in blocks], payloads)
+    return _swap(mem, "write_blocks", make)
+
+
+def spill_waves(m, prompts, spill, fault=None):
+    """The spill run on a SPILL_POOL-block pool: 4 requests behind the
+    system prompt, then the 8 private prompts (which evict its blocks),
+    then the other 4 system-prompt requests.  (summary, third wave's
+    streams)."""
+    from singa_tpu_torch.serve import mem
+    shared, private = prompts[0::2], prompts[1::2]
+    with fault if fault is not None else nullcontext():
+        eng, _ = serve_engine(m, num_blocks=SPILL_POOL,
+                              spill_blocks=SPILL_STORE if spill else None)
+        if spill:
+            # warm the restore program up (eager, then captured) on the
+            # null block's own bytes, as the warm-up request does the
+            # engine's programs: the third wave times warm re-hits
+            pool = eng.pool
+            pool.restore = mem.Restore(pool.caches, pool.draft_caches)
+            null = mem.read_block(pool.caches, pool.draft_caches, 0)
+            for _ in range(2):
+                mem.write_block(pool.restore, 0, null)
+        traffic(eng, shared[:4], new_tokens=MEM_NEW)
+        traffic(eng, private, new_tokens=MEM_NEW)
+        spilled = eng.metrics.spilled_blocks
+        third, secs, ttft = traffic(eng, shared[4:], new_tokens=MEM_NEW)
+    snap = eng.metrics.snapshot()
+    out = {"spill_blocks": SPILL_STORE if spill else None,
+           "spilled_blocks": spilled, "prefetch_hits": snap["prefetch_hits"],
+           "prefetch_wait_ms": snap["prefetch_wait_ms"],
+           "third_wave_seconds": secs,
+           "third_wave_ttft_ms": {"p50": float(np.median(ttft)),
+                                  "first": ttft[0]},
+           "restore_compiled_count": (
+               mem.restore_compiled_count(eng.pool.restore)
+               if eng.pool.restore is not None else 0),
+           "restore_graph_pool_bytes": (
+               eng.pool.restore.program.graph.pool_bytes
+               if eng.pool.restore is not None
+               and eng.pool.restore.program.graph is not None else None),
+           "compiled_counts": eng.compiled_counts()}
+    eng.close()
+    return out, third
+
+
+def phase_mem(m, ctx):
+    """The memory hierarchy: the int8 arena at the serve phase's arena
+    bytes over INT8_SLOTS slots beside the bf16 arena at the same bytes;
+    the referee (an int8 draft arena under a bf16 target, self-
+    speculation) over the first wave, sound and with the scales dropped;
+    quantize_kv on the card against the CPU; and the spill tier.
+    Returns the flash launches of its engines (none expected)."""
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.ops import kv_cache
+    from singa_tpu_torch.serve import mem
+
+    t0 = time.perf_counter()
+    prompts, wave, expect = ctx["prompts"], ctx["prompts"][:SERVE_SLOTS], \
+        ctx["wave"]
+    zero = dict.fromkeys(fa.KERNELS, 0)
+    fa.reset_device_launches()
+    bf16_blocks = ctx["arena_bytes"] // (2 * m.cfg.num_layers * SERVE_BLOCK
+                                         * m.cfg.num_kv_heads
+                                         * m.cfg.head_dim * 2)
+    int8_block = 2 * m.cfg.num_layers * SERVE_BLOCK * (
+        m.cfg.num_kv_heads * m.cfg.head_dim + 4)
+    int8_blocks = ctx["arena_bytes"] // int8_block
+    twice = (prompts + prompts)[:INT8_SLOTS]
+    int8, int8_streams = equal_bytes_run(m, twice, "int8", int8_blocks)
+    bf16, bf16_streams = equal_bytes_run(m, twice, None, bf16_blocks)
+    int8["token_agreement_with_bf16"] = float(np.mean(
+        [np.mean(np.asarray(a) == np.asarray(b))
+         for a, b in zip(int8_streams, bf16_streams)]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def referee(fault=None):
+        with fault if fault is not None else nullcontext():
+            eng, _ = serve_engine(m, draft_model=m, spec_k=SPEC_K,
+                                  draft_kv_dtype="int8")
+            streams, secs = serve_traffic(eng, wave)
+        out = {"accept_rate": eng.metrics.snapshot()["accept_rate"],
+               "tokens_per_dispatch":
+               eng.metrics.snapshot()["tokens_per_dispatch"],
+               "seconds": secs, "compiled_counts":
+               eng.spec_compiled_counts(), **vs_plain(streams, expect)}
+        eng.close()
+        return out
+    sound = referee()
+    planted = referee(scales_dropped())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # quantize_kv on the card against the CPU, bitwise
+    rng = np.random.RandomState(3)
+    quant = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.randn(8, 32, 8, 128).astype(np.float32)
+                             * rng.uniform(0.01, 50, (8, 32, 1, 1))
+                             .astype(np.float32)).to(dt)
+        cq, cs = kv_cache.quantize_kv(x)
+        gq, gs = kv_cache.quantize_kv(x.cuda())
+        quant[str(dt).split(".")[1]] = bool(
+            torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs))
+
+    with_spill, third = spill_waves(m, prompts, True)
+    without, third_plain = spill_waves(m, prompts, False)
+    faulty, third_faulty = spill_waves(m, prompts, True,
+                                       misplaced_restore(SPILL_POOL))
+    launches = fa.device_launches()
+    result = {
+        "phase": "mem", "config": "LlamaConfig.base()",
+        "param_dtype": "bfloat16",
+        "equal_bytes": {"arena_bytes": ctx["arena_bytes"],
+                        "num_slots": INT8_SLOTS, "requests": len(twice),
+                        "share_prefix": False,
+                        "int8": int8, "bf16": bf16},
+        "referee": {"spec_k": SPEC_K, "draft_kv_dtype": "int8",
+                    "min_accept_rate": REFEREE_MIN_ACCEPT,
+                    "sound": sound, "scales_dropped": planted},
+        "quantize_kv_card_equals_cpu": quant,
+        "spill": {"num_blocks": SPILL_POOL, "with_spill": with_spill,
+                  "without_spill": without,
+                  "third_wave_equal_without_spill": third == third_plain,
+                  "misplaced_restore": {
+                      **faulty, "third_wave_equal_without_spill":
+                      third_faulty == third_plain}},
+        "flash_launches": launches,
+        "restore_compiled_count_max": mem.restore_compiled_count(),
+        "phase_seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    check(int8["arena_bytes"] <= ctx["arena_bytes"]
+          and bf16["arena_bytes"] <= ctx["arena_bytes"]
+          and int8["compiled_counts"] == (1, 1)
+          and bf16["compiled_counts"] == (1, 1),
+          f"equal-byte arenas: {result['equal_bytes']}")
+    check(all(len(t) == MEM_NEW for t in int8_streams),
+          "the int8 engine's streams are short")
+    check(int8["peak_concurrency"] > bf16["peak_concurrency"],
+          f"the int8 arena holds no more requests than the bf16 one at "
+          f"equal bytes: {int8['peak_concurrency']} vs "
+          f"{bf16['peak_concurrency']}")
+    check(sound["streams_equal"], f"the referee's target streams differ "
+          f"from the plain engine's: {sound}")
+    check(sound["accept_rate"] >= REFEREE_MIN_ACCEPT,
+          f"the int8 draft arena's accept rate {sound['accept_rate']} is "
+          f"under {REFEREE_MIN_ACCEPT}")
+    check(planted["accept_rate"] < REFEREE_MIN_ACCEPT,
+          f"the planted scale fault passes the referee: accept rate "
+          f"{planted['accept_rate']}")
+    check(all(quant.values()), f"quantize_kv on the card differs from the "
+          f"CPU: {quant}")
+    check(with_spill["spilled_blocks"] >= SERVE_SYSTEM // SERVE_BLOCK
+          and with_spill["prefetch_hits"] >= SERVE_SYSTEM // SERVE_BLOCK,
+          f"the spill tier did not spill and restore the system prompt: "
+          f"{with_spill}")
+    check(with_spill["restore_compiled_count"] <= 1
+          and result["restore_compiled_count_max"] <= 1,
+          f"the restore program was made more than once: {with_spill}")
+    check(third == third_plain, "the third wave's streams differ with the "
+          "spill tier")
+    check(third_faulty != third_plain, "the misplaced restore leaves the "
+          "third wave's streams unchanged")
+    check(launches == zero, f"the flash kernels ran {launches} times on "
+          f"the mem path")
+    return launches
+
+
+@contextmanager
+def _f32_activations(m):
+    """`m` computing in f32 (its masters are f32; the card's default
+    activation dtype is bf16) while the context is open."""
+    dev = m.device
+    saved = dev.default_dtype
+    dev.default_dtype = torch.float32
+    try:
+        yield
+    finally:
+        dev.default_dtype = saved
+
+
+def beam_tick_ms(sess, n=5):
+    """Median over `n` searches of one replayed beam tick's ms: each
+    search replays the prefill, then BEAM_N ticks timed together (a
+    tick past the last would write past the session's tokens)."""
+    times = []
+    for _ in range(n):
+        sess.graphs["prefill"].replay()
+        times.append(_timed(lambda: [sess.graphs["tick"].replay()
+                                     for _ in range(BEAM_N)])[1])
+    return sorted(times)[n // 2] * 1e3 / BEAM_N
+
+
+def phase_beam(m):
+    """generate_beam on two of the slice phase's prompts (P=1024, N=32,
+    num_beams=4, bf16 weights), without and with an eos id: captured
+    against eager bitwise, num_beams=1 against greedy generate()
+    bitwise, the returned scores against one teacher-forced f32
+    forward, and the flash forward's launches per captured call.
+    Returns those launches."""
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = m.cfg
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               (B, P))[:BEAM_B]
+    kw = dict(max_new_tokens=BEAM_N, num_beams=BEAM_K,
+              param_dtype=torch.bfloat16, return_scores=True)
+    runs = {}
+    launches = None
+    eos = None
+    for name in ("no_eos", "eos"):
+        e = eos if name == "eos" else None
+        eager, eager_scores = m.generate_beam(prompts, use_graph=False,
+                                              eos_id=e, **kw)
+        m.generate_beam(prompts, eos_id=e, **kw)          # warm-up
+        _, capture_s = _timed(lambda: m.generate_beam(prompts, eos_id=e,
+                                                      **kw))
+        fa.reset_device_launches()
+        (out, scores), call_s = _timed(
+            lambda: m.generate_beam(prompts, eos_id=e, **kw))
+        got = fa.device_launches()
+        launches = got if launches is None else launches
+        sess = m._gen_sessions[("beam", BEAM_B, BEAM_K, P, P + BEAM_N,
+                                torch.bfloat16, e)]
+        tick_ms = beam_tick_ms(sess)
+        runs[name] = {"eos_id": e, "call_ms": call_s * 1e3,
+                      "capture_call_ms": capture_s * 1e3,
+                      "tick_ms": tick_ms,
+                      "graph_pool_bytes": {n: g.pool_bytes for n, g in
+                                           sess.graphs.items()},
+                      "launches": got,
+                      "captured_equals_eager": bool((out == eager).all()),
+                      "scores_equal_eager": bool(
+                          (scores == eager_scores).all()),
+                      "out": out, "scores": scores}
+        if eos is None:
+            eos = int(out[0, P + 2])
+    # num_beams=1 against greedy generate()
+    one = m.generate_beam(prompts, max_new_tokens=BEAM_N, num_beams=1,
+                          param_dtype=torch.bfloat16)
+    greedy = m.generate(prompts, max_new_tokens=BEAM_N,
+                        param_dtype=torch.bfloat16)
+    # the returned scores against one teacher-forced f32 forward
+    out, scores = runs["no_eos"]["out"], runs["no_eos"]["scores"]
+    dev = m.device.torch_device
+    with torch.no_grad(), _f32_activations(m), plain_attention():
+        ids = torch.as_tensor(out[:, :-1], dtype=torch.int64, device=dev)
+        lp = torch.log_softmax(m(ids).float(), dim=-1)
+        tgt = torch.as_tensor(out[:, 1:], dtype=torch.int64, device=dev)
+        forced = lp.gather(2, tgt[:, :, None])[:, P - 1:, 0].sum(1).cpu()
+    forced = forced.numpy()
+    rel = np.abs(forced - scores) / np.abs(forced)
+    for r in runs.values():
+        r.pop("out")
+        r["scores"] = [float(x) for x in r.pop("scores")]
+    result = {"phase": "beam", "config": "LlamaConfig.base()",
+              "param_dtype": "bfloat16", "B": BEAM_B, "num_beams": BEAM_K,
+              "P": P, "N": BEAM_N, "runs": runs,
+              "one_beam_equals_greedy": bool((one == greedy).all()),
+              "scores_vs_teacher_forced_f32": {
+                  "forced": [float(x) for x in forced],
+                  "max_rel_diff": float(rel.max()),
+                  "rtol": BEAM_SCORE_RTOL},
+              "phase_seconds": time.perf_counter() - t0}
+    emit(result)
+    for name, r in runs.items():
+        check(r["captured_equals_eager"] and r["scores_equal_eager"],
+              f"captured beam search differs from eager ({name})")
+        check(r["launches"] == {"flash_fwd": cfg.num_layers,
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+              f"a captured beam call launched {r['launches']} ({name})")
+    check(result["one_beam_equals_greedy"],
+          "num_beams=1 differs from greedy generate()")
+    check(float(rel.max()) <= BEAM_SCORE_RTOL, f"beam scores differ from "
+          f"the teacher-forced f32 forward's: {rel.max()}")
+    return launches["flash_fwd"]
 
 
 def _loss_and_grads(m, ids):
@@ -1292,23 +1878,36 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import singa_tpu_torch  # noqa: F401  (fails without the repository)
     t0 = time.perf_counter()
+    wall = {}
+
+    def timed_phase(name, fn, *args):
+        """fn(*args) with its wall seconds noted, then the card's cache
+        emptied for the next phase."""
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
     name = phase_card()
     with tempfile.TemporaryDirectory() as tmp:
-        faults = phase_build(Path(tmp))
-        phase_kernels()
-        phase_faults(faults)
-    gen_launches, m = phase_slice()
-    serve_launches, serve_requests = phase_serve(m)
-    del m
+        faults = timed_phase("build", phase_build, Path(tmp))
+        timed_phase("kernels", phase_kernels)
+        timed_phase("faults", phase_faults, faults)
+    gen_launches, m = timed_phase("slice", phase_slice)
+    serve_launches, serve_requests, serve_ctx = timed_phase(
+        "serve", phase_serve, m)
+    spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
+                                               serve_ctx)
+    mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
+    beam_launches = timed_phase("beam", phase_beam, m)
+    del m, serve_ctx
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(faults)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_checkpoint()
-    gc.collect()
-    torch.cuda.empty_cache()
-    rows = phase_timing()
+    train_launches = timed_phase("train", phase_train, faults)
+    timed_phase("checkpoint", phase_checkpoint)
+    rows = timed_phase("timing", phase_timing)
     kernels = []
     for r in rows:
         if r["shape"] != "train":
@@ -1323,6 +1922,12 @@ def main():
                                    "per_call": gen_launches}
         by_path["serve"] = {"launches": serve_launches[r["name"]],
                             "requests": serve_requests}
+        by_path["spec"] = {"launches": spec_launches[r["name"]],
+                           "requests": spec_requests}
+        by_path["mem"] = {"launches": mem_launches[r["name"]]}
+        if r["name"] == "flash_fwd":
+            by_path["beam"] = {"launches": beam_launches, "calls": 1,
+                               "per_call": beam_launches}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[r["name"]],
@@ -1332,7 +1937,8 @@ def main():
             "library_ms": r["library_ms"],
             "library_covers": r["library_covers"],
             "timed_by": r["timed_by"]})
-    emit({"phase": "end", "script_seconds": time.perf_counter() - t0})
+    emit({"phase": "end", "script_seconds": time.perf_counter() - t0,
+          "phase_wall_s": wall})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

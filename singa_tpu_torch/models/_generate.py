@@ -1,6 +1,7 @@
 """Autoregressive generation with a static KV cache, ported from
 ``singa_tpu/models/_generate.py`` (``prefill_step``, ``decode_step``,
-``_GenSession``, ``GenerateMixin.generate`` and ``_pick_impl``).
+``_GenSession``, ``GenerateMixin.generate`` and ``generate_beam``,
+``_pick_impl``, ``_beam_select`` and ``_beam_reorder``).
 
 The reference runs generation as two jitted programs: the prefill, and
 one ``lax.scan`` over every pick→decode step.  Here a `_GenSession`
@@ -20,6 +21,12 @@ parameter dtype, which all the model's sessions share, so every call
 sees the current masters.  A session holds its caches and its graphs'
 pools: a model keeps at most `MAX_SESSIONS` of them and drops the least
 recently used.
+
+``generate_beam`` runs the same way as a `_BeamSession`: the (B·K)-row
+prefill is one graph, one beam tick the other, replayed max_new_tokens
+times (the reference's in-loop branches become computed-and-selected
+work, which leaves the results unchanged), counted against the same
+`MAX_SESSIONS`.
 
 ``use_graph=False`` runs `_generate_eager`, which keeps no state: the
 parameters are cast for the call, the position is a host int and the
@@ -165,39 +172,26 @@ def _static_params(model, dtype) -> Dict[str, torch.Tensor]:
     return held[1]
 
 
-class _GenSession:
-    """generate() for one (batch, prompt length, total length, parameter
-    dtype, pick options): on a CUDA device a captured prefill and a
-    captured decode step; on the CPU the same steps run eagerly.
+class _Session:
+    """A captured generation session of one shape: on a CUDA device a
+    captured prefill and one captured step graph, replayed; on the CPU
+    the same bodies run eagerly.  The first call runs the bodies eagerly
+    (on a card, on the capture's side stream: the warm-up) and records
+    each one's first run; on a card the second call captures them and
+    every later one replays them.
 
-    Static state: the shared parameters in the dtype asked for (see
-    `_static_params`), the prompt, the current token, its position, the
-    eos flags and the (B, N) tokens.  A call runs the prefill (masters
-    cast into the static parameters, prompt forward, first pick) and
-    N - 1 decode steps (one token forward at the device position, next
-    pick).  The first call runs the steps eagerly (on a card, on the
-    capture's side stream: the warm-up) and records each step's first
-    run; on a card the second call captures them and every later one
-    replays them."""
+    A subclass gives the static state, ``_load`` (write a call's inputs
+    into it), ``_prefill``, the step body (the method ``_<_STEP>``, its
+    graph ``graphs[_STEP]``), ``_n_steps`` and ``_result``."""
 
-    def __init__(self, model, batch: int, prompt_len: int, total_len: int,
-                 param_dtype, opts):
-        self.model, self.opts = model, opts
-        self.prompt_len, self.total_len = prompt_len, total_len
-        dev = self.device = model_device(model).torch_device
+    _STEP = "decode"
+
+    def __init__(self, model, param_dtype):
+        self.model = model
+        self.device = model_device(model).torch_device
         self.epoch = graph_epoch()
         self.masters = {n: t.detach() for n, t in model.get_params().items()}
         self.params = _static_params(model, param_dtype)
-        n_new = total_len - prompt_len
-        self.ids = torch.zeros((batch, prompt_len), dtype=torch.int32,
-                               device=dev)
-        self.toks = torch.zeros((batch, n_new), dtype=torch.int32,
-                                device=dev)
-        self.tok = torch.zeros(batch, dtype=torch.int64, device=dev)
-        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
-        self.done = torch.zeros(batch, dtype=torch.bool, device=dev)
-        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
-        self.gen = torch.Generator(dev)
         self.caches = None
         self.calls = 0
         self.graphs: Dict[str, CapturedGraph] = {}
@@ -212,6 +206,131 @@ class _GenSession:
             and params.keys() == self.masters.keys() and all(
                 params[n].data_ptr() == t.data_ptr()
                 for n, t in self.masters.items())
+
+    def _cast_params(self) -> None:
+        """Refresh the static cast weights from the masters."""
+        for n, t in self.params.items():
+            if t is not self.masters[n]:
+                t.copy_(self.masters[n])
+
+    def _generators(self):
+        return ()
+
+    def _step(self) -> None:
+        getattr(self, "_" + self._STEP)()
+
+    def run(self, n_new: int, *inputs):
+        """One call: ``_load(*inputs)``, the prefill and ``_n_steps``
+        steps, then ``_result()``.  The host seams of the step executor
+        wrap the call: the ``device.execute`` fault site fires before
+        anything runs, a ``graph.compile`` span covers the capture and a
+        ``graph.execute`` span the run, and an installed ``obs.attr``
+        ledger times it with the card synchronised around it."""
+        name = f"{type(self.model).__name__.lower()}.{self._NAME}"
+        faults.fire("device.execute", graph=name, step=self.calls)
+        self._load(*inputs)
+        steps = self._n_steps(n_new)
+        led = obs_attr.get()
+        if led is not None:
+            _sync(self.device)
+            t0 = time.perf_counter()
+        with obs_events.span("graph.execute", graph=name, step=self.calls):
+            if self.calls == 0:
+                self._warm_up(steps)
+            elif self.device.type != "cuda":
+                self._prefill()
+                for _ in range(steps):
+                    self._step()
+            else:
+                if self.calls == 1:
+                    with obs_events.span("graph.compile", graph=name):
+                        self._capture()
+                self.graphs["prefill"].replay()
+                for _ in range(steps):
+                    self.graphs[self._STEP].replay()
+        if led is not None:
+            _sync(self.device)
+            led.note(self._NAME, time.perf_counter() - t0)
+        self.calls += 1
+        return self._result()
+
+    def _warm_up(self, steps: int) -> None:
+        """The first call: eager (on a card, on the capture's side
+        stream), with the first run of each body recorded."""
+        ctx = nullcontext()
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            ctx = torch.cuda.stream(self._stream)
+        with ctx:
+            _, self.graphs["prefill"] = record("prefill", self._prefill)
+            for i in range(steps):
+                if i == 0:
+                    _, self.graphs[self._STEP] = record(self._STEP,
+                                                        self._step)
+                else:
+                    self._step()
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+
+    def _capture(self) -> None:
+        """Capture the prefill, then the step over the caches the
+        prefill graph writes."""
+        gens = self._generators()
+        if gens and not hasattr(torch.cuda.CUDAGraph,
+                                "register_generator_state"):
+            raise RuntimeError(
+                f"sampled generate() cannot be captured with torch "
+                f"{torch.__version__}: its CUDAGraph has no "
+                f"register_generator_state; pass use_graph=False")
+        self.graphs["prefill"].capture(self._prefill, self._stream, gens)
+        if self._STEP in self.graphs:
+            self.graphs[self._STEP].capture(self._step, self._stream, gens)
+
+
+class _GenSession(_Session):
+    """generate() for one (batch, prompt length, total length, parameter
+    dtype, pick options).
+
+    Static state: the shared parameters in the dtype asked for (see
+    `_static_params`), the prompt, the current token, its position, the
+    eos flags and the (B, N) tokens.  A call runs the prefill (masters
+    cast into the static parameters, prompt forward, first pick) and
+    N - 1 decode steps (one token forward at the device position, next
+    pick)."""
+
+    _NAME = "generate"
+
+    def __init__(self, model, batch: int, prompt_len: int, total_len: int,
+                 param_dtype, opts):
+        super().__init__(model, param_dtype)
+        self.opts = opts
+        self.prompt_len, self.total_len = prompt_len, total_len
+        dev = self.device
+        n_new = total_len - prompt_len
+        self.ids = torch.zeros((batch, prompt_len), dtype=torch.int32,
+                               device=dev)
+        self.toks = torch.zeros((batch, n_new), dtype=torch.int32,
+                                device=dev)
+        self.tok = torch.zeros(batch, dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self.gen = torch.Generator(dev)
+
+    def _load(self, ids: np.ndarray, seed: int) -> None:
+        self.ids.copy_(torch.as_tensor(ids, dtype=torch.int32))
+        self.gen.manual_seed(int(seed))
+
+    def _n_steps(self, n_new: int) -> int:
+        return n_new - 1
+
+    def _result(self) -> np.ndarray:
+        """(B, n_new) int32 tokens."""
+        return self.toks.cpu().numpy()
+
+    def _generators(self):
+        return (self.gen,) if self.opts[0] > 0 else ()
 
     # -- the two steps --------------------------------------------------------
     def _pick(self, logits) -> None:
@@ -228,9 +347,7 @@ class _GenSession:
         self.toks.index_copy_(1, col, tok[:, None].to(torch.int32))
 
     def _prefill(self) -> None:
-        for n, t in self.params.items():
-            if t is not self.masters[n]:
-                t.copy_(self.masters[n])
+        self._cast_params()
         with _bound(self.model, self.params):
             logits, self.caches = prefill_step(self.model, self.total_len)(
                 self.ids)
@@ -246,73 +363,162 @@ class _GenSession:
         self.pos += 1
         self._pick(logits.float())
 
-    # -- a call ---------------------------------------------------------------
-    def run(self, ids: np.ndarray, n_new: int, seed: int) -> np.ndarray:
-        """(B, n_new) int32 tokens for prompt `ids`.  The host seams of
-        the step executor wrap the call: the ``device.execute`` fault
-        site fires before anything runs, a ``graph.compile`` span covers
-        the capture and a ``graph.execute`` span the run, and an
-        installed ``obs.attr`` ledger times it with the card
-        synchronised around it."""
-        name = f"{type(self.model).__name__.lower()}.generate"
-        faults.fire("device.execute", graph=name, step=self.calls)
-        self.ids.copy_(torch.as_tensor(ids, dtype=torch.int32))
-        self.gen.manual_seed(int(seed))
-        led = obs_attr.get()
-        if led is not None:
-            _sync(self.device)
-            t0 = time.perf_counter()
-        with obs_events.span("graph.execute", graph=name, step=self.calls):
-            if self.calls == 0:
-                self._warm_up(n_new)
-            elif self.device.type != "cuda":
-                self._prefill()
-                for _ in range(n_new - 1):
-                    self._decode()
-            else:
-                if self.calls == 1:
-                    with obs_events.span("graph.compile", graph=name):
-                        self._capture()
-                self.graphs["prefill"].replay()
-                for _ in range(n_new - 1):
-                    self.graphs["decode"].replay()
-        if led is not None:
-            _sync(self.device)
-            led.note("generate", time.perf_counter() - t0)
-        self.calls += 1
-        return self.toks.cpu().numpy()
 
-    def _warm_up(self, n_new: int) -> None:
-        """The first call: eager (on a card, on the capture's side
-        stream), with the first run of each step recorded."""
-        ctx = nullcontext()
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            ctx = torch.cuda.stream(self._stream)
-        with ctx:
-            _, self.graphs["prefill"] = record("prefill", self._prefill)
-            for i in range(n_new - 1):
-                if i == 0:
-                    _, self.graphs["decode"] = record("decode", self._decode)
-                else:
-                    self._decode()
-        if self._stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+class _BeamSession(_Session):
+    """generate_beam() for one (batch, beams, prompt length, total
+    length, parameter dtype, eos id): the (B·K)-row prefill is one graph,
+    one beam tick (select, beam bookkeeping, cache reorder, decode) the
+    other, replayed max_new_tokens times.
 
-    def _capture(self) -> None:
-        """Capture the prefill, then the decode step over the caches the
-        prefill graph writes."""
-        gens = (self.gen,) if self.opts[0] > 0 else ()
-        if gens and not hasattr(torch.cuda.CUDAGraph,
-                                "register_generator_state"):
-            raise RuntimeError(
-                f"sampled generate() cannot be captured with torch "
-                f"{torch.__version__}: its CUDAGraph has no "
-                f"register_generator_state; pass use_graph=False")
-        self.graphs["prefill"].capture(self._prefill, self._stream, gens)
-        if "decode" in self.graphs:
-            self.graphs["decode"].capture(self._decode, self._stream, gens)
+    The reference's search skips the cache reorder when no beam moved
+    and skips the whole tick once every beam is done (two ``lax.cond``s).
+    A graph has no branches, so the tick always runs both: an identity
+    reorder gathers the same values, and a tick over beams that are all
+    done only appends eos at cost 0 (frozen scores, lengths and
+    sequences up to their lengths), so the returned sequences and scores
+    are unchanged.  :func:`_beam_eager` keeps the branches."""
+
+    _NAME = "generate_beam"
+    _STEP = "tick"
+
+    def __init__(self, model, batch: int, beams: int, prompt_len: int,
+                 total_len: int, param_dtype, eos_id):
+        super().__init__(model, param_dtype)
+        self.K, self.eos_id = beams, eos_id
+        self.prompt_len, self.total_len = prompt_len, total_len
+        dev = self.device
+        n = total_len - prompt_len
+        V = model.cfg.vocab_size
+        self.ids = torch.zeros((batch * beams, prompt_len),
+                               dtype=torch.int32, device=dev)
+        self.logits = torch.zeros((batch * beams, V), device=dev)
+        # before the first expansion all K beams are identical: only
+        # beam 0 may seed the frontier
+        self.scores0 = torch.full((batch, beams), float("-inf"), device=dev)
+        self.scores0[:, 0] = 0.0
+        self.scores = self.scores0.clone()
+        self.seqs = torch.zeros((batch, beams, n), dtype=torch.int64,
+                                device=dev)
+        self.done = torch.zeros((batch, beams), dtype=torch.bool, device=dev)
+        self.gen_len = torch.zeros((batch, beams), dtype=torch.int64,
+                                   device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.offsets = torch.arange(batch, device=dev)[:, None] * beams
+        self.eos_row = None
+        if eos_id is not None:
+            self.eos_row = torch.where(torch.arange(V, device=dev) == eos_id,
+                                       0.0, float("-inf"))
+
+    def _load(self, ids: np.ndarray) -> None:
+        self.ids.copy_(torch.as_tensor(np.repeat(ids, self.K, axis=0),
+                                       dtype=torch.int32))
+
+    def _n_steps(self, n_new: int) -> int:
+        return n_new
+
+    def _result(self):
+        """(seqs (B, K, n), raw scores (B, K), done (B, K), lengths
+        (B, K)) as numpy."""
+        return tuple(t.cpu().numpy() for t in (self.seqs, self.scores,
+                                               self.done, self.gen_len))
+
+    def _prefill(self) -> None:
+        self._cast_params()
+        with _bound(self.model, self.params):
+            logits, self.caches = prefill_step(self.model, self.total_len)(
+                self.ids)
+        self.logits.copy_(logits.float())
+        self.scores.copy_(self.scores0)
+        self.seqs.zero_()
+        self.done.zero_()
+        self.gen_len.zero_()
+        self.i.zero_()
+
+    def _select(self):
+        """One expansion and its bookkeeping: (beam_idx, tok), both
+        (B, K); scores, sequences, done flags and lengths updated."""
+        beam_idx, tok, top = _beam_select(
+            self.logits, self.scores, self.K,
+            self.done if self.eos_id is not None else None, self.eos_row)
+        n = self.seqs.shape[2]
+        self.seqs.copy_(self.seqs.gather(
+            1, beam_idx[:, :, None].expand(-1, -1, n)))
+        self.done.copy_(self.done.gather(1, beam_idx))
+        self.gen_len.copy_(self.gen_len.gather(1, beam_idx))
+        self.seqs.index_copy_(2, self.i.reshape(1), tok[:, :, None])
+        if self.eos_id is not None:
+            # length counts the eos token itself, then freezes
+            self.gen_len.copy_(torch.where(self.done, self.gen_len,
+                                           self.i + 1))
+            self.done |= tok == self.eos_id
+        else:
+            self.gen_len.copy_((self.i + 1).expand_as(self.gen_len))
+        self.scores.copy_(top)
+        return beam_idx, tok
+
+    def _advance(self, beam_idx, tok, reorder: bool = True) -> None:
+        """Reorder the caches onto the surviving beams (when `reorder`)
+        and decode their tokens at position P + i."""
+        if reorder:
+            _beam_reorder(self.caches, (beam_idx + self.offsets).reshape(-1))
+        with _bound(self.model, self.params):
+            logits, _ = decode_step(self.model)(
+                tok.reshape(-1, 1), self.prompt_len + self.i, self.caches)
+        self.logits.copy_(logits.float())
+
+    def _tick(self) -> None:
+        self._advance(*self._select())
+        self.i += 1
+
+
+def _beam_select(logits, scores, k: int, done=None, eos_row=None):
+    """One beam-search expansion: combine the (B*K, V) next-token logits
+    with the (B, K) running scores, flatten each batch's K*V candidates,
+    and keep the top K.  A finished beam (``done``) admits only eos at
+    zero incremental cost (``eos_row``: 0 at eos, -inf elsewhere), so its
+    raw score freezes.  Returns (beam_idx (B,K), tok (B,K), new_scores
+    (B,K))."""
+    B, K = scores.shape
+    V = logits.shape[-1]
+    lp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+    if done is not None:
+        lp = torch.where(done[:, :, None], eos_row, lp)
+    cand = scores[:, :, None] + lp
+    top, flat = torch.topk(cand.reshape(B, K * V), k, dim=-1)
+    return flat // V, flat % V, top
+
+
+def _beam_reorder(caches, perm) -> None:
+    """Gather the KV caches onto the surviving beams (batch axis 0), in
+    place."""
+    for kv in caches:
+        for c in kv:
+            c.copy_(c.index_select(0, perm))
+
+
+def _beam_eager(model, ids: np.ndarray, total_len: int, n_new: int, K: int,
+                eos_id, param_dtype):
+    """generate_beam's search launched step by step from the host, with
+    no state kept and the reference's two branches: the cache reorder is
+    skipped when every beam kept its slot, and the search stops once
+    every beam of every row is done.  (seqs, scores, done, lengths) as
+    numpy, as `_BeamSession` returns them."""
+    sess = _BeamSession(model, ids.shape[0], K, ids.shape[1], total_len,
+                        None, eos_id)
+    if param_dtype is not None:
+        sess.params = {n: (t.to(param_dtype) if t.is_floating_point()
+                           else t) for n, t in sess.masters.items()}
+    sess._load(ids)
+    sess._prefill()
+    arange_k = torch.arange(K, device=sess.device)
+    for _ in range(n_new):
+        beam_idx, tok = sess._select()
+        if eos_id is not None and bool(sess.done.all()):
+            break
+        sess._advance(beam_idx, tok,
+                      reorder=bool((beam_idx != arange_k).any()))
+        sess.i += 1
+    return sess._result()
 
 
 def _generate_eager(model, ids: np.ndarray, total_len: int, n_new: int,
@@ -370,12 +576,11 @@ class GenerateMixin:
                 f"exceeds the model's max_position ({max_pos})")
         return ids, B, P, S
 
-    def _gen_session(self, B: int, P: int, S: int, param_dtype,
-                     opts) -> _GenSession:
-        """The session for (B, P, S, param_dtype, opts), made if need be;
-        kept last in `_gen_sessions`, whose order is least recently used
+    def _session(self, key, make) -> _Session:
+        """The session under `key` (generate()'s and generate_beam()'s
+        share the `MAX_SESSIONS` cap), made by `make()` if need be; kept
+        last in `_gen_sessions`, whose order is least recently used
         first."""
-        key = (B, P, S, param_dtype, opts)
         sess = self._gen_sessions.pop(key, None)
         if sess is None or not sess.fits(self):
             sess = None
@@ -384,9 +589,16 @@ class GenerateMixin:
                 del self._gen_sessions[k]
             while len(self._gen_sessions) >= MAX_SESSIONS:
                 del self._gen_sessions[next(iter(self._gen_sessions))]
-            sess = _GenSession(self, B, P, S, param_dtype, opts)
+            sess = make()
         self._gen_sessions[key] = sess
         return sess
+
+    def _gen_session(self, B: int, P: int, S: int, param_dtype,
+                     opts) -> _GenSession:
+        """The generate() session for (B, P, S, param_dtype, opts)."""
+        return self._session(
+            (B, P, S, param_dtype, opts),
+            lambda: _GenSession(self, B, P, S, param_dtype, opts))
 
     @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens: int,
@@ -422,8 +634,60 @@ class GenerateMixin:
             return ids.astype(np.int32)
         if use_graph:
             toks = self._gen_session(B, P, S, param_dtype, opts).run(
-                ids, max_new_tokens, seed)
+                max_new_tokens, ids, seed)
         else:
             toks = _generate_eager(self, ids, S, max_new_tokens, seed, opts,
                                    param_dtype)
         return np.concatenate([ids.astype(np.int32), toks], axis=1)
+
+    @torch.no_grad()
+    def generate_beam(self, prompt_ids, max_new_tokens: int,
+                      num_beams: int = 4, length_penalty: float = 1.0,
+                      eos_id: Optional[int] = None,
+                      return_scores: bool = False,
+                      param_dtype: Optional[torch.dtype] = None,
+                      use_graph: bool = True):
+        """Beam-search decoding: the K beams ride the batch axis, so the
+        prefill is generate()'s over a (B*K)-row batch.  On a CUDA
+        device the prefill and one beam tick (expansion, beam
+        bookkeeping, cache reorder, decode) run as captured CUDA graphs,
+        the tick replayed max_new_tokens times (`_BeamSession`);
+        `use_graph=False` launches each step from the host and keeps no
+        state.
+
+        Once a beam emits `eos_id` its hypothesis is frozen: its only
+        expansion is eos at zero cost, so its RAW cumulative score stays
+        constant — but it remains in the single K-wide frontier and can
+        still be evicted by K continuing candidates with higher raw
+        scores.  `length_penalty` is applied only at the END, ranking
+        the K survivors by cumulative logprob / length**length_penalty.
+        Returns the best survivor per batch row — shape (B, P +
+        max_new_tokens), eos-padded; with `return_scores`, also the (B,)
+        cumulative logprob of each returned hypothesis (its exact sum of
+        chosen-token logprobs)."""
+        K = int(num_beams)
+        if K < 1:
+            raise ValueError(f"num_beams must be >= 1, got {K}")
+        ids, B, P, S = self._gen_setup(prompt_ids, max_new_tokens)
+        if use_graph:
+            seqs, scores, done, gen_len = self._session(
+                ("beam", B, K, P, S, param_dtype, eos_id),
+                lambda: _BeamSession(self, B, K, P, S, param_dtype, eos_id)
+            ).run(max_new_tokens, ids)
+        else:
+            seqs, scores, done, gen_len = _beam_eager(
+                self, ids, S, max_new_tokens, K, eos_id, param_dtype)
+        final = scores / np.maximum(gen_len, 1).astype(np.float32) \
+            ** length_penalty
+        best = final.argmax(axis=1)
+        out = np.full((B, S), eos_id if eos_id is not None else 0, np.int32)
+        out[:, :P] = ids
+        for b in range(B):
+            n = int(gen_len[b, best[b]]) if eos_id is not None \
+                else max_new_tokens
+            out[b, P:P + n] = seqs[b, best[b], :n]
+            if eos_id is not None and bool(done[b, best[b]]):
+                out[b, P + n:] = eos_id
+        if return_scores:
+            return out, scores[np.arange(B), best]
+        return out

@@ -3,8 +3,9 @@ ported from ``singa_tpu/serve/engine.py``.
 
 The engine turns the one-session decode loop of ``models/_generate.py``
 into a multi-request server.  For a given (model, num_slots, max_len,
-block_size) it runs exactly TWO programs, each on static device
-buffers, and on a card each captured as one CUDA graph:
+block_size) it runs TWO programs (a speculative engine three, a spill
+tier adds the restore program of ``serve/mem.py``), each on static
+device buffers, and on a card each captured as one CUDA graph:
 
 * **prefill-chunk** — ``block_size`` tokens of one request's prompt at
   a block-aligned device offset: the slot's block-table row is gathered
@@ -26,10 +27,10 @@ buffers, and on a card each captured as one CUDA graph:
 
 A program's first dispatch runs eagerly (on a card, on a side stream)
 and is recorded with ``graph.record``; the second captures it and every
-later dispatch replays it — the pattern of ``_GenSession``.
-:meth:`compiled_counts` reads (1, 1) after warm-up however many
-requests come and go: the counterpart of the reference's jit-cache
-invariant.  What a program reads is on the device at fixed addresses:
+later dispatch replays it — the pattern of ``_GenSession``
+(``serve/program.py``).  :meth:`compiled_counts` reads (1, 1) after
+warm-up however many requests come and go: the counterpart of the
+reference's jit-cache invariant.  What a program reads is on the device at fixed addresses:
 the weights (the masters, or one copy cast to ``param_dtype`` at
 construction), the arena, the block tables, positions and active flags
 (``BlockPool``), the (num_slots,) token vector, and the chunk's ids,
@@ -88,11 +89,29 @@ ring, dumped next to ``record_store`` on each quarantine or recovery
 and referenced from the ``incident`` record.  With no ``record_store``
 and no sink the engine performs zero file writes.
 
+Speculative decoding (``draft_model=``, ``spec_k=``) replaces the
+per-tick decode with a **verify** round, the third program
+(``serve/spec.py``): the draft proposes k tokens per slot over its own
+arena (a second pool on the same block tables), the target scores all
+k + 1 window positions in one forward, the longest matching greedy
+prefix commits and rejected positions roll back by truncating the
+slot's position.  The round's per-slot accepted counts and the
+target's picks land in one static (num_slots, k + 2) tensor, fetched
+in one designed sync.  A verify failure past retries falls back to a
+plain decode tick (site ``serve.verify``), whose program is made at
+its first use; :meth:`spec_compiled_counts` reads (prefill, decode,
+verify, handoff).
+
+The memory hierarchy (``serve/mem.py``): ``kv_dtype="int8"`` stores
+the arena as int8 codes plus per-position scales (and
+``draft_kv_dtype`` the draft's), ``spill_blocks=N`` keeps up to N
+evicted prefix blocks in pinned host memory and restores them on a
+re-hit through the restore program.  The spill store outlives
+recovery.
+
 Not ported yet, and raising ``NotImplementedError`` that names the
-slice: speculative decoding (``draft_model``/``spec_k``), the int8
-arena and the spill tier (``kv_dtype``/``draft_kv_dtype``,
-``spill_blocks``), program sharing across engines (``programs=``) and
-the disaggregated handoff (``extract_handoff``/``inject_handoff``/
+slice: program sharing across engines (``programs=``) and the
+disaggregated handoff (``extract_handoff``/``inject_handoff``/
 ``can_accept_handoff``).  The reference's ``lower_programs`` reads XLA
 lowerings and has no counterpart.
 """
@@ -110,7 +129,6 @@ import numpy as np
 import torch
 
 from .. import faults
-from ..graph import CapturedGraph, record
 from ..model import _sync, model_device
 from ..models._generate import _bound, decode_step, resume_step
 from ..obs import attr as obs_attr
@@ -121,72 +139,34 @@ from ..obs import trace as obs_trace
 from ..ops import kv_cache as kv_ops
 from ..utils import failure
 from ..utils.failure import Heartbeat
+from . import mem as serve_mem
 from . import spec
 from .metrics import ServeMetrics
+from .program import Program
 from .scheduler import (EVICTED, FAILED, FINISHED, QUEUED, RUNNING,
                         QueueFull, Request, RequestHandle, Scheduler,
                         eta_first_token)
-from .slots import MEM_SLICE, SPEC_SLICE, BlockPool, _not_ported
+from .slots import BlockPool
 
-__all__ = ["ServeEngine", "QueueFull", "EngineClosed"]
+__all__ = ["ServeEngine", "QueueFull", "EngineClosed", "SPEC_K_FALLBACK"]
 
 #: distinguishes engines built in the same second+pid (run_id suffix)
 _ENGINE_SEQ = itertools.count()
 
 DISAGG_SLICE = "the slice that ports program sharing and serve/disagg"
 
+#: the verify window a draft gets when ``spec_k`` is None (the
+#: reference's ``autotune.table.SPEC_K_FALLBACK``; the port has no
+#: best-config table yet, so it always takes this)
+SPEC_K_FALLBACK = 3
+
+def _not_ported(name: str, where: str) -> None:
+    raise NotImplementedError(
+        f"{name} is not ported yet; it comes with {where}")
+
 
 class EngineClosed(RuntimeError):
     """submit()/step() refused: the engine is draining or closed."""
-
-
-class _Program:
-    """One of the engine's two programs: a body that reads and writes
-    only static device tensors.  Its first dispatch runs the body
-    eagerly (on a card, on a side stream, as a capture's warm-up needs)
-    and records it (``graph.record``); on a card the second dispatch
-    captures it as a CUDA graph and replays it, and every later one
-    replays.  On the CPU every dispatch runs the body."""
-
-    def __init__(self, name: str, body: Callable[[], None],
-                 device: torch.device):
-        self.name, self.body, self.device = name, body, device
-        self.calls = 0
-        self.graph: Optional[CapturedGraph] = None
-        self._stream = None
-
-    @property
-    def count(self) -> int:
-        """Programs made: on a card the captured graph (0 until the
-        second dispatch), on the CPU the recorded eager program."""
-        if self.graph is None:
-            return 0
-        if self.device.type == "cuda":
-            return int(self.graph.graph is not None)
-        return 1
-
-    def __call__(self) -> None:
-        if self.calls == 0:
-            self._first()
-        elif self.device.type != "cuda":
-            self.body()
-        else:
-            if self.graph.graph is None:
-                with events.span("graph.compile", graph=self.name):
-                    self.graph.capture(self.body, self._stream)
-            self.graph.replay()
-        self.calls += 1
-
-    def _first(self) -> None:
-        ctx = nullcontext()
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            ctx = torch.cuda.stream(self._stream)
-        with ctx:
-            _, self.graph = record(self.name, self.body)
-        if self._stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
 
 class ServeEngine:
@@ -209,8 +189,12 @@ class ServeEngine:
     the same memory.  ``share_prefix=False`` disables prefix-cache
     sharing (every prompt block is private).  ``param_dtype`` (e.g.
     ``torch.bfloat16``) serves a copy of the weights cast once at
-    construction; the arena takes the dtype the model's caches take
-    under it.
+    construction (the draft's too); the arena takes the dtype the
+    model's caches take under it.  ``draft_model``/``spec_k`` make a
+    speculative engine (``spec_k=None`` with a draft takes
+    :data:`SPEC_K_FALLBACK`); ``kv_dtype``/``draft_kv_dtype="int8"``
+    quantize the target / draft arena; ``spill_blocks`` sizes the host
+    spill store.
 
     Decoding is greedy — the serving counterpart of
     ``generate(temperature=0)``.
@@ -236,16 +220,30 @@ class ServeEngine:
                  kv_dtype=None, draft_kv_dtype=None,
                  spill_blocks: Optional[int] = None,
                  _sleep: Callable[[float], None] = time.sleep):
-        if draft_model is not None or spec_k:
-            _not_ported("speculative decoding (draft_model/spec_k)",
-                        SPEC_SLICE)
-        if kv_dtype is not None or draft_kv_dtype is not None:
-            _not_ported("kv_dtype/draft_kv_dtype", MEM_SLICE)
-        if spill_blocks is not None:
-            _not_ported("spill_blocks", MEM_SLICE)
         if programs is not None:
             _not_ported("programs= (SharedPrograms)", DISAGG_SLICE)
         self.model = model
+        # speculative decoding (serve/spec.py): a draft turns the
+        # per-tick decode into a verify-k round.  spec_k=None with a
+        # draft takes the fallback window (the reference reads its
+        # best-config table first; the port has none yet)
+        if draft_model is not None and spec_k is None:
+            spec_k = SPEC_K_FALLBACK
+            warnings.warn(f"serve: no autotune table in the port; using "
+                          f"the fallback spec_k={SPEC_K_FALLBACK}",
+                          stacklevel=2)
+        if spec_k is None:
+            spec_k = 0
+        if (draft_model is None) != (spec_k == 0):
+            raise ValueError(
+                "speculative decoding needs BOTH draft_model and "
+                f"spec_k >= 1 (got draft_model="
+                f"{'set' if draft_model is not None else 'None'}, "
+                f"spec_k={spec_k})")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k)
         max_pos = getattr(getattr(model, "cfg", None), "max_position", None)
         if max_pos is not None and max_len > max_pos:
             raise ValueError(
@@ -281,6 +279,10 @@ class ServeEngine:
         self._recoveries = 0
         self._incident_seq = itertools.count()
         self._tick_ewma: Optional[float] = None   # measured step() wall s
+        # measured accepted-tokens-per-tick per slot (EWMA): 1.0 for a
+        # plain engine, up to spec_k + 1 under speculation; the shed eta
+        # divides by it (scheduler.eta_first_token)
+        self._tpt_ewma: Optional[float] = None
 
         # weights snapshotted once: the masters, or one copy cast to
         # param_dtype (decode is weight-read bound)
@@ -288,18 +290,43 @@ class ServeEngine:
         if not masters:
             raise ValueError("model has no parameters to serve")
         self._device = model_device(model).torch_device
-        params = masters
-        if param_dtype is not None:
-            params = {n: (t.to(param_dtype) if t.is_floating_point() else t)
-                      for n, t in masters.items()}
-        self._params = params
+        self._params = self._cast(masters, param_dtype)
+        # the draft's weights snapshotted the same way (decode AND
+        # verify are weight-read bound); self-speculation reads the
+        # target's copy
+        self._dparams = None
+        if draft_model is model:
+            self._dparams = self._params
+        elif draft_model is not None:
+            dmasters = {n: t.detach()
+                        for n, t in draft_model.get_params().items()}
+            if not dmasters:
+                raise ValueError("draft model has no parameters to serve")
+            self._dparams = self._cast(dmasters, param_dtype)
         # the arena takes the dtype the model's caches take under the
         # served weights
-        with _bound(model, params):
+        with _bound(model, self._params):
             arena_dtype = model.init_caches(1, 1)[0][0].dtype
+        # the memory hierarchy (serve/mem.py): arena storage formats and
+        # the host spill store, which is content-addressed (chain keys)
+        # and so outlives arena recovery
+        self._kv_dtype = serve_mem.normalize_kv_dtype(kv_dtype)
+        self._draft_kv_dtype = (self._kv_dtype if draft_kv_dtype is None
+                                else serve_mem.normalize_kv_dtype(
+                                    draft_kv_dtype))
+        if spill_blocks is not None and spill_blocks < 1:
+            raise ValueError(
+                f"spill_blocks must be >= 1 (or None to disable the "
+                f"spill tier), got {spill_blocks}")
+        self._spill = (serve_mem.SpillStore(spill_blocks)
+                       if spill_blocks is not None else None)
         self.pool = BlockPool(model, num_slots, max_len,
                               block_size=block_size, num_blocks=num_blocks,
-                              dtype=arena_dtype)
+                              dtype=arena_dtype, draft_model=draft_model,
+                              kv_dtype=self._kv_dtype,
+                              draft_kv_dtype=self._draft_kv_dtype,
+                              spill=self._spill)
+        self._wire_spill()
         self._running: Dict[int, Request] = {}      # slot -> request
         dev, bs = self._device, self.pool.block_size
         # device-resident per-slot last tokens: written by prefill (the
@@ -312,18 +339,47 @@ class ServeEngine:
         self._chunk = torch.zeros((bs + 3,), dtype=torch.int64, device=dev)
         self._resume = resume_step(model)
         self._dec = decode_step(model)
-        self._prefill = _Program("prefill_chunk", self._prefill_body, dev)
-        self._decode = _Program("decode", self._decode_body, dev)
+        self._prefill = Program("prefill_chunk", self._prefill_body, dev)
+        # on a spec engine the plain decode is the serve.verify
+        # fallback: its program is made at its first dispatch
+        self._decode = Program("decode", self._decode_body, dev)
+        self._verify = self._spec_prefill = self._spec_verify = None
+        if draft_model is not None:
+            # the spec prefill writes both arenas; the verify round's
+            # outputs: per-slot accepted counts (column 0) and the
+            # target's k + 1 picks, one static tensor fetched at once
+            self._spec_prefill = spec.make_spec_prefill(model, draft_model,
+                                                        bs)
+            self._spec_verify = spec.make_verify(model, draft_model,
+                                                 self.spec_k, bs)
+            self._spec_out = torch.zeros((num_slots, self.spec_k + 2),
+                                         dtype=torch.int64, device=dev)
+            self._verify = Program("verify", self._verify_body, dev)
 
-    # -- the two programs --------------------------------------------------
+    @staticmethod
+    def _cast(masters, param_dtype):
+        """The masters, or one copy of them cast to ``param_dtype``."""
+        if param_dtype is None:
+            return masters
+        return {n: (t.to(param_dtype) if t.is_floating_point() else t)
+                for n, t in masters.items()}
+
+    # -- the programs ------------------------------------------------------
     def _prefill_body(self) -> None:
         """One block-aligned chunk of one request's prompt: gather the
         slot's dense view, run the cached forward at the device offset,
         pick the chunk's last valid token (only the final chunk's pick
-        survives), and scatter the ONE block this chunk filled back."""
+        survives), and scatter the ONE block this chunk filled back.  A
+        spec engine runs the same chunk through the draft into the
+        draft arena too (``spec.make_spec_prefill``)."""
         pool, bs = self.pool, self.pool.block_size
         ids = self._chunk[:bs].reshape(1, bs)
         start, last, slot = (self._chunk[bs + i] for i in range(3))
+        if self._spec_prefill is not None:
+            self._spec_prefill(self._params, self._dparams, ids, start, last,
+                               slot, pool.tables, self._toks, pool.caches,
+                               pool.draft_caches)
+            return
         with _bound(self.model, self._params):
             row = pool.tables.index_select(0, slot.reshape(1))   # (1, MB)
             logits, dense = spec.resume_on_row(self._resume, ids, start,
@@ -357,6 +413,15 @@ class ServeEngine:
                                         dv[rows, posc])
             pos.copy_(torch.where(active, pos + 1, pos))
 
+    def _verify_body(self) -> None:
+        """One speculative round over every slot (``spec.make_verify``):
+        writes both arenas' windows, the token vector and the positions
+        in place, and the round's (accepted, picks) into ``_spec_out``."""
+        pool = self.pool
+        self._spec_verify(self._params, self._dparams, self._toks, pool.pos,
+                          pool.active, pool.tables, pool.caches,
+                          pool.draft_caches, self._spec_out)
+
     def _prefill_chunk(self, chunk: np.ndarray, start: int,
                        slot: int) -> None:
         """Write one chunk's inputs into the static vector (one
@@ -373,11 +438,20 @@ class ServeEngine:
 
     # -- introspection ----------------------------------------------------
     def compiled_counts(self):
-        """(prefill, decode) programs made — on a card the captured CUDA
-        graphs, on the CPU the recorded eager programs.  Both stay at 1
-        after warm-up however many requests come and go, across
-        preemption and arena recovery."""
+        """(prefill, decode) programs made (``Program.count``: 1 from a
+        program's first dispatch on; a card captures it at the second).
+        Both stay at 1 after warm-up however many requests come and go,
+        across preemption and arena recovery."""
         return (self._prefill.count, self._decode.count)
+
+    def spec_compiled_counts(self):
+        """(prefill, decode, verify, handoff) programs made: the fixed
+        program set of a speculative engine.  ``decode`` is 0 until a
+        ``serve.verify`` fault forces a plain-decode fallback tick;
+        ``handoff`` is 0 until the disaggregated slice ports it; no
+        entry ever exceeds 1."""
+        return (self._prefill.count, self._decode.count,
+                self._verify.count if self._verify is not None else 0, 0)
 
     def programs(self):
         _not_ported("programs() (SharedPrograms)", DISAGG_SLICE)
@@ -424,11 +498,16 @@ class ServeEngine:
         # carries this id (handle.trace_id)
         req.trace_id = trace_id or f"{self.run_id}/r{req.rid}"
         p = req.prompt.size
-        if p + req.max_new_tokens > self.pool.max_len:
+        # a speculative engine needs spec_k positions of headroom: the
+        # request's LAST verify round may still write a full k+1 window
+        # past its final accepted token, inside the slot's dense view
+        if p + req.max_new_tokens + self.spec_k > self.pool.max_len:
+            k_note = (f" + spec_k ({self.spec_k})" if self.spec_k
+                      else "")
             raise ValueError(
                 f"prompt ({p}) + max_new_tokens ({req.max_new_tokens})"
-                f" = {p + req.max_new_tokens} exceeds max_len "
-                f"({self.pool.max_len})")
+                f"{k_note} = {p + req.max_new_tokens + self.spec_k} "
+                f"exceeds max_len ({self.pool.max_len})")
         with obs_trace.activate(req.trace_id):
             try:
                 self.sched.offer(req)
@@ -461,7 +540,7 @@ class ServeEngine:
         req.trace_id = trace_id or f"{self.run_id}/r{req.rid}"
         req.ttft_s = ttft_s
         p = req.prompt.size
-        if p + req.max_new_tokens > self.pool.max_len:
+        if p + req.max_new_tokens + self.spec_k > self.pool.max_len:
             raise ValueError(
                 f"prompt ({p}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds max_len ({self.pool.max_len})")
@@ -525,11 +604,18 @@ class ServeEngine:
                 try:
                     self._ensure_blocks()
                     if self._running:
-                        delivered += self._decode_tick()
+                        delivered += (self._spec_tick()
+                                      if self._verify is not None
+                                      else self._decode_tick())
                 except (RuntimeError, OSError) as e:
                     if isinstance(e, failure.FailureDetected):
                         raise
                     self._recover(f"decode: {type(e).__name__}: {e}")
+
+            # the spill copies are done once the tick's token fetch has
+            # synchronised the stream: settling them waits for nothing
+            if self._spill is not None:
+                self._spill.settle()
 
             self.metrics.on_step(self.sched.depth, self.pool.active_count,
                                  self.pool.blocks_in_use,
@@ -542,13 +628,14 @@ class ServeEngine:
     def _eta_first_token(self, position: int) -> float:
         """Seconds until the queued request at ``position`` could
         plausibly deliver its first token (:func:`scheduler.
-        eta_first_token` at the measured tick EWMA, one token per tick);
-        0.0 before any timing evidence exists."""
+        eta_first_token` at the measured tick EWMA and accepted tokens
+        per tick); 0.0 before any timing evidence exists."""
         if self._tick_ewma is None:
             return 0.0
         return eta_first_token(position, free_slots=self.pool.free_count,
                                wave_size=self.pool.num_slots,
-                               tick_s=self._tick_ewma)
+                               tick_s=self._tick_ewma,
+                               tokens_per_tick=self._tpt_ewma or 1.0)
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> None:
         """Drive ``step()`` until no request is queued or running.  With
@@ -597,8 +684,8 @@ class ServeEngine:
         self.drain()
         self._closed = True
         self.pool = None
-        self._toks = self._chunk = None
-        self._prefill = self._decode = None
+        self._toks = self._chunk = self._spec_out = None
+        self._prefill = self._decode = self._verify = None
 
     def __enter__(self) -> "ServeEngine":
         return self
@@ -608,9 +695,37 @@ class ServeEngine:
         return False
 
     # -- internals ---------------------------------------------------------
+    def _wire_spill(self) -> None:
+        """Point the pool's spill-tier callbacks at this engine: spill/
+        prefetch accounting lands in the metrics, and an injected
+        ``serve.spill`` fault produces a flight dump + incident record
+        (the fault only DEGRADES — the block dies or the prefix
+        re-prefills, streams unchanged — but the evidence must exist)."""
+        if self.pool.spill is None:
+            return
+        # looked up at each call: whatever metrics object the engine
+        # holds then gets the counts
+        self.pool.on_spill = lambda n: self.metrics.on_spill(n)
+        self.pool.on_prefetch = lambda n, ms: self.metrics.on_prefetch(n, ms)
+        self.pool.on_spill_fault = self._spill_fault
+
+    def _spill_fault(self, op: str, exc: Exception) -> None:
+        ref = self._flight_dump("serve.spill",
+                                f"{op} fault: {type(exc).__name__}")
+        self._incident("serve.spill", type(exc).__name__, f"op:{op}",
+                       "degraded", 0, flight_ref=ref)
+
     #: dispatch site -> the program key the attribution ledger uses
     _ATTR_PROGRAMS = {"serve.prefill": "prefill_chunk",
-                      "serve.decode": "decode"}
+                      "serve.decode": "decode",
+                      "serve.verify": "verify"}
+
+    def _attr_program(self, site: str) -> str:
+        """The ledger key one dispatch accumulates under: an int8
+        arena's decode is a program of its own (``decode_int8``)."""
+        if site == "serve.decode" and self._kv_dtype == "int8":
+            return "decode_int8"
+        return self._ATTR_PROGRAMS.get(site, site)
 
     def _dispatch(self, site: str, fn, args, **attrs):
         """One guarded dispatch: the injection site fires first (on the
@@ -635,7 +750,7 @@ class ServeEngine:
                 t0 = time.perf_counter()
                 out = fn(*args)
                 _sync(self._device)
-                led.note(self._ATTR_PROGRAMS.get(site, site),
+                led.note(self._attr_program(site),
                          time.perf_counter() - t0)
                 return out
             except (RuntimeError, OSError) as e:
@@ -801,7 +916,11 @@ class ServeEngine:
             req = self._running.get(slot)
             if req is None:
                 continue
-            need = (req.prompt.size + len(req.tokens)) // bs + 1
+            # a verify round writes up to position pos + spec_k (the
+            # full k+1 window), so a speculative slot needs its blocks
+            # mapped spec_k positions ahead of a plain one
+            need = (req.prompt.size + len(req.tokens) + self.spec_k) \
+                // bs + 1
             while slot in self._running and \
                     self.pool.mapped_count(slot) < need:
                 got = self._alloc_blocks(1, req.rid)
@@ -843,7 +962,41 @@ class ServeEngine:
             delivered += 1
             if done:
                 self._finalize(slot)
+        self._note_tpt(delivered, delivered)
         return delivered
+
+    def _spec_tick(self) -> int:
+        """One speculative verify round (``spec.verify_round``), with a
+        PLAIN-DECODE fallback when the verify DISPATCH dies past its
+        retry budget (injected ``serve.verify`` faults included): one
+        target-correct token per slot still lands this tick, the stream
+        is unchanged (plain decode is the same target argmax), and only
+        the draft cache takes a gap at the fallback position — a later
+        accept-rate cost, never a correctness one.  Only
+        :class:`~singa_tpu_torch.serve.spec.VerifyDispatchFailed` takes
+        this path; a failure after the dispatch is half-committed and
+        goes to step()'s arena recovery, as does a failing fallback."""
+        participants = len(self._running)
+        try:
+            delivered = spec.verify_round(self)
+        except spec.VerifyDispatchFailed as e:
+            self.metrics.on_spec_fallback()
+            warnings.warn(
+                f"serve: verify round failed past retries "
+                f"({type(e).__name__}: {e}); falling back to plain "
+                f"decode for this tick", stacklevel=2)
+            return self._decode_tick()
+        self._note_tpt(delivered, participants)
+        return delivered
+
+    def _note_tpt(self, delivered: int, participants: int) -> None:
+        """Fold one tick's accepted tokens per slot into the EWMA the
+        shed eta reads (``eta_first_token``'s ``tokens_per_tick``)."""
+        if not participants:
+            return
+        tpt = delivered / participants
+        self._tpt_ewma = tpt if self._tpt_ewma is None else \
+            0.8 * self._tpt_ewma + 0.2 * tpt
 
     def _finalize(self, slot: int, evicted: bool = False) -> None:
         req = self._running.pop(slot)
@@ -874,9 +1027,10 @@ class ServeEngine:
         with events.span("serve.recover", reason=reason):
             inflight = sorted(self._running.values(), key=lambda r: r.rid)
             self._running.clear()
-            # the same storage reset in place: the two captured programs
-            # read it by address, so recovery never recaptures.  The
-            # prefix cache dies with the arena's contents
+            # the same storage reset in place (both arenas): the captured
+            # programs read it by address, so recovery never recaptures.
+            # The prefix cache dies with the arena's contents; the spill
+            # store survives (chain keys commit to content)
             self.pool.reset()
             self._toks.zero_()
             requeue = []

@@ -3,9 +3,7 @@ histograms — all through the shared ``obs.events`` layer, so a single
 ``SINGA_OBS=/path.jsonl`` env var captures training AND serving events
 in one stream.  A copy of ``singa_tpu/serve/metrics.py``: the names and
 attributes are the reference's, so one query reads either package's
-stream.  The spill-tier and speculative-decoding metrics of the
-reference come with the slices that port ``serve/mem.py`` and the
-verify program.
+stream.
 
 Metric names:
 
@@ -40,10 +38,35 @@ name                        kind       meaning
 ``serve.active_slots``      gauge      live slots, after each step
 ``serve.blocks_in_use``     gauge      referenced KV blocks, after each
                                        step (the paged-arena footprint)
-``serve.blocks_in_use_bytes``  gauge   device bytes those blocks pin
+``serve.blocks_in_use_bytes``  gauge   device bytes those blocks pin —
+                                       target + draft arenas, int8
+                                       codes AND f32 scale tensors
+                                       (block counts alone under-report
+                                       a quantized/speculative arena)
+``serve.spilled_blocks``    counter    evicted prefix blocks whose
+                                       bytes landed in the host-RAM
+                                       spill tier instead of dying
+``serve.prefetch_hits``     counter    spilled blocks restored into the
+                                       arena on a prefix hit (one per
+                                       restored block)
+``serve.prefetch_wait_ms``  histogram  host-side restore orchestration
+                                       per prefetched block (the copies
+                                       themselves run on the stream)
 ``serve.step``              span       one engine step (host wall clock)
 ``serve.prefill``           span       one prefill dispatch (+ fetch)
 ``serve.decode``            span       one decode dispatch (+ fetch)
+``serve.verify``            span       one speculative verify round
+                                       (draft propose-k + target
+                                       verify in ONE dispatch + fetch;
+                                       ``k`` attr)
+``serve.spec_proposed``     counter    draft tokens proposed this round
+                                       (k per active slot)
+``serve.spec_accepted``     counter    proposals the target's own
+                                       greedy picks confirmed
+``serve.spec_fallbacks``    counter    verify rounds that fell back to
+                                       plain decode (``serve.verify``
+                                       fault past retries)
+``serve.accept_rate``       histogram  per-(slot, round) accepted / k
 ``serve.token``             counter    one token delivered to a request
                                        (prefill first token, decode
                                        tick, recovery/preemption replay
@@ -100,10 +123,23 @@ class ServeMetrics:
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.steps = 0
-        # per-slot participations in a decode dispatch and the tokens
-        # they yielded: tokens_per_dispatch (1.0 for plain decode)
+        # KV memory hierarchy: spill-tier pressure counters
+        self.spilled_blocks = 0
+        self.prefetch_hits = 0
+        self.prefetch_wait_ms = 0.0
+        # speculative decoding: per-(slot, round) accounting
+        # for the accept rate and the tokens-per-dispatch headline —
+        # slot_dispatches counts per-slot participations in a decode OR
+        # verify dispatch (a plain tick is the 1-token case), so
+        # tokens_per_dispatch = slot_dispatch_tokens / slot_dispatches
+        # is comparable across spec and plain engines
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_fallbacks = 0
         self.slot_dispatches = 0
         self.slot_dispatch_tokens = 0
+        self._accept = _Hist()
         self._ttft = _Hist()
         self._token = _Hist()
 
@@ -163,13 +199,63 @@ class ServeMetrics:
         events.counter("serve.prefix_hit_tokens", tokens)
         self._note("counter", "serve.prefix_hits", tokens=tokens)
 
-    # -- decode dispatches ------------------------------------------------
+    # -- KV memory hierarchy / spill tier -----------------------
+    def on_spill(self, blocks: int) -> None:
+        """``blocks`` evicted prefix blocks spilled to host RAM instead
+        of dying (their next prefix hit restores them copy-wise)."""
+        self.spilled_blocks += blocks
+        events.counter("serve.spilled_blocks", blocks)
+        self._note("counter", "serve.spilled_blocks", blocks=blocks)
+
+    def on_prefetch(self, blocks: int, wait_ms: float) -> None:
+        """``blocks`` spilled block(s) restored on one prefix hit (the
+        pool fires this once per restored block); ``wait_ms`` is the
+        host-side restore orchestration time (the device copy itself
+        is async-dispatched)."""
+        self.prefetch_hits += blocks
+        self.prefetch_wait_ms += wait_ms
+        events.counter("serve.prefetch_hits", 1, blocks=blocks)
+        events.histogram("serve.prefetch_wait_ms", wait_ms)
+        self._note("counter", "serve.prefetch_hits", blocks=blocks,
+                   wait_ms=round(wait_ms, 3))
+
+    # -- speculative decoding -----------------------------------
+    def on_spec_round(self, proposed: int, accepted: int) -> None:
+        """One (slot, verify round): ``proposed`` = k draft tokens,
+        ``accepted`` = how many of them the target's own greedy picks
+        confirmed (the round still delivers accepted + 1 tokens — the
+        correction/bonus pick is the target's, not the draft's)."""
+        self.spec_rounds += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        rate = accepted / proposed if proposed else 0.0
+        self._accept.observe(rate)
+        events.counter("serve.spec_proposed", proposed)
+        events.counter("serve.spec_accepted", accepted)
+        events.histogram("serve.accept_rate", rate)
+        self._note("counter", "serve.spec_accepted", accepted=accepted,
+                   proposed=proposed)
+
+    def on_spec_fallback(self) -> None:
+        """A verify round died past retries and this tick ran plain
+        decode instead — stream unchanged, accept rate pays later."""
+        self.spec_fallbacks += 1
+        events.counter("serve.spec_fallbacks", 1)
+        self._note("counter", "serve.spec_fallbacks")
+
     def on_slot_dispatch(self, tokens: int) -> None:
         """One slot's share of one decode/verify dispatch, yielding
         ``tokens`` delivered tokens — the denominator/numerator pair of
         the ``tokens_per_dispatch`` headline."""
         self.slot_dispatches += 1
         self.slot_dispatch_tokens += tokens
+
+    @property
+    def accept_rate(self) -> Optional[float]:
+        """Overall accepted / proposed (None before any verify round)."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
 
     @property
     def tokens_per_dispatch(self) -> Optional[float]:
@@ -224,9 +310,18 @@ class ServeMetrics:
             "prefix_hits": self.prefix_hits,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "steps": self.steps,
+            "spilled_blocks": self.spilled_blocks,
+            "prefetch_hits": self.prefetch_hits,
+            "prefetch_wait_ms": self.prefetch_wait_ms,
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_fallbacks": self.spec_fallbacks,
             "slot_dispatches": self.slot_dispatches,
             "slot_dispatch_tokens": self.slot_dispatch_tokens,
+            "accept_rate": self.accept_rate,
             "tokens_per_dispatch": self.tokens_per_dispatch,
+            "accept_rate_hist": self._accept.summary(),
             "ttft_ms": self._ttft.summary(),
             "token_ms": self._token.summary(),
         }

@@ -1,6 +1,5 @@
 """Paged KV-cache arena for continuous-batching inference, ported from
-``singa_tpu/serve/slots.py`` (``BlockPool``) for a full-precision target
-arena.
+``singa_tpu/serve/slots.py`` (``BlockPool``).
 
 The per-layer cache is a pool of ``num_blocks`` fixed-size blocks of
 ``block_size`` tokens — ``(num_blocks, block_size, K, D)`` tensors —
@@ -44,19 +43,25 @@ positions past its own validity window (``cached_sdpa``'s per-row
 ``limit``), so the null block (like any stale table entry) is
 unreachable.
 
-The int8 arena (``kv_dtype``), the draft arena of speculative decoding
-and the host spill tier come with the slice that ports
-``serve/mem.py`` and the verify program; here they raise.
+The memory hierarchy (``serve/mem.py``): ``kv_dtype="int8"`` stores
+blocks as int8 codes plus per-position scales (``QuantKV``), and a
+``spill`` store takes the exact bytes of every keyed block the arena
+reclaims, to be restored on its next prefix hit.  Speculative decoding
+adds the DRAFT arena: a second per-layer pool on the same block tables.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import faults
+from . import mem
 
 __all__ = ["BlockPool"]
 
@@ -85,34 +90,23 @@ def _not_ported(name: str, where: str) -> None:
         f"{name} is not ported yet; it comes with {where}")
 
 
-#: where each option of the reference's pool is ported
-MEM_SLICE = "the slice that ports serve/mem.py (QuantKV, int8 scatter, " \
-    "the spill tier)"
-SPEC_SLICE = "the slice that ports the speculative verify program " \
-    "(serve/spec.py, scatter_tokens_kv)"
-
-
 class BlockPool:
     """Paged arena of ``num_blocks`` KV blocks behind ``num_slots``
     block-table rows.
 
     Host side: slot free list, block free list, per-block refcounts,
-    the prefix cache (chain key -> block) and the evictable LRU.
-    Device side (static, written in place): the per-layer block pools,
-    the ``(num_slots, max_blocks)`` block tables, and the per-slot
-    ``pos``/``active`` vectors the decode program reads.
+    the prefix cache (chain key -> block), the evictable LRU and the
+    spill store.  Device side (static, written in place): the per-layer
+    block pools (target and draft), the ``(num_slots, max_blocks)``
+    block tables, and the per-slot ``pos``/``active`` vectors the decode
+    and verify programs read.
     """
 
     def __init__(self, model, num_slots: int, max_len: int, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  dtype=None, draft_model=None, kv_dtype=None,
-                 draft_kv_dtype=None, spill=None):
-        if kv_dtype is not None or draft_kv_dtype is not None:
-            _not_ported("kv_dtype/draft_kv_dtype", MEM_SLICE)
-        if spill is not None:
-            _not_ported("spill", MEM_SLICE)
-        if draft_model is not None:
-            _not_ported("draft_model (the draft arena)", SPEC_SLICE)
+                 draft_kv_dtype=None,
+                 spill: Optional[mem.SpillStore] = None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 2:
@@ -133,22 +127,50 @@ class BlockPool:
                 f"request plus the null block (>= {self.max_blocks + 1} "
                 f"for max_len {max_len} at block_size {block_size})")
         self.num_blocks = num_blocks
-        caches = model.init_caches(num_blocks, block_size)
-        if dtype is not None:
-            # the serving dtype (e.g. bf16 under a param_dtype cast),
-            # one layer at a time so at most one extra layer is held
-            caches = [(k.to(dtype), v.to(dtype)) for k, v in caches]
-        self.caches = caches
-        dev = self.device = caches[0][0].device
+        # per-arena storage format (None = full precision, "int8" =
+        # QuantKV codes + scales): the draft arena takes the target's
+        # unless overridden, so the referee configuration (int8
+        # proposer, full-precision target) is draft_kv_dtype="int8"
+        self.kv_dtype = mem.normalize_kv_dtype(kv_dtype)
+        self.draft_kv_dtype = (self.kv_dtype if draft_kv_dtype is None
+                               else mem.normalize_kv_dtype(draft_kv_dtype))
+        # `dtype` is the serving dtype (e.g. bf16 under a param_dtype
+        # cast); an int8 arena's codes and scales have theirs by contract
+        self.caches = self._arena(model, self.kv_dtype, dtype)
+        # speculative decoding: the DRAFT model's KV blocks ride the
+        # SAME block tables, a second per-layer pool with the same
+        # (num_blocks, block_size) leading dims, so every mapping
+        # decision covers both arenas with one index update.  The
+        # serving dtype applies to both: under self-speculation a
+        # full-precision draft arena would let the draft's and the
+        # target's argmaxes diverge by reading different-precision KV
+        self.draft_model = draft_model
+        self.draft_caches = (None if draft_model is None else
+                             self._arena(draft_model, self.draft_kv_dtype,
+                                         dtype))
+        dev = self.device = mem._leaves(self.caches)[0].device
         self.tables = torch.zeros((num_slots, self.max_blocks),
                                   dtype=torch.int64, device=dev)
         self.pos = torch.zeros((num_slots,), dtype=torch.int64, device=dev)
         self.active = torch.zeros((num_slots,), dtype=torch.bool,
                                   device=dev)
-        #: bytes ONE physical block occupies across every layer's k and v
-        self.block_bytes = sum(t.numel() * t.element_size()
-                               for kv in caches for t in kv) // num_blocks
+        #: bytes ONE physical block occupies across every arena leaf
+        #: (target + draft, codes + scales)
+        self.block_bytes = mem.arena_block_bytes(self.caches,
+                                                 self.draft_caches)
+        # spill tier: evicted keyed blocks land in the store instead of
+        # dying; the engine wires the callbacks (metrics, incidents)
+        self.spill = spill
+        self.on_spill = None        # callable(n_blocks)
+        self.on_prefetch = None     # callable(n_blocks, wait_ms)
+        self.on_spill_fault = None  # callable(op, exc)
+        self.restore: Optional[mem.Restore] = None   # made at first use
         self._reset_host()
+
+    def _arena(self, model, kv_dtype, dtype):
+        if kv_dtype == "int8":
+            return mem.quant_arena(model, self.num_blocks, self.block_size)
+        return mem.full_arena(model, self.num_blocks, self.block_size, dtype)
 
     def _reset_host(self) -> None:
         # LIFO reuse: the most recently freed slot/block is re-used
@@ -165,12 +187,13 @@ class BlockPool:
 
     def reset(self) -> None:
         """Arena recovery: every slot free, every block free and
-        unreferenced, the prefix cache empty, and the device storage
-        zeroed IN PLACE (the same tensors, so captured programs stay
-        valid and nothing is recaptured)."""
-        for ck, cv in self.caches:
-            ck.zero_()
-            cv.zero_()
+        unreferenced, the prefix cache empty, and the device storage —
+        target and draft arenas, codes and scales — zeroed IN PLACE (the
+        same tensors, so captured programs stay valid and nothing is
+        recaptured).  The spill store is kept: its chain keys commit to
+        prefix content, not to arena state."""
+        for t in mem._leaves(self.caches) + mem._leaves(self.draft_caches):
+            t.zero_()
         self.tables.zero_()
         self.pos.zero_()
         self.active.zero_()
@@ -204,7 +227,8 @@ class BlockPool:
 
     @property
     def blocks_in_use_bytes(self) -> int:
-        """Device bytes those blocks pin (k and v of every layer)."""
+        """Device bytes those blocks pin across BOTH arenas (target +
+        draft, int8 codes AND f32 scales)."""
         return self.blocks_in_use * self.block_bytes
 
     def mapped_count(self, slot: int) -> int:
@@ -219,7 +243,72 @@ class BlockPool:
         key = self._key_of.pop(block, None)
         if key is not None and self._block_of.get(key) == block:
             del self._block_of[key]
+            if self.spill is not None:
+                self._spill_block(key, block)
         return block
+
+    # -- spill tier (serve/mem.py) ----------------------------------------
+    def _spill_block(self, key: bytes, block: int) -> None:
+        """Spill-write seam: enqueue the evicted keyed block's copy into
+        the host store BEFORE the arena reclaims the physical block (on
+        the current stream, ahead of any program that may overwrite
+        it).  An injected ``serve.spill`` fault skips the spill: the
+        block dies as it did before the spill tier (a prefix-cache miss
+        later, never a changed stream)."""
+        try:
+            faults.fire("serve.spill", op="spill", block=block)
+        except (RuntimeError, OSError) as e:
+            if self.on_spill_fault is not None:
+                self.on_spill_fault("spill", e)
+            return
+        self.spill.put(key, mem.read_block(self.caches, self.draft_caches,
+                                           block))
+        if self.on_spill is not None:
+            self.on_spill(1)
+
+    def _stage_restore(self, key: bytes) -> Optional[Tuple[int, dict]]:
+        """Prefetch-read seam: claim an available physical block — a
+        free one, else by evicting the coldest refcount-0 LRU block
+        (which itself spills) — and pop the spilled payload for it.
+        Returns ``(block, payload)``, or None on a store miss / no
+        claimable block / injected fault (each degrades to a plain
+        prefix miss: the suffix prefills normally).  The device write
+        is deferred to :meth:`_commit_restores`, so an admission
+        restoring several blocks pays one batched restore."""
+        if self.spill is None or key not in self.spill \
+                or not (self._free_blocks or self._lru):
+            return None
+        try:
+            faults.fire("serve.spill", op="prefetch")
+        except (RuntimeError, OSError) as e:
+            if self.on_spill_fault is not None:
+                self.on_spill_fault("prefetch", e)
+            return None
+        payload = self.spill.get(key)
+        if (payload["draft"] is None) != (self.draft_caches is None):
+            return None  # arena shape changed under the store
+        self.spill.pop(key)
+        block = (self._free_blocks.pop() if self._free_blocks
+                 else self._evict_lru())
+        return block, payload
+
+    def _commit_restores(self, restores: List[Tuple[bytes, int, dict]]
+                         ) -> None:
+        """Land an admission's staged restores through the restore
+        program (one dispatch per ``mem.RESTORE_BATCH`` blocks), then
+        key the blocks resident.  ``wait_ms`` is the host time the
+        admission spent enqueueing them."""
+        t0 = time.perf_counter()
+        if self.restore is None:
+            self.restore = mem.Restore(self.caches, self.draft_caches)
+        mem.write_blocks(self.restore, [b for _, b, _ in restores],
+                         [p for _, _, p in restores])
+        for key, block, _ in restores:
+            self._key_of[block] = key
+            self._block_of[key] = block
+        if self.on_prefetch is not None:
+            self.on_prefetch(len(restores),
+                             (time.perf_counter() - t0) * 1e3)
 
     def alloc_blocks(self, n: int) -> Optional[List[int]]:
         """Claim ``n`` physical blocks (all-or-nothing), evicting LRU
@@ -297,18 +386,31 @@ class BlockPool:
                      ) -> Tuple[int, List[int]]:
         """Claim the longest resident chain of leading full prompt
         blocks: each matched block's refcount is bumped (reactivating
-        it out of the evictable LRU).  Returns (n_shared, block ids)."""
+        it out of the evictable LRU).  A key that misses residency but
+        hits the spill store is restored into a free physical block and
+        the chain continues — the restored block consumes exactly the
+        one free block the conservative :meth:`probe_prefix`
+        feasibility math already budgeted for its fresh allocation, so
+        admission accounting is unchanged.  Returns (n_shared, block
+        ids)."""
         if keys is None:
             keys = _chain_keys(prompt, limit_blocks, self.block_size)
         ids: List[int] = []
+        restores: List[Tuple[bytes, int, dict]] = []
         for key in keys[:limit_blocks]:
             block = self._block_of.get(key)
             if block is None:
-                break
+                staged = self._stage_restore(key)
+                if staged is None:
+                    break
+                block, payload = staged
+                restores.append((key, block, payload))
             if self.ref[block] == 0:
                 self._lru.pop(block, None)
             self.ref[block] += 1
             ids.append(block)
+        if restores:
+            self._commit_restores(restores)
         return len(ids), ids
 
     def register_prefix(self, prompt: np.ndarray, slot: int,

@@ -494,3 +494,156 @@ def test_serve_bodies_do_not_sync_the_host(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert eng.compiled_counts() == (1, 1)
+
+
+# -- speculation, the memory hierarchy and beam search ------------------------
+
+def _spill_traffic(eng, vocab, n=12):
+    """A request behind a 2-block system prompt, private prompts that
+    evict (and so spill) its blocks, then the same system prompt again:
+    the third request's stream."""
+    rng = np.random.RandomState(5)
+    system = rng.randint(0, vocab, 32)
+    eng.submit(np.concatenate([system, rng.randint(0, vocab, 9)]),
+               max_new_tokens=n)
+    eng.run_until_idle()
+    _serve(eng, [rng.randint(0, vocab, 60) for _ in range(4)], n)
+    return _serve(eng, [np.concatenate([system, rng.randint(0, vocab, 7)])],
+                  n)[0]
+
+
+@pytest.mark.cuda
+def test_spec_and_restore_programs_are_made_once(cuda_device):
+    """spec_compiled_counts() is (1, 0, 1, 0) across traffic, (1, 1, 1, 0)
+    after a verify fault falls back to plain decode, and stays there
+    through a recovery; the streams equal an all-eager spec twin's.  A
+    spill engine's restore program is made once, and its re-hit stream
+    equals an engine's without the tier."""
+    from singa_tpu_torch import faults
+    from singa_tpu_torch.serve import ServeEngine, mem
+    for m in _serve_models(cuda_device):
+        prompts = _serve_prompts(6, m.cfg.vocab_size)
+        kw = dict(block_size=16, param_dtype=torch.bfloat16, draft_model=m,
+                  spec_k=3, backoff_base=0.001, backoff_max=0.01)
+        eager = ServeEngine(m, 4, 128, **kw)
+        eager._prefill, eager._verify = eager._prefill_body, \
+            eager._verify_body
+        want = _serve(eager, prompts)
+        eng = ServeEngine(m, 4, 128, **kw)
+        assert _serve(eng, prompts) == want
+        assert eng.spec_compiled_counts() == (1, 0, 1, 0)
+        assert eng._verify.graph.graph is not None
+        plan = faults.FaultPlan([faults.FaultSpec("serve.verify", "error",
+                                                  every=1, times=3)])
+        with faults.active(plan), pytest.warns(UserWarning, match="verify"):
+            assert _serve(eng, prompts[:3]) == want[:3]
+        assert eng.metrics.spec_fallbacks >= 1
+        assert eng.spec_compiled_counts() == (1, 1, 1, 0)
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts[:3]]
+        eng.step()
+        eng.recover("test")
+        eng.run_until_idle()
+        assert [list(map(int, h.tokens)) for h in hs] == want[:3]
+        assert eng.spec_compiled_counts() == (1, 1, 1, 0)
+        kw = dict(block_size=16, num_blocks=12, param_dtype=torch.bfloat16)
+        spill = ServeEngine(m, 2, 128, spill_blocks=32, **kw)
+        again = _spill_traffic(spill, m.cfg.vocab_size)
+        assert spill.metrics.prefetch_hits >= 2
+        assert again == _spill_traffic(ServeEngine(m, 2, 128, **kw),
+                                       m.cfg.vocab_size)
+        assert mem.restore_compiled_count(spill.pool.restore) <= 1
+        assert _spill_traffic(spill, m.cfg.vocab_size) is not None
+        assert mem.restore_compiled_count(spill.pool.restore) == 1
+        assert mem.restore_compiled_count() == 1
+
+
+@pytest.mark.cuda
+def test_verify_and_restore_bodies_do_not_sync_the_host(cuda_device):
+    from singa_tpu_torch.serve import ServeEngine
+    m = _serve_models(cuda_device)[0]
+    eng = ServeEngine(m, 4, 128, block_size=16, draft_model=m, spec_k=2,
+                      kv_dtype="int8", num_blocks=12, spill_blocks=32)
+    _spill_traffic(eng, m.cfg.vocab_size)
+    assert eng.pool.restore is not None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._verify_body()
+        eng.pool.restore._body()
+        eng._prefill_body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_verify_and_restore_replays_see_host_writes(cuda_device):
+    """After capture, a table row, a position and an active flag written
+    on the host are what the next verify replay reads; a staging write
+    and an index written on the host are what the next restore replay
+    writes."""
+    from singa_tpu_torch.serve import ServeEngine, mem
+    m = _serve_models(cuda_device)[0]
+    eng = ServeEngine(m, 4, 128, block_size=16, draft_model=m, spec_k=2,
+                      num_blocks=12, spill_blocks=32)
+    _spill_traffic(eng, m.cfg.vocab_size)
+    _spill_traffic(eng, m.cfg.vocab_size)         # restore captured
+    assert eng._verify.graph.graph is not None
+    pool = eng.pool
+    slot, (b0, b1) = pool.alloc_slot(), pool.alloc_blocks(2)
+    pool.map_slot(slot, [b0, b1])
+    pool.activate(slot, 14)          # the window 14..16 spans b0 and b1
+    for ck, cv in pool.caches + pool.draft_caches:
+        ck[b0, 14:].zero_()
+        ck[b1].zero_()
+    eng._verify()
+    torch.cuda.synchronize()
+    acc = int(eng._spec_out[slot, 0])
+    assert int(pool.pos[slot]) == 14 + acc + 1
+    for ck, _ in (pool.caches[0], pool.draft_caches[0]):
+        assert bool(ck[b0, 14:].abs().sum(dim=(-2, -1)).gt(0).all())
+        assert bool(ck[b1, 0].abs().sum() > 0)
+        assert bool(ck[b1, 1:].abs().sum() == 0)
+    pool.release(slot)
+    restore = pool.restore
+    assert restore.program.count == 1
+    payload = mem.read_block(pool.caches, pool.draft_caches, b1)
+    payload["event"].synchronize()
+    for t in mem._leaves(payload["kv"]) + mem._leaves(payload["draft"]):
+        t.fill_(1)
+    mem.write_block(restore, b1, payload)
+    torch.cuda.synchronize()
+    assert bool((pool.caches[0][0][b1] == 1).all())
+    assert bool((pool.draft_caches[1][1][b1] == 1).all())
+
+
+@pytest.mark.cuda
+def test_read_block_payload_is_not_a_view_of_the_arena(cuda_device):
+    from singa_tpu_torch.serve import ServeEngine, mem
+    m = _serve_models(cuda_device)[0]
+    eng = ServeEngine(m, 2, 128, block_size=16, kv_dtype="int8")
+    _serve(eng, _serve_prompts(2, m.cfg.vocab_size))
+    pool = eng.pool
+    before = [t[1].clone() for t in mem._leaves(pool.caches)]
+    payload = mem.read_block(pool.caches, None, 1)
+    for t in mem._leaves(pool.caches):
+        t[1].fill_(7)                 # enqueued after the copies
+    payload["event"].synchronize()
+    for a, b in zip(before, mem._leaves(payload["kv"]), strict=True):
+        assert b.is_pinned() and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_captured_beam_equals_eager_bitwise(cuda_device):
+    for m in _serve_models(cuda_device):
+        prompts = np.random.RandomState(3).randint(0, m.cfg.vocab_size,
+                                                   (2, 24))
+        for eos in (None, 7):
+            kw = dict(max_new_tokens=10, num_beams=3, eos_id=eos,
+                      param_dtype=torch.bfloat16, return_scores=True)
+            want, wscore = m.generate_beam(prompts, use_graph=False, **kw)
+            for _ in range(3):            # warm-up, capture, replay
+                got, score = m.generate_beam(prompts, **kw)
+                np.testing.assert_array_equal(got, want)
+                np.testing.assert_array_equal(score, wscore)
+        sess = next(s for k, s in m._gen_sessions.items() if k[0] == "beam")
+        assert sess.graphs["tick"].graph is not None
