@@ -73,14 +73,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
                restore program, the third wave's streams equal to an
                engine without the tier's, which a planted restore into
                the next block must break; no flash launch
-  9. beam    — generate_beam on two of the slice phase's prompts (P=1024,
+  9. disagg  — the disaggregated tier in one process: build_pools(1
+               prefill, 2 decode) of the serve phase's engine (8 slots,
+               1024, blocks of 32, bf16, prefix sharing) behind a
+               Router, from one warmed template engine's weight copy.
+               The serve phase's 16 prompts x 64 tokens: streams bitwise
+               the serve phase's; every worker's compiled_counts() within
+               (1, 1), the prefill worker's handoff program made once;
+               one weight copy (the same data_ptrs); 16 handoffs, the
+               system prompt's blocks mapped copy-free on the decode
+               workers (counted).  The first wave again through a
+               serve.handoff fault (re-routed) and with a decode worker
+               killed mid-flight (replayed), and through a
+               self-speculative tier (spec_k=3) whose packages carry the
+               draft's KV; each bitwise.  No flash launch.  Tokens/s and
+               TTFT beside the serve phase's; the handoff program, the
+               package copy and the inject timed; bytes per package,
+               pool bytes per worker, peak memory
+ 10. net     — the process tier: build_proc_pools(1 prefill, 1 decode)
+               of worker processes on the card, each building base()
+               from chip_smoke:tier_model (the slice phase's weights),
+               behind a ProcRouter.  The first wave: streams bitwise the
+               serve phase's, cold and warm; a torn frame
+               (serve.transport torn_frame) refused by its digest and
+               replayed; a decode worker killed mid-flight replayed,
+               then respawned and adopted.  Each worker's ready and
+               warm-up tick seconds, frame bytes, wire ms, tokens/s
+ 11. beam    — generate_beam on two of the slice phase's prompts (P=1024,
                N=32, 4 beams, bf16 weights), without and with an eos id:
                the captured session (prefill graph, one beam tick
                replayed N times) against the eager search bitwise, 16
                flash launches per call counted on the card, num_beams=1
                against greedy generate(), the scores against a
                teacher-forced f32 forward; call and tick ms, pool bytes
- 10. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+ 12. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
                with their plain versions, and with planted faults in
@@ -95,11 +121,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
- 11. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+ 13. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
                with a save after step 2; a fresh model loads it and runs
                steps 3-6 (eager, warm-up, capture, replay), whose losses
                must equal the uninterrupted run's within the train limit
- 12. timing  — each kernel, its plain version and the PyTorch call that
+ 14. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -223,6 +249,13 @@ REFEREE_MIN_ACCEPT = 0.75
 # the spill run: a pool too small to keep the system prompt's blocks
 # while the 8 private prompts run, and the host store's capacity
 SPILL_POOL, SPILL_STORE = 96, 256
+# the disagg and net phases: the tiers' pools (prefill, decode workers);
+# the in-process tier's handoff fault fires at this handoff, the kill
+# comes after this many tier rounds, and a worker process has this long
+# to build base() and report ready
+DISAGG_POOLS, NET_POOLS = (1, 2), (1, 1)
+DISAGG_FAULT_AT, TIER_KILL_AFTER = 3, 4
+NET_SPAWN_TIMEOUT_S = 300.0
 # the beam phase: two of the slice phase's prompts, four beams, and the
 # returned scores against a teacher-forced f32 forward, relative: the
 # search runs bf16 weights and activations, each of 32 log-softmax
@@ -421,16 +454,23 @@ def _median_ms(fn, n=5):
     return sorted(_timed(fn)[1] for _ in range(n))[n // 2] * 1e3
 
 
+def tier_model(device, seed=0):
+    """Llama(LlamaConfig.base()) on `device`, weights from `seed`: the
+    slice phase's model, and what each worker process of the net phase
+    builds (it imports this builder as chip_smoke:tier_model)."""
+    from singa_tpu_torch.models import Llama, LlamaConfig
+    gen = torch.Generator(device.torch_device.type).manual_seed(seed)
+    return Llama(LlamaConfig.base(), device=device, generator=gen)
+
+
 def phase_slice():
     from singa_tpu_torch import device
-    from singa_tpu_torch.models import Llama, LlamaConfig
     from singa_tpu_torch.models import _generate
     from singa_tpu_torch.ops import flash_attention as fa
 
     dev = device.create_device("cuda")
-    cfg = LlamaConfig.base()
-    m, build_s = _timed(lambda: Llama(
-        cfg, device=dev, generator=torch.Generator("cuda").manual_seed(0)))
+    m, build_s = _timed(lambda: tier_model(dev))
+    cfg = m.cfg
     prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, P))
     kw = dict(max_new_tokens=N, param_dtype=torch.bfloat16)
     S = P + N
@@ -946,7 +986,9 @@ def phase_serve(m):
         "prompts": prompts, "streams": streams, "wave": expect,
         "plain_wave": plain, "decode_tick_ms": tick_ms,
         "decode_tick_device_ms": tick_device_ms,
-        "arena_bytes": arena_bytes, "peak_memory_bytes": peak}
+        "arena_bytes": arena_bytes, "peak_memory_bytes": peak,
+        "tokens_per_s": n_tok / secs,
+        "ttft_ms": {"p50": ttft["p50"], "p99": ttft["p99"]}}
 
 
 def vs_plain(streams, expect):
@@ -1323,6 +1365,356 @@ def phase_mem(m, ctx):
     check(launches == zero, f"the flash kernels ran {launches} times on "
           f"the mem path")
     return launches
+
+
+class handoff_log:
+    """While open, wrap the handoff's extract and inject
+    (singa_tpu_torch.serve.disagg.handoff, which the engine's methods
+    call): per extract its host ms, the package's bytes and blocks and
+    whether it carries the draft's KV; per inject its host ms, its
+    destination engine and the blocks that engine mapped copy-free."""
+
+    def __enter__(self):
+        from singa_tpu_torch.serve.disagg import handoff
+        self.mod, self.saved = handoff, (handoff.extract, handoff.inject)
+        self.extracts, self.injects = [], []
+        extract, inject = self.saved
+
+        def logged_extract(engine, slot):
+            t = time.perf_counter()
+            pkg = extract(engine, slot)
+            self.extracts.append({
+                "host_ms": (time.perf_counter() - t) * 1e3,
+                "bytes": sum(x.numel() * x.element_size()
+                             for kv in pkg.kv + (pkg.draft_kv or [])
+                             for x in kv),
+                "blocks": pkg.n_blocks, "draft": pkg.draft_kv is not None})
+            return pkg
+
+        def logged_inject(engine, pkg):
+            shared, _ = handoff._probe(engine, pkg)
+            t = time.perf_counter()
+            ok = inject(engine, pkg)
+            if ok:
+                self.injects.append({
+                    "host_ms": (time.perf_counter() - t) * 1e3,
+                    "engine": engine, "shared": shared})
+            return ok
+        handoff.extract, handoff.inject = logged_extract, logged_inject
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.extract, self.mod.inject = self.saved
+
+
+def _summary(xs):
+    xs = np.asarray(xs, dtype=np.float64)
+    return {"n": int(xs.size), "min": float(xs.min()),
+            "p50": float(np.median(xs)), "max": float(xs.max())}
+
+
+def _fresh_metrics(workers):
+    """Every worker's serve metrics started afresh (after a warm-up)."""
+    from singa_tpu_torch.serve.metrics import ServeMetrics
+    for w in workers:
+        w.engine.metrics = ServeMetrics(flight=w.engine.flight)
+
+
+def tier_wave(tier, wave, expect, plan=None, kill_after=None):
+    """`wave` through a tier (under a fault plan, or with the first
+    decode worker that holds requests killed after `kill_after` rounds):
+    whether its streams equal `expect`, its seconds, and what the
+    tier's counters moved by."""
+    from singa_tpu_torch import faults
+    m = tier.metrics
+    before = (m.handoffs, m.reroutes, m.worker_deaths)
+    with faults.active(plan) if plan is not None else nullcontext(), \
+            warnings.catch_warnings():
+        # a re-route or a death warns; the counters tell it
+        warnings.simplefilter("ignore")
+        hs = [tier.submit(p, max_new_tokens=SERVE_NEW) for p in wave]
+        t0 = time.perf_counter()
+        if kill_after is not None:
+            for _ in range(kill_after):
+                tier.step()
+            victim = next(w for w in tier.decode
+                          if w.alive and w.engine.running_items())
+            tier.kill_worker(victim.name, "chip_smoke: mid-flight")
+        tier.run_until_idle()
+        secs = time.perf_counter() - t0
+    got = [list(map(int, h.tokens)) for h in hs]
+    out = {**_differ(got, expect), "seconds": secs}
+    for key, b in zip(("handoffs", "reroutes", "worker_deaths"), before):
+        out[key] = getattr(m, key) - b
+    if plan is not None:
+        out["fired"] = plan.fire_count()
+    return out
+
+
+def _worker_bytes(eng):
+    """A worker's arena bytes and its captured programs' pool bytes."""
+    progs = {p.name: p.graph.pool_bytes
+             for p in (eng._prefill, eng._decode, eng._verify, eng._handoff)
+             if p is not None and p.graph is not None
+             and p.graph.graph is not None}
+    return {"arena": sum(t.numel() * t.element_size()
+                         for kv in eng.pool.caches + (eng.pool.draft_caches
+                                                      or [])
+                         for t in kv),
+            "graph_pools": progs}
+
+
+def phase_disagg(m, ctx):
+    """The disaggregated tier in one process over `m`: DISAGG_POOLS
+    workers of the serve phase's engine behind a Router, from one warmed
+    template's weight copy.  The serve phase's traffic, held bitwise to
+    its streams; the first wave through a handoff fault, a decode worker
+    killed mid-flight and a self-speculative tier.  Returns the flash
+    launches counted on the card over the phase."""
+    from singa_tpu_torch import faults
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.serve import Router, build_pools
+
+    t0 = time.perf_counter()
+    zero = dict.fromkeys(fa.KERNELS, 0)
+    prompts, streams = ctx["prompts"], ctx["streams"]
+    wave = prompts[:SERVE_SLOTS]
+    fa.reset_device_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kw = dict(num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+              block_size=SERVE_BLOCK, share_prefix=True,
+              param_dtype=torch.bfloat16, backoff_base=0.001,
+              backoff_max=0.01)
+    template, _ = serve_engine(m)
+    pw, dw = build_pools(m, *DISAGG_POOLS, template=template, **kw)
+    tier = Router(pw, dw)
+    workers = pw + dw
+    # warm-up: two requests of two chunks at once, one handed to each
+    # decode worker; a second pair captures the handoff program
+    warm = np.random.RandomState(99).randint(0, m.cfg.vocab_size,
+                                             SERVE_BLOCK + 8)
+    for _ in range(2):
+        for _ in range(len(dw)):
+            tier.submit(warm, max_new_tokens=3)
+        tier.run_until_idle()
+    counts_warm = {w.name: w.engine.compiled_counts() for w in workers}
+    _fresh_metrics(workers)
+    tier.metrics = type(tier.metrics)(tier)
+    with handoff_log() as log:
+        hs = [tier.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        _, secs = _timed(tier.run_until_idle)
+    got = [list(map(int, h.tokens)) for h in hs]
+    snap = tier.metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = {w.name: w.engine.compiled_counts() for w in workers}
+    handoff_counts = {w.name: w.engine.handoff_compiled_count()
+                      for w in workers}
+    ptrs = {tuple(t.data_ptr() for t in e._params.values())
+            for e in [template] + [w.engine for w in workers]}
+    shared = {w.name: sum(i["shared"] for i in log.injects
+                          if i["engine"] is w.engine) for w in dw}
+    system = prompts[0][:SERVE_SYSTEM]         # prompt 0 shares it
+    n_system = sum(np.array_equal(p[:SERVE_SYSTEM], system)
+                   for p in prompts)
+    # the handoff's parts: the gather program (a replay at the last
+    # slot) and the package's copy of a median package's positions, by
+    # events; the inject by the host's clock, as it ran
+    src, src_name = pw[0].engine, pw[0].name
+    n = int(np.median([e["blocks"] for e in log.extracts])) * SERVE_BLOCK
+    gather_ms = cuda_time_ms(src._handoff, iters=20, warmup=2)
+    copy_ms = cuda_time_ms(lambda: [(k[:, :n].clone(), v[:, :n].clone())
+                                    for k, v in src._hout],
+                           iters=20, warmup=2)
+    pool_bytes = {w.name: _worker_bytes(w.engine) for w in workers}
+
+    # the first wave again: through a handoff fault, and with a decode
+    # worker killed mid-flight (re-prefilled on the prefill worker)
+    fault = tier_wave(tier, wave, ctx["wave"], faults.FaultPlan(
+        [faults.FaultSpec("serve.handoff", "error", at=DISAGG_FAULT_AT)]))
+    kill = tier_wave(tier, wave, ctx["wave"], kill_after=TIER_KILL_AFTER)
+    tier.close()
+    template.close()
+    del tier, template, pw, dw, workers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a self-speculative tier: its packages carry the draft's KV
+    spec_tmpl, _ = serve_engine(m, draft_model=m, spec_k=SPEC_K)
+    spw, sdw = build_pools(m, 1, 1, template=spec_tmpl, draft_model=m,
+                           spec_k=SPEC_K, **kw)
+    stier = Router(spw, sdw)
+    with handoff_log() as slog:
+        spec = tier_wave(stier, wave, ctx["wave"])
+    spec_snap = stier.metrics.snapshot()
+    spec["accept_rate"] = spec_snap["accept_rate"]
+    spec["tokens_per_dispatch"] = spec_snap["tokens_per_dispatch"]
+    spec["packages_with_draft_kv"] = sum(e["draft"] for e in slog.extracts)
+    spec["spec_compiled_counts"] = {
+        w.name: w.engine.spec_compiled_counts() for w in spw + sdw}
+    stier.close()
+    spec_tmpl.close()
+    launches = fa.device_launches()
+
+    n_tok = sum(len(t) for t in got)
+    result = {
+        "phase": "disagg", "config": "LlamaConfig.base()",
+        "param_dtype": "bfloat16", "pools": {"prefill": DISAGG_POOLS[0],
+                                             "decode": DISAGG_POOLS[1]},
+        "num_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+        "block_size": SERVE_BLOCK, "requests": len(prompts),
+        "max_new_tokens": SERVE_NEW, **_differ(got, streams),
+        "compiled_counts": {"after_warm_up": counts_warm,
+                            "after_traffic": counts},
+        "handoff_compiled_counts": handoff_counts,
+        "one_weight_copy": len(ptrs) == 1,
+        "handoffs": snap["handoffs"],
+        "system_prompt_requests": n_system,
+        "blocks_mapped_copy_free": shared,
+        "seconds": secs, "tokens": n_tok, "tokens_per_s": n_tok / secs,
+        "ttft_ms": {"p50": snap["ttft_ms"]["p50"],
+                    "p99": snap["ttft_ms"]["p99"]},
+        "serve_phase": {"tokens_per_s": ctx["tokens_per_s"],
+                        "ttft_ms": ctx["ttft_ms"]},
+        "handoff": {
+            "gather_program_ms": gather_ms,
+            "package_copy_ms": copy_ms, "package_copy_positions": n,
+            "extract_host_ms": _summary([e["host_ms"]
+                                         for e in log.extracts]),
+            "inject_host_ms": _summary([i["host_ms"] for i in log.injects]),
+            "wait_ms": snap["handoff_ms"],
+            "package_bytes": _summary([e["bytes"] for e in log.extracts]),
+            "package_blocks": _summary([e["blocks"]
+                                        for e in log.extracts])},
+        "pool_bytes": pool_bytes, "peak_memory_bytes": peak,
+        "wave": {"requests": len(wave), "handoff_fault": fault,
+                 "decode_worker_killed": kill, "self_speculation": spec},
+        "flash_launches": launches,
+        "phase_seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    check(got == streams, f"the tier's streams differ from the serve "
+          f"phase's: {_differ(got, streams)}")
+    check(all(a <= 1 and b <= 1 for a, b in counts.values()),
+          f"a worker made a program twice: {counts}")
+    check(handoff_counts[src_name] == 1,
+          f"handoff programs made: {handoff_counts}")
+    check(len(ptrs) == 1, "the workers serve from more than one weight copy")
+    check(snap["handoffs"] == len(prompts),
+          f"{snap['handoffs']} handoffs for {len(prompts)} requests")
+    check(sum(shared.values()) >= (n_system - len(shared))
+          * (SERVE_SYSTEM // SERVE_BLOCK),
+          f"system-prompt blocks mapped copy-free: {shared}")
+    check(fault["streams_equal"] and fault["reroutes"] == 1
+          and fault["fired"] == 1, f"handoff fault run: {fault}")
+    check(kill["streams_equal"] and kill["worker_deaths"] == 1,
+          f"decode worker kill run: {kill}")
+    check(spec["streams_equal"]
+          and spec["packages_with_draft_kv"] == len(wave),
+          f"self-speculative tier: {spec}")
+    check(launches == zero, f"the flash kernels ran {launches} times on "
+          f"the disagg path")
+    return launches
+
+
+def _settle_heal(tier, deadline_s):
+    """Step `tier` until its respawned workers are adopted and every
+    pool is back at its target: the seconds it took."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < deadline_s:
+        tier.step()
+        hs = tier.heal_state()
+        if (not any(hs["spawning"].values())
+                and not any(hs["staged"].values())
+                and all(hs["alive"][r] >= hs["target"][r]
+                        for r in ("prefill", "decode"))):
+            return time.monotonic() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"the process tier did not heal: "
+                         f"{tier.heal_state()}")
+
+
+def phase_net(ctx):
+    """The process tier: NET_POOLS worker processes on the card, each
+    building base() from chip_smoke:tier_model, behind a ProcRouter.
+    The serve phase's first wave, cold and warm, through a torn frame
+    and with a decode worker killed mid-flight; each bitwise."""
+    from singa_tpu_torch import faults
+    from singa_tpu_torch.serve import ProcRouter, build_proc_pools
+    from singa_tpu_torch.serve.net import supervisor
+
+    t0 = time.perf_counter()
+    wave, expect = ctx["prompts"][:SERVE_SLOTS], ctx["wave"]
+    (pw, dw), spawn_s = _timed(lambda: build_proc_pools(
+        "chip_smoke:tier_model", *NET_POOLS, num_slots=SERVE_SLOTS,
+        max_len=SERVE_MAX_LEN, block_size=SERVE_BLOCK, share_prefix=True,
+        param_dtype=torch.bfloat16, device="cuda",
+        spawn_timeout_s=NET_SPAWN_TIMEOUT_S, backoff_base=0.001,
+        backoff_max=0.01))
+    tier = ProcRouter(pw, dw)
+    try:
+        ready = {w.name: w.ready_ms / 1e3 for w in tier.workers()}
+        cold = tier_wave(tier, wave, expect)
+        warm_ticks = {w.name: w.warm_tick_s for w in tier.workers()}
+        warm = tier_wave(tier, wave, expect)
+        stats = tier.transport_stats()
+        wire = {"handoffs": tier.metrics.handoffs,
+                "wire_bytes": tier.metrics.wire_bytes,
+                "bytes_per_package": (tier.metrics.wire_bytes
+                                      / max(1, tier.metrics.handoffs)),
+                "ser_deser_ms": tier.metrics._ser.summary(),
+                "wait_ms": tier.metrics.handoff_summary()}
+        torn = tier_wave(tier, wave, expect, faults.FaultPlan.parse(
+            "serve.transport=torn_frame:at=2"))
+        torn["torn_frames"] = tier.metrics.torn_frames
+        hs = [tier.submit(p, max_new_tokens=SERVE_NEW) for p in wave]
+        for _ in range(TIER_KILL_AFTER):
+            tier.step()
+        victim = tier.decode[0]
+        victim.proc.kill()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, replay_s = _timed(tier.run_until_idle)
+            heal_s = _settle_heal(tier, NET_SPAWN_TIMEOUT_S)
+        kill = {**_differ([list(map(int, h.tokens)) for h in hs], expect),
+                "seconds": replay_s, "heal_seconds": heal_s,
+                "worker_deaths": tier.metrics.worker_deaths,
+                "respawns": tier.metrics.respawns,
+                "decode_alive": tier.heal_state()["alive"]["decode"],
+                "respawned_ready_s": {w.name: w.ready_ms / 1e3
+                                      for w in tier.decode}}
+    finally:
+        tier.close()
+    n_tok = len(wave) * SERVE_NEW
+    result = {
+        "phase": "net", "config": "LlamaConfig.base()",
+        "param_dtype": "bfloat16", "builder": "chip_smoke:tier_model",
+        "pools": {"prefill": NET_POOLS[0], "decode": NET_POOLS[1]},
+        "requests": len(wave), "max_new_tokens": SERVE_NEW,
+        "spawn_seconds": spawn_s, "ready_seconds": ready,
+        "warm_up_tick_seconds": warm_ticks,
+        "compile_timeout_s": supervisor._COMPILE_TIMEOUT_S,
+        "cold": cold, "warm": warm,
+        "tokens_per_s": n_tok / warm["seconds"],
+        "in_process_tokens_per_s": n_tok / ctx["plain_wave"]["seconds"],
+        "wire": wire, "transport": stats, "torn_frame": torn,
+        "decode_worker_killed": kill,
+        "processes_left": sum(p.poll() is None for p in tier.fabric.procs),
+        "phase_seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    check(cold["streams_equal"] and warm["streams_equal"],
+          f"the process tier's streams differ: cold {cold}, warm {warm}")
+    check(all(s < supervisor._COMPILE_TIMEOUT_S
+              for s in warm_ticks.values()),
+          f"a warm-up tick outran the compile budget: {warm_ticks}")
+    check(torn["streams_equal"] and torn["torn_frames"] == 1
+          and torn["reroutes"] >= 1, f"torn frame run: {torn}")
+    check(kill["streams_equal"] and kill["worker_deaths"] == 1
+          and kill["respawns"] == 1 and kill["decode_alive"] == NET_POOLS[1],
+          f"killed worker run: {kill}")
+    check(result["processes_left"] == 0, "a worker process outlived the "
+          "tier")
 
 
 @contextmanager
@@ -1901,6 +2293,8 @@ def main():
     spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
                                                serve_ctx)
     mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
+    disagg_launches = timed_phase("disagg", phase_disagg, m, serve_ctx)
+    timed_phase("net", phase_net, serve_ctx)
     beam_launches = timed_phase("beam", phase_beam, m)
     del m, serve_ctx
     gc.collect()
@@ -1925,6 +2319,7 @@ def main():
         by_path["spec"] = {"launches": spec_launches[r["name"]],
                            "requests": spec_requests}
         by_path["mem"] = {"launches": mem_launches[r["name"]]}
+        by_path["disagg"] = {"launches": disagg_launches[r["name"]]}
         if r["name"] == "flash_fwd":
             by_path["beam"] = {"launches": beam_launches, "calls": 1,
                                "per_call": beam_launches}

@@ -31,12 +31,12 @@ import itertools
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import schema
 
 __all__ = ["RunRecord", "new_entry", "new_run_id", "is_onchip_session_doc",
-           "DEFAULT_STORE"]
+           "device_kind", "DEFAULT_STORE"]
 
 #: store location relative to a repo root: the port's own, never the
 #: JAX package's ``runs/records.jsonl``
@@ -57,6 +57,16 @@ def new_run_id(prefix: str = "run") -> str:
     distinct — see ``_RUN_SEQ``)."""
     return (f"{prefix}-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
             f"-{next(_RUN_SEQ)}")
+
+
+def device_kind(device) -> Tuple[str, str]:
+    """(platform, device kind) of a torch device, as an entry records
+    them: ``"cuda"`` and the card's name, or ``"cpu"`` twice."""
+    import torch     # the obs package imports without torch otherwise
+    device = torch.device(device)
+    if device.type == "cuda":
+        return "cuda", torch.cuda.get_device_name(device)
+    return device.type, device.type
 
 
 def new_entry(kind: str, platform: str, smoke: bool, device: str,

@@ -29,19 +29,36 @@ ported from ``singa_tpu/serve``.
   captured restore program.
 * :mod:`~singa_tpu_torch.serve.program` — :class:`Program`, one body
   over static tensors, eager once, then captured and replayed.
-
-Disaggregated serving (``programs=``, the handoff) and the
-multi-process tier are later slices.
+* :mod:`~singa_tpu_torch.serve.disagg` — disaggregated serving: N
+  prefill + M decode engines behind an SLO-aware :class:`Router`,
+  serving from one weight copy (:class:`SharedPrograms`), finished
+  prefills handed off as KV blocks through each engine's handoff
+  program; worker death re-routes by re-prefill, streams bitwise.
+* :mod:`~singa_tpu_torch.serve.net` — the same tier with each worker a
+  ``ServeEngine`` in its own OS process behind a framed local-socket
+  RPC, KV handoff over a versioned digest-checked wire codec (a torn
+  transfer is never injected — it replays), and elastic grow/shrink
+  and self-healing of either pool (:class:`ProcRouter` /
+  :func:`build_proc_pools` / :class:`ElasticPolicy`).
 """
 
-from .engine import SPEC_K_FALLBACK, EngineClosed, ServeEngine
+from .disagg import (QuotaExceeded, Router, SLOClass, Worker,
+                     build_pools)
+from .engine import (SPEC_K_FALLBACK, EngineClosed, ServeEngine,
+                     SharedPrograms)
 from .mem import SpillStore
+from .net import (ElasticPolicy, ProcHandle, ProcRouter, WorkerDied,
+                  WorkerProc, build_proc_pools)
 from .scheduler import (EVICTED, FAILED, FINISHED, QUEUED, RUNNING,
                         QueueFull, RequestHandle, Scheduler)
 from .slots import BlockPool
 from .spec import VerifyDispatchFailed
 
 __all__ = ["ServeEngine", "BlockPool", "Scheduler", "RequestHandle",
-           "QueueFull", "EngineClosed", "SpillStore",
+           "QueueFull", "EngineClosed", "SharedPrograms", "SpillStore",
            "VerifyDispatchFailed", "SPEC_K_FALLBACK",
+           "Router", "SLOClass", "QuotaExceeded", "Worker",
+           "build_pools",
+           "ProcRouter", "ProcHandle", "WorkerProc", "WorkerDied",
+           "build_proc_pools", "ElasticPolicy",
            "QUEUED", "RUNNING", "FINISHED", "EVICTED", "FAILED"]

@@ -109,11 +109,19 @@ evicted prefix blocks in pinned host memory and restores them on a
 re-hit through the restore program.  The spill store outlives
 recovery.
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-slice: program sharing across engines (``programs=``) and the
-disaggregated handoff (``extract_handoff``/``inject_handoff``/
-``can_accept_handoff``).  The reference's ``lower_programs`` reads XLA
-lowerings and has no counterpart.
+Disaggregated serving: the engine is also the worker unit of
+:mod:`singa_tpu_torch.serve.disagg` — a prefill pool ticks with
+``step(decode=False)`` and hands finished prefills to a decode pool
+through :meth:`extract_handoff`/:meth:`inject_handoff`.  The KV leaves
+through the handoff program, one more captured program, which gathers
+one slot's dense view into a static buffer (made at the first handoff);
+refcounts and prefix-cache keys transfer with the blocks.  Same-config
+workers share one :class:`SharedPrograms` (``programs=``): the served
+weight copy and the model's step closures.  A CUDA graph reads its own
+engine's static tensors by address, so each worker still captures its
+own programs: a tier costs one weight copy, and one capture per worker
+and program (the reference's costs one compile).  The reference's
+``lower_programs`` reads XLA lowerings and has no counterpart.
 """
 
 from __future__ import annotations
@@ -123,7 +131,7 @@ import threading
 import time
 import warnings
 from contextlib import nullcontext
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -148,25 +156,51 @@ from .scheduler import (EVICTED, FAILED, FINISHED, QUEUED, RUNNING,
                         eta_first_token)
 from .slots import BlockPool
 
-__all__ = ["ServeEngine", "QueueFull", "EngineClosed", "SPEC_K_FALLBACK"]
+__all__ = ["ServeEngine", "QueueFull", "EngineClosed", "SharedPrograms",
+           "SPEC_K_FALLBACK"]
 
 #: distinguishes engines built in the same second+pid (run_id suffix)
 _ENGINE_SEQ = itertools.count()
-
-DISAGG_SLICE = "the slice that ports program sharing and serve/disagg"
 
 #: the verify window a draft gets when ``spec_k`` is None (the
 #: reference's ``autotune.table.SPEC_K_FALLBACK``; the port has no
 #: best-config table yet, so it always takes this)
 SPEC_K_FALLBACK = 3
 
-def _not_ported(name: str, where: str) -> None:
-    raise NotImplementedError(
-        f"{name} is not ported yet; it comes with {where}")
-
 
 class EngineClosed(RuntimeError):
     """submit()/step() refused: the engine is draining or closed."""
+
+
+class SharedPrograms(NamedTuple):
+    """What one engine lends another (``ServeEngine(...,
+    programs=template.programs())``) so that a disaggregated worker pool
+    serves from ONE weight copy: the served weights (the masters or the
+    one ``param_dtype`` copy, and the draft's) and the model's step
+    closures.  Each engine still captures its own programs — a CUDA
+    graph reads its engine's arena, tables and token vector by address —
+    so every worker's :meth:`ServeEngine.compiled_counts` stays at
+    (1, 1).  Sharing requires the SAME model and draft objects, the same
+    block size, ``spec_k``, ``param_dtype`` and arena storage formats:
+    what the closures and the weight copy were made for."""
+
+    model_ref: object
+    block_size: int
+    params: dict
+    resume: object
+    decode: object
+    #: speculative decoding: the draft the closures capture (None for a
+    #: plain engine), its weights, the verify window and the spec
+    #: prefill / verify closures
+    draft_ref: object = None
+    dparams: Optional[dict] = None
+    spec_k: int = 0
+    spec_prefill: object = None
+    verify: object = None
+    #: arena storage formats (None = full precision, "int8")
+    kv_dtype: object = None
+    draft_kv_dtype: object = None
+    param_dtype: object = None
 
 
 class ServeEngine:
@@ -194,7 +228,9 @@ class ServeEngine:
     speculative engine (``spec_k=None`` with a draft takes
     :data:`SPEC_K_FALLBACK`); ``kv_dtype``/``draft_kv_dtype="int8"``
     quantize the target / draft arena; ``spill_blocks`` sizes the host
-    spill store.
+    spill store; ``programs`` (another engine's :meth:`programs`)
+    serves from that engine's weight copy, as the workers of a
+    disaggregated tier do.
 
     Decoding is greedy — the serving counterpart of
     ``generate(temperature=0)``.
@@ -220,8 +256,6 @@ class ServeEngine:
                  kv_dtype=None, draft_kv_dtype=None,
                  spill_blocks: Optional[int] = None,
                  _sleep: Callable[[float], None] = time.sleep):
-        if programs is not None:
-            _not_ported("programs= (SharedPrograms)", DISAGG_SLICE)
         self.model = model
         # speculative decoding (serve/spec.py): a draft turns the
         # per-tick decode into a verify-k round.  spec_k=None with a
@@ -283,37 +317,27 @@ class ServeEngine:
         # plain engine, up to spec_k + 1 under speculation; the shed eta
         # divides by it (scheduler.eta_first_token)
         self._tpt_ewma: Optional[float] = None
-
-        # weights snapshotted once: the masters, or one copy cast to
-        # param_dtype (decode is weight-read bound)
-        masters = {n: t.detach() for n, t in model.get_params().items()}
-        if not masters:
-            raise ValueError("model has no parameters to serve")
+        # admission-cadence hint from an external tier loop (the
+        # disaggregated Router pushes its measured round time here): the
+        # shed eta uses the slower of this and the engine's own tick
+        self.tick_hint_s: Optional[float] = None
         self._device = model_device(model).torch_device
-        self._params = self._cast(masters, param_dtype)
-        # the draft's weights snapshotted the same way (decode AND
-        # verify are weight-read bound); self-speculation reads the
-        # target's copy
-        self._dparams = None
-        if draft_model is model:
-            self._dparams = self._params
-        elif draft_model is not None:
-            dmasters = {n: t.detach()
-                        for n, t in draft_model.get_params().items()}
-            if not dmasters:
-                raise ValueError("draft model has no parameters to serve")
-            self._dparams = self._cast(dmasters, param_dtype)
-        # the arena takes the dtype the model's caches take under the
-        # served weights
-        with _bound(model, self._params):
-            arena_dtype = model.init_caches(1, 1)[0][0].dtype
-        # the memory hierarchy (serve/mem.py): arena storage formats and
-        # the host spill store, which is content-addressed (chain keys)
-        # and so outlives arena recovery
         self._kv_dtype = serve_mem.normalize_kv_dtype(kv_dtype)
         self._draft_kv_dtype = (self._kv_dtype if draft_kv_dtype is None
                                 else serve_mem.normalize_kv_dtype(
                                     draft_kv_dtype))
+        self._param_dtype = param_dtype
+        if programs is not None:
+            self._check_shared(programs, block_size)
+            self._params, self._dparams = programs.params, programs.dparams
+        else:
+            self._snapshot_weights(param_dtype)
+        # the arena takes the dtype the model's caches take under the
+        # served weights
+        with _bound(model, self._params):
+            arena_dtype = model.init_caches(1, 1)[0][0].dtype
+        # the memory hierarchy (serve/mem.py): the host spill store is
+        # content-addressed (chain keys) and so outlives arena recovery
         if spill_blocks is not None and spill_blocks < 1:
             raise ValueError(
                 f"spill_blocks must be >= 1 (or None to disable the "
@@ -337,24 +361,93 @@ class ServeEngine:
         # the chunk's inputs, one static vector written by one copy:
         # ids (bs), then the offset, the last valid index and the slot
         self._chunk = torch.zeros((bs + 3,), dtype=torch.int64, device=dev)
-        self._resume = resume_step(model)
-        self._dec = decode_step(model)
+        if programs is not None:
+            self._resume, self._dec = programs.resume, programs.decode
+            self._spec_prefill = programs.spec_prefill
+            self._spec_verify = programs.verify
+        else:
+            self._resume = resume_step(model)
+            self._dec = decode_step(model)
+            self._spec_prefill = self._spec_verify = None
+            if draft_model is not None:
+                self._spec_prefill = spec.make_spec_prefill(
+                    model, draft_model, bs)
+                self._spec_verify = spec.make_verify(model, draft_model,
+                                                     self.spec_k, bs)
         self._prefill = Program("prefill_chunk", self._prefill_body, dev)
         # on a spec engine the plain decode is the serve.verify
         # fallback: its program is made at its first dispatch
         self._decode = Program("decode", self._decode_body, dev)
-        self._verify = self._spec_prefill = self._spec_verify = None
+        self._verify = None
         if draft_model is not None:
             # the spec prefill writes both arenas; the verify round's
             # outputs: per-slot accepted counts (column 0) and the
             # target's k + 1 picks, one static tensor fetched at once
-            self._spec_prefill = spec.make_spec_prefill(model, draft_model,
-                                                        bs)
-            self._spec_verify = spec.make_verify(model, draft_model,
-                                                 self.spec_k, bs)
             self._spec_out = torch.zeros((num_slots, self.spec_k + 2),
                                          dtype=torch.int64, device=dev)
             self._verify = Program("verify", self._verify_body, dev)
+        # the handoff program (disaggregated tier): reads the slot in
+        # `_hslot` and writes its dense per-layer views into `_hout`,
+        # static buffers made at the first handoff (only a prefill
+        # worker ever extracts)
+        self._hslot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._hout: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+        self._handoff = Program("handoff_gather", self._handoff_body, dev)
+
+    def _snapshot_weights(self, param_dtype) -> None:
+        """The served weights, snapshotted once: the masters, or one
+        copy cast to ``param_dtype`` (decode is weight-read bound); the
+        draft's the same way, self-speculation reading the target's."""
+        masters = {n: t.detach() for n, t in self.model.get_params().items()}
+        if not masters:
+            raise ValueError("model has no parameters to serve")
+        self._params = self._cast(masters, param_dtype)
+        self._dparams = None
+        if self.draft_model is self.model:
+            self._dparams = self._params
+        elif self.draft_model is not None:
+            dmasters = {n: t.detach()
+                        for n, t in self.draft_model.get_params().items()}
+            if not dmasters:
+                raise ValueError("draft model has no parameters to serve")
+            self._dparams = self._cast(dmasters, param_dtype)
+
+    def _check_shared(self, programs: SharedPrograms,
+                      block_size: int) -> None:
+        """Refuse a ``programs=`` bundle made for another model, draft,
+        block size, verify window, weight dtype or arena format."""
+        if programs.model_ref is not self.model:
+            raise ValueError(
+                "programs= sharing requires the SAME model object "
+                "(the step closures capture its cached forward)")
+        if programs.block_size != block_size:
+            raise ValueError(
+                f"programs= sharing requires matching block_size "
+                f"(template {programs.block_size}, this engine "
+                f"{block_size})")
+        if programs.draft_ref is not self.draft_model or \
+                programs.spec_k != self.spec_k:
+            raise ValueError(
+                "programs= sharing requires the SAME draft model "
+                "object and spec_k (the verify program's closures "
+                f"capture both; template spec_k={programs.spec_k}, "
+                f"this engine spec_k={self.spec_k})")
+        if programs.kv_dtype != self._kv_dtype or \
+                programs.draft_kv_dtype != self._draft_kv_dtype:
+            raise ValueError(
+                "programs= sharing requires matching arena storage "
+                "formats (template kv_dtype="
+                f"{programs.kv_dtype!r}/draft "
+                f"{programs.draft_kv_dtype!r}, this engine "
+                f"{self._kv_dtype!r}/{self._draft_kv_dtype!r}) — the "
+                "workers of one tier hand each other blocks of one "
+                "layout")
+        if programs.param_dtype != self._param_dtype:
+            raise ValueError(
+                f"programs= sharing requires matching param_dtype "
+                f"(template {programs.param_dtype}, this engine "
+                f"{self._param_dtype}): the shared weight copy was cast "
+                f"once, for the template")
 
     @staticmethod
     def _cast(masters, param_dtype):
@@ -413,6 +506,19 @@ class ServeEngine:
                                         dv[rows, posc])
             pos.copy_(torch.where(active, pos + 1, pos))
 
+    def _handoff_body(self) -> None:
+        """One slot's dense per-layer views (target, then draft),
+        gathered through its block-table row into the static ``_hout``
+        buffers.  Reads the arena only: a failed handoff leaves the
+        source valid for a re-route."""
+        pool = self.pool
+        row = pool.tables.index_select(0, self._hslot)
+        caches = pool.caches + (pool.draft_caches or [])
+        for (ck, cv), (ok, ov) in zip(caches, self._hout):
+            dk, dv = kv_ops.gather_block_kv(ck, cv, row)
+            ok.copy_(dk)
+            ov.copy_(dv)
+
     def _verify_body(self) -> None:
         """One speculative round over every slot (``spec.make_verify``):
         writes both arenas' windows, the token vector and the positions
@@ -444,31 +550,78 @@ class ServeEngine:
         across preemption and arena recovery."""
         return (self._prefill.count, self._decode.count)
 
+    def handoff_compiled_count(self) -> int:
+        """Programs made for the handoff gather: 0 until this engine's
+        first handoff, 1 after — never more (fixed shapes)."""
+        return self._handoff.count
+
     def spec_compiled_counts(self):
         """(prefill, decode, verify, handoff) programs made: the fixed
         program set of a speculative engine.  ``decode`` is 0 until a
-        ``serve.verify`` fault forces a plain-decode fallback tick;
-        ``handoff`` is 0 until the disaggregated slice ports it; no
-        entry ever exceeds 1."""
+        ``serve.verify`` fault forces a plain-decode fallback tick,
+        ``handoff`` is 0 outside a disaggregated tier; no entry ever
+        exceeds 1."""
         return (self._prefill.count, self._decode.count,
-                self._verify.count if self._verify is not None else 0, 0)
+                self._verify.count if self._verify is not None else 0,
+                self._handoff.count)
 
-    def programs(self):
-        _not_ported("programs() (SharedPrograms)", DISAGG_SLICE)
-
-    def can_accept_handoff(self, pkg) -> bool:
-        _not_ported("can_accept_handoff", DISAGG_SLICE)
-
-    def extract_handoff(self, slot: int):
-        _not_ported("extract_handoff", DISAGG_SLICE)
-
-    def inject_handoff(self, pkg) -> bool:
-        _not_ported("inject_handoff", DISAGG_SLICE)
+    def programs(self) -> SharedPrograms:
+        """What this engine lends another same-model, same-block-size
+        engine through ``programs=`` — see :class:`SharedPrograms`."""
+        return SharedPrograms(
+            model_ref=self.model, block_size=self.pool.block_size,
+            params=self._params, resume=self._resume, decode=self._dec,
+            draft_ref=self.draft_model, dparams=self._dparams,
+            spec_k=self.spec_k, spec_prefill=self._spec_prefill,
+            verify=self._spec_verify, kv_dtype=self._kv_dtype,
+            draft_kv_dtype=self._draft_kv_dtype,
+            param_dtype=self._param_dtype)
 
     @property
     def pending(self) -> int:
         """Requests still in flight (queued + running)."""
         return self.sched.depth + len(self._running)
+
+    # -- disaggregated-tier hooks (serve/disagg) ---------------------------
+    def running_items(self) -> List[Tuple[int, Request]]:
+        """(slot, request) pairs occupying slots, in slot order: what a
+        prefill worker has ready to hand off (a snapshot: handing off
+        mutates the running map)."""
+        return sorted(self._running.items())
+
+    def withdraw(self, slot: int) -> Request:
+        """Remove a RUNNING request without finishing it: its slot and
+        blocks are released and it goes back to QUEUED with its prompt
+        and tokens so far — the router's re-route primitive (greedy
+        replay elsewhere reproduces the stream, as after preemption)."""
+        req = self._running.pop(slot)
+        self.pool.release(slot)
+        req.slot = None
+        req.state = QUEUED
+        return req
+
+    def can_accept_handoff(self, pkg) -> bool:
+        """Whether :meth:`inject_handoff` could take ``pkg`` now (a free
+        slot and coverable blocks, resident shared prefix counted);
+        side-effect free.  See ``serve/disagg/handoff.py``."""
+        from .disagg import handoff
+        return handoff.can_accept(self, pkg)
+
+    def extract_handoff(self, slot: int):
+        """Pull a finished prefill out of this engine as a
+        :class:`~singa_tpu_torch.serve.disagg.handoff.HandoffPackage`:
+        the slot's blocks are gathered by the handoff program and copied
+        into the package, then slot and blocks are released here."""
+        from .disagg import handoff
+        return handoff.extract(self, slot)
+
+    def inject_handoff(self, pkg) -> bool:
+        """Admit a prefilled request from another engine mid-stream:
+        blocks whose prefix chain keys are resident map copy-free, the
+        rest are written into freshly allocated blocks in place.  False
+        when capacity is lacking (the router parks the handoff)."""
+        from .disagg import handoff
+        return handoff.inject(self, pkg)
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt_ids, *, max_new_tokens: int,
@@ -551,12 +704,17 @@ class ServeEngine:
         return req.handle
 
     # -- the engine loop ---------------------------------------------------
-    def step(self) -> int:
+    def step(self, *, decode: bool = True) -> int:
         """One continuous-batching tick: recovery (if requested by the
         hang watchdog) → deadline eviction → overload shedding →
         admission (prefill queued requests into free slots while free
         blocks cover them) → block-table growth → one decode over all
-        active slots.  Returns the number of tokens delivered."""
+        active slots.  Returns the number of tokens delivered.
+
+        ``decode=False`` stops after admission — a prefill worker's
+        tick: freshly prefilled requests (their first token delivered)
+        stay in their slots for the router to hand off.  Deadline
+        eviction still applies to them."""
         if self._closed:
             raise EngineClosed("step() on a closed engine")
         with events.span("serve.step"):
@@ -600,7 +758,7 @@ class ServeEngine:
             #    arena; a decode (or a decode-time block allocation)
             #    that died past its retry budget escalates to an arena
             #    reset + re-prefill instead of crashing the engine
-            if self._running:
+            if self._running and decode:
                 try:
                     self._ensure_blocks()
                     if self._running:
@@ -628,13 +786,18 @@ class ServeEngine:
     def _eta_first_token(self, position: int) -> float:
         """Seconds until the queued request at ``position`` could
         plausibly deliver its first token (:func:`scheduler.
-        eta_first_token` at the measured tick EWMA and accepted tokens
-        per tick); 0.0 before any timing evidence exists."""
-        if self._tick_ewma is None:
+        eta_first_token` at the admission period — the slower of the
+        measured tick EWMA and the ``tick_hint_s`` a multi-pool router
+        pushes — and the accepted tokens per tick); 0.0 before any
+        timing evidence exists."""
+        tick = self._tick_ewma
+        if self.tick_hint_s:
+            tick = (self.tick_hint_s if tick is None
+                    else max(tick, self.tick_hint_s))
+        if tick is None:
             return 0.0
         return eta_first_token(position, free_slots=self.pool.free_count,
-                               wave_size=self.pool.num_slots,
-                               tick_s=self._tick_ewma,
+                               wave_size=self.pool.num_slots, tick_s=tick,
                                tokens_per_tick=self._tpt_ewma or 1.0)
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> None:
@@ -685,7 +848,8 @@ class ServeEngine:
         self._closed = True
         self.pool = None
         self._toks = self._chunk = self._spec_out = None
-        self._prefill = self._decode = self._verify = None
+        self._hslot = self._hout = None
+        self._prefill = self._decode = self._verify = self._handoff = None
 
     def __enter__(self) -> "ServeEngine":
         return self
@@ -1095,9 +1259,7 @@ class ServeEngine:
         if not self.record_store:
             return
         try:
-            platform = self._device.type
-            kind = (torch.cuda.get_device_name(self._device)
-                    if platform == "cuda" else platform)
+            platform, kind = obs_record.device_kind(self._device)
             payload = {"site": site, "fault": fault, "ref": ref,
                        "outcome": outcome, "retries": int(retries),
                        "engine_run": self.run_id}

@@ -85,11 +85,6 @@ def _chain_keys(tokens: np.ndarray, n_blocks: int, block_size: int
     return keys
 
 
-def _not_ported(name: str, where: str) -> None:
-    raise NotImplementedError(
-        f"{name} is not ported yet; it comes with {where}")
-
-
 class BlockPool:
     """Paged arena of ``num_blocks`` KV blocks behind ``num_slots``
     block-table rows.

@@ -9,7 +9,12 @@ PyTorch is installed:
 
 Whether a card is present is decided in the `cuda_device` fixture; the
 tests skip there without one.  The cases and limits are those of
-singa_tpu_torch/kernel_check.py, which chip_smoke.py uses too."""
+singa_tpu_torch/kernel_check.py, which chip_smoke.py uses too.
+
+Being free of jax, this module also holds `tier_model`, the model
+builder the worker processes of the port's process tier import by name
+(`tests.test_torch_cuda:tier_model`), on the CPU in
+tests/test_torch_net.py as on a card here."""
 
 import dataclasses
 
@@ -22,6 +27,20 @@ from singa_tpu_torch import kernel_check
 from singa_tpu_torch import opt as topt
 from singa_tpu_torch.models import Llama, LlamaConfig
 from singa_tpu_torch.ops import flash_attention as tfa
+
+
+def tier_model(device, seed=0, weights=None):
+    """`LlamaConfig.tiny()` on `device` with weights from `seed` — the
+    same in every process that calls it — or, with `weights`, read from
+    that .npz of the JAX package's parameter names
+    (`load_reference_params`)."""
+    from singa_tpu_torch.models import load_reference_params
+    gen = torch.Generator(device.torch_device.type).manual_seed(seed)
+    m = Llama(LlamaConfig.tiny(), device=device, generator=gen)
+    if weights is not None:
+        with np.load(weights) as npz:
+            load_reference_params(m, dict(npz))
+    return m
 
 
 @pytest.fixture
@@ -647,3 +666,97 @@ def test_captured_beam_equals_eager_bitwise(cuda_device):
                 np.testing.assert_array_equal(score, wscore)
         sess = next(s for k, s in m._gen_sessions.items() if k[0] == "beam")
         assert sess.graphs["tick"].graph is not None
+
+
+# -- the disaggregated tier ---------------------------------------------------
+
+def _tier_engines(m, n_decode=1):
+    """A bf16 prefill engine and `n_decode` decode engines sharing its
+    weight copy, each warmed (its programs captured) by one request."""
+    from singa_tpu_torch.serve import ServeEngine
+    kw = dict(block_size=16, param_dtype=torch.bfloat16)
+    src = ServeEngine(m, 4, 128, **kw)
+    dsts = [ServeEngine(m, 4, 128, programs=src.programs(), **kw)
+            for _ in range(n_decode)]
+    warm = _serve_prompts(1, m.cfg.vocab_size, seed=3)
+    for eng in [src] + dsts:
+        _serve(eng, warm)
+        _serve(eng, warm)
+    return src, dsts
+
+
+def _parked(src, prompts, n=12):
+    """Submit `prompts` to `src` and tick it without decode: each is
+    prefilled and parked with its first token.  Their handles."""
+    hs = [src.submit(p, max_new_tokens=n) for p in prompts]
+    src.step(decode=False)
+    assert len(src.running_items()) == len(prompts)
+    return hs
+
+
+@pytest.mark.cuda
+def test_two_extracted_packages_do_not_alias(cuda_device):
+    """Two packages extracted back to back (the handoff program's
+    static buffer written twice) own their KV: both injected afterwards
+    give the single engine's streams bitwise."""
+    m = _serve_models(cuda_device)[0]
+    prompts = _serve_prompts(2, m.cfg.vocab_size, seed=13)
+    src, (dst,) = _tier_engines(m)
+    want = _serve(src, prompts)
+    hs = _parked(src, prompts)
+    pkgs = [src.extract_handoff(s) for s, _ in src.running_items()]
+    assert src.handoff_compiled_count() == 1
+    assert src._handoff.graph.graph is not None       # captured at the 2nd
+    ptrs = {t.data_ptr() for p in pkgs for kv in p.kv for t in kv}
+    assert len(ptrs) == 2 * 2 * len(pkgs[0].kv)
+    assert not ptrs & {t.data_ptr() for kv in src._hout for t in kv}
+    assert all(dst.inject_handoff(p) for p in pkgs)
+    dst.run_until_idle()
+    assert [list(map(int, h.tokens)) for h in hs] == want
+
+
+@pytest.mark.cuda
+def test_inject_writes_the_arena_in_place(cuda_device):
+    """An inject leaves the addresses of the arena and the token vector
+    unchanged — the captured decode graph reads them — and the next
+    decode replay reads the injected blocks: the stream equals the
+    single engine's."""
+    m = _serve_models(cuda_device)[0]
+    prompts = _serve_prompts(1, m.cfg.vocab_size, seed=17)
+    src, (dst,) = _tier_engines(m)
+    want = _serve(src, prompts)
+    assert dst._decode.graph.graph is not None
+    ptrs = [t.data_ptr() for kv in dst.pool.caches for t in kv]
+    ptrs.append(dst._toks.data_ptr())
+    (h,) = _parked(src, prompts)
+    (slot, _), = src.running_items()
+    assert dst.inject_handoff(src.extract_handoff(slot))
+    assert [t.data_ptr() for kv in dst.pool.caches for t in kv] + \
+        [dst._toks.data_ptr()] == ptrs
+    dst.run_until_idle()
+    assert [list(map(int, h.tokens))] == want
+    assert dst.compiled_counts() == (1, 1)
+
+
+@pytest.mark.cuda
+def test_bf16_package_round_trips_through_the_codec(cuda_device):
+    """A bf16 package from the card encodes and decodes to the same
+    bits, and the decoded (host) package injected on the card gives the
+    single engine's stream."""
+    from singa_tpu_torch.serve.net import codec
+    m = _serve_models(cuda_device)[1]
+    prompts = _serve_prompts(1, m.cfg.vocab_size, seed=19)
+    src, (dst,) = _tier_engines(m)
+    want = _serve(src, prompts)
+    (h,) = _parked(src, prompts)
+    (slot, _), = src.running_items()
+    pkg = src.extract_handoff(slot)
+    back = codec.decode_package(codec.encode_package(pkg))
+    assert len(back.kv) == len(pkg.kv) == m.cfg.num_layers
+    for (k, v), (bk, bv) in zip(pkg.kv, back.kv):
+        assert k.dtype == bk.dtype == torch.bfloat16
+        assert torch.equal(k.cpu(), bk) and torch.equal(v.cpu(), bv)
+    back.req = pkg.req               # the handle the test holds
+    assert dst.inject_handoff(back)
+    dst.run_until_idle()
+    assert [list(map(int, h.tokens))] == want

@@ -198,8 +198,11 @@ def _forbidden_imports(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
+    """The package (serve/disagg and serve/net included), chip_smoke.py
+    and the module whose builder the process tier's workers import."""
     files = sorted((REPO / "singa_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    assert {"disagg", "net"} <= {f.parent.name for f in files}
     assert len(files) > 10
     found = {str(f.relative_to(REPO)): _forbidden_imports(f) for f in files}
     assert not {f: b for f, b in found.items() if b}

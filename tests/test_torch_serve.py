@@ -415,24 +415,50 @@ def test_drain_and_close(pair):
 @pytest.mark.parametrize("kw", [dict(spec_k=2),
                                 dict(kv_dtype="int4"),
                                 dict(spill_blocks=0),
-                                dict(programs=object())],
+                                dict(programs="another model's")],
                          ids=["spec", "kv_dtype", "spill", "programs"])
 def test_later_slice_options_raise(pair, kw):
-    """Program sharing is a later slice and says so; the options ported
-    since (speculation, the int8 arena, the spill tier) refuse a bad
-    value as the reference does."""
-    err, match = ((NotImplementedError, "slice") if "programs" in kw
-                  else (ValueError, "draft_model|kv_dtype|spill"))
-    with pytest.raises(err, match=match):
+    """The options ported after the engine (speculation, the int8 arena,
+    the spill tier, program sharing) refuse a bad value as the
+    reference does: a programs= bundle made for another model object
+    included."""
+    if "programs" in kw:
+        kw = dict(programs=pair[3].programs()._replace(model_ref=object()))
+    with pytest.raises(ValueError,
+                       match="draft_model|kv_dtype|spill|SAME model"):
         ServeEngine(pair[1], 2, MAX_LEN, block_size=BS, **kw)
 
 
 @pytest.mark.parametrize("method", ["programs", "extract_handoff",
                                     "inject_handoff", "can_accept_handoff"])
 def test_handoff_hooks_raise(pair, method):
-    fn = getattr(pair[3], method)
-    with pytest.raises(NotImplementedError, match="slice"):
-        fn() if method == "programs" else fn(0)
+    """The tier hooks refuse what the reference's refuse: their bundle
+    lent to an engine of another block size, an extract from an empty
+    slot, an inject of a request that has no first token yet, and a
+    capacity probe of no package."""
+    from singa_tpu.serve.disagg import HandoffPackage as JPackage
+    from singa_tpu.serve.scheduler import Request as JRequest
+    from singa_tpu_torch.serve.disagg import HandoffPackage
+    from singa_tpu_torch.serve.scheduler import Request
+    for eng, model, pkg_cls, req_cls, cls in (
+            (pair[2], pair[0], JPackage, JRequest, JEngine),
+            (pair[3], pair[1], HandoffPackage, Request, ServeEngine)):
+        if method == "programs":
+            with pytest.raises(ValueError, match="block_size"):
+                cls(model, 2, MAX_LEN, block_size=2 * BS,
+                    programs=eng.programs())
+        elif method == "extract_handoff":
+            with pytest.raises(KeyError):
+                eng.extract_handoff(0)
+        elif method == "inject_handoff":
+            req = req_cls(np.ones(5, np.int32), 2, None, None, None)
+            pkg = pkg_cls(req=req, kv=[], pos=4, n_blocks=1)
+            with pytest.raises((AssertionError, ValueError)):
+                eng.inject_handoff(pkg)
+            assert eng.pool.free_count == SLOTS
+        else:
+            with pytest.raises(AttributeError):
+                eng.can_accept_handoff(None)
 
 
 # -- telemetry ----------------------------------------------------------------

@@ -221,6 +221,7 @@ def test_eta_scales_with_tokens_per_tick():
 
     def eta(tpt, position):
         eng = SimpleNamespace(_tick_ewma=0.15, _tpt_ewma=tpt,
+                              tick_hint_s=None,
                               pool=SimpleNamespace(free_count=0,
                                                    num_slots=1))
         return ServeEngine._eta_first_token(eng, position)
