@@ -50,7 +50,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                prefix hits, memory, one profiled decode tick, and four
                of the prompts through sequential captured generate()
                calls
-  7. spec    — speculative decoding on the serve engine (spec_k=3), over
+  7. load    — the open-loop load generator (singa_tpu_torch.tools.loadgen)
+               through an engine of the serve phase's shape over base():
+               48 Poisson arrivals at 0.8 x the serve phase's closed-wave
+               request rate (its tokens/s over 64 tokens a request), 3
+               tenants behind 256-token system prompts, suffixes of
+               256/384/512 tokens, 32 or 64 new tokens; completed, shed
+               and rejected, tokens/s, TTFT p50/p99, no flash launch; the
+               serve_load record goes to runs/torch/records.jsonl
+  8. spec    — speculative decoding on the serve engine (spec_k=3), over
                the serve phase's first wave: self-speculation
                (draft_model = the target), a disagreeing draft
                (base() cut to 2 layers, seed 1), a serve.verify fault
@@ -60,7 +68,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (1, 0, 1, 0), (1, 1, 1, 0) after the fallback.  Accept
                rate, tokens per dispatch, verify round ms, tokens/s and
                TTFT beside the plain engine's; no flash launch
-  8. mem     — the int8 arena and the bf16 one at the serve arena's
+  9. mem     — the int8 arena and the bf16 one at the serve arena's
                bytes over 24 slots (the 16 prompts and 8 again, no
                prefix sharing, 16 new tokens each): peak concurrency,
                tokens/s, TTFT, tick; the referee (an int8 draft arena
@@ -73,7 +81,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                restore program, the third wave's streams equal to an
                engine without the tier's, which a planted restore into
                the next block must break; no flash launch
-  9. disagg  — the disaggregated tier in one process: build_pools(1
+  10. disagg  — the disaggregated tier in one process: build_pools(1
                prefill, 2 decode) of the serve phase's engine (8 slots,
                1024, blocks of 32, bf16, prefix sharing) behind a
                Router, from one warmed template engine's weight copy.
@@ -90,7 +98,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                TTFT beside the serve phase's; the handoff program, the
                package copy and the inject timed; bytes per package,
                pool bytes per worker, peak memory
- 10. net     — the process tier: build_proc_pools(1 prefill, 1 decode)
+ 11. net     — the process tier: build_proc_pools(1 prefill, 1 decode)
                of worker processes on the card, each building base()
                from chip_smoke:tier_model (the slice phase's weights),
                behind a ProcRouter.  The first wave: streams bitwise the
@@ -99,14 +107,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                replayed; a decode worker killed mid-flight replayed,
                then respawned and adopted.  Each worker's ready and
                warm-up tick seconds, frame bytes, wire ms, tokens/s
- 11. beam    — generate_beam on two of the slice phase's prompts (P=1024,
+ 12. beam    — generate_beam on two of the slice phase's prompts (P=1024,
                N=32, 4 beams, bf16 weights), without and with an eos id:
                the captured session (prefill graph, one beam tick
                replayed N times) against the eager search bitwise, 16
                flash launches per call counted on the card, num_beams=1
                against greedy generate(), the scores against a
                teacher-forced f32 forward; call and tick ms, pool bytes
- 12. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+ 13. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
                with their plain versions, and with planted faults in
@@ -121,11 +129,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
- 13. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+ 14. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
                with a save after step 2; a fresh model loads it and runs
                steps 3-6 (eager, warm-up, capture, replay), whose losses
                must equal the uninterrupted run's within the train limit
- 14. timing  — each kernel, its plain version and the PyTorch call that
+  15. banded — mistral-w4096 (Mistral-7B-v0.1's widths, sliding window
+               4096, cut to 4 layers; singa_tpu_torch/tools/loadgen.py
+               holds the configuration): training at B=1 x T=8192 (fused
+               loss, SGD momentum), all three kernels banded, 4 eager and
+               4 captured steps from the same weights held bitwise (the
+               captured run's warm-up call under set_sync_debug_mode
+               "error"), 10 timed replays with 4 launches of each kernel
+               a step counted on the card, MFU with the window term;
+               generate() at B=1, P=8192, N=32 (bf16; banded prefill, 4
+               forward launches a call, captured = eager bitwise); the
+               paged engine (4 slots, max_len 8192, blocks of 32) over 8
+               prompts of 4608-7936 tokens x 32 tokens: tokens/s, TTFT,
+               tick, (1, 1) programs, no flash launch, the streams beside
+               generate()'s and both held by the teacher-forced bf16 gate
+  16. moe    — mixtral-8x7b (Mixtral-8x7B-v0.1's widths, 8 experts,
+               top-2, dropless capacity factor 4.0, cut to 2 layers): the
+               same at training B=4 x T=1024 (the aux loss read at every
+               step, the experts' rows over the active ones),
+               generate() at B=4, P=1024, N=32, and the serve phase's
+               engine shape over its 16 prompts x 64 tokens, with a probe
+               of whether a token's bf16 expert rows depend on the batch;
+               then the load generator through that engine, as in phase 7
+ 17. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -134,7 +164,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                timed as CUDA-graph replays (device time: one call can take
                less time on the card than its wrapper takes on the host),
                with back-to-back event timing and the wrapper's host time
-               per call reported beside
+               per call reported beside; then the three kernels at
+               mistral-w4096's attention shape (H=32, T=8192, W=4096),
+               their bound counting the in-band pairs, their plain
+               versions over eight heads at a time, and SDPA with the
+               band as a boolean mask
 Then a line with the script's seconds, one {"kernels": [...]} line and,
 last, the device line.  Every launch count of the main paths is read
 from the counters the kernels advance on the card
@@ -143,12 +177,14 @@ as they run.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
 the repository beside it and a CUDA card; without either it fails.  It
-writes one checkpoint under build/ and removes it.
+writes one checkpoint under build/ and removes it, and appends the
+load runs' serve_load entries to runs/torch/records.jsonl.
 """
 
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -262,6 +298,30 @@ NET_SPAWN_TIMEOUT_S = 300.0
 # terms off by bf16 roundings of the logits
 BEAM_B, BEAM_K, BEAM_N = 2, 4, 32
 BEAM_SCORE_RTOL = 1e-2
+# the load phase (singa_tpu_torch.tools.loadgen): LOAD_REQUESTS Poisson
+# arrivals at LOAD_RATE_SHARE of the closed wave's request rate on the
+# same engine, 3 tenants behind 256-token system prompts, suffixes of
+# 256/384/512 tokens, 32 or 64 new tokens, from seed LOAD_SEED
+LOAD_REQUESTS, LOAD_RATE_SHARE, LOAD_SEED = 48, 0.8, 0
+LOAD_WORKLOAD = dict(prompt_lens=(256, 384, 512), new_tokens=(32, 64),
+                     tenants=3, shared_len=256)
+# the banded and moe phases: two published configurations
+# (singa_tpu_torch/tools/loadgen.py: mistral-w4096 from Mistral-7B-v0.1's
+# config.json, mixtral-8x7b from Mixtral-8x7B-v0.1's) at their widths,
+# cut in depth only, random weights from seed 0.  Training (B, T) with
+# the fused loss; generate() (B, P, N); CONFIG_STEPS eager and captured
+# steps held bitwise
+BANDED_LAYERS, MOE_LAYERS = 4, 2
+BANDED_TRAIN, MOE_TRAIN = (1, 8192), (4, 1024)
+BANDED_GEN, MOE_GEN = (1, 8192, 32), (4, 1024, 32)
+CONFIG_STEPS = 4
+# the banded engine: (slots, max_len, block_size, requests, new tokens),
+# its prompts of BANDED_PROMPTS tokens (all past the window), seed
+# BANDED_SEED; the moe engine is the serve phase's, over its prompts
+BANDED_SERVE = (4, 8192, 32, 8, 32)
+BANDED_PROMPTS, BANDED_SEED = (4608, 7936), 6
+# the timing phase's long window: mistral-w4096's attention at its shape
+WINDOW_T, WINDOW_W = 8192, 4096
 
 
 def emit(obj):
@@ -411,18 +471,23 @@ def phase_faults(libs):
     from singa_tpu_torch import kernel_check
     results = []
     for name, lib in libs.items():
+        also = kernel_check.FAULT_ALSO_CASES.get(name, ())
         if name in kernel_check.FLASH_FAULTS:
-            label = kernel_check.FLASH_FAULTS[name][0]
-            with kernel_check.flash_kernel(lib):
-                errs = kernel_check.check_flash(label, torch.bfloat16)
+            labels = (kernel_check.FLASH_FAULTS[name][0],) + also
+            swap, run = kernel_check.flash_kernel, kernel_check.check_flash
         else:
-            label = kernel_check.FLASH_BWD_FAULTS[name][0]
-            with kernel_check.flash_bwd_kernel(lib):
-                errs = kernel_check.check_flash_bwd(label, torch.bfloat16)
-        results.append({"fault": name, "case": label, "dtype": "bfloat16",
-                        **errs, "caught": not errs["ok"]})
+            labels = (kernel_check.FLASH_BWD_FAULTS[name][0],) + also
+            swap = kernel_check.flash_bwd_kernel
+            run = kernel_check.check_flash_bwd
+        for label in labels:
+            with swap(lib):
+                errs = run(label, torch.bfloat16)
+            results.append({"fault": name, "case": label,
+                            "dtype": "bfloat16", **errs,
+                            "caught": not errs["ok"]})
     emit({"phase": "faults", "faults": results})
-    missed = [r["fault"] for r in results if not r["caught"]]
+    missed = [f"{r['fault']}:{r['case']}" for r in results
+              if not r["caught"]]
     check(not missed, f"planted faults pass the kernels' limits: {missed}")
 
 
@@ -603,18 +668,19 @@ def serve_prompts(vocab):
             for p in pair]
 
 
-def serve_engine(m, slots=SERVE_SLOTS, **kw):
-    """A ServeEngine over `m` at the phase's shape, warmed up: one
-    request of two chunks and three tokens runs each program's first
-    (eager) dispatch and its capture, then the metrics start afresh.
-    (engine, requests the warm-up admitted)."""
+def serve_engine(m, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 block_size=SERVE_BLOCK, **kw):
+    """A ServeEngine over `m` at the phase's shape (or the one given),
+    warmed up: one request of two chunks and three tokens runs each
+    program's first (eager) dispatch and its capture, then the metrics
+    start afresh.  (engine, requests the warm-up admitted)."""
     from singa_tpu_torch.serve import ServeEngine
     from singa_tpu_torch.serve.metrics import ServeMetrics
     kw = {"param_dtype": torch.bfloat16, **kw}
-    eng = ServeEngine(m, slots, SERVE_MAX_LEN, block_size=SERVE_BLOCK,
+    eng = ServeEngine(m, slots, max_len, block_size=block_size,
                       backoff_base=0.001, backoff_max=0.01, **kw)
     warm = np.random.RandomState(99).randint(0, m.cfg.vocab_size,
-                                             SERVE_BLOCK + 8)
+                                             block_size + 8)
     # long enough for two verify rounds on a spec engine
     eng.submit(warm, max_new_tokens=3 + 2 * eng.spec_k)
     eng.run_until_idle()
@@ -703,20 +769,25 @@ def _gap_summary(gaps, agree, limit):
             "argmax_agreement": agree}
 
 
-def teacher_forced_gaps(m, eng, prompts, streams):
+def teacher_forced_gaps(m, eng, prompts, streams, plain=True):
     """Each request's prompt and engine tokens through one plain causal
     forward under the engine's weights: at every generated position the
     forward's largest logit minus its logit of the engine's token (0
     where they agree).  (all gaps, share of positions where the
-    engine's token is the forward's argmax)."""
+    engine's token is the forward's argmax).  With `plain` False the
+    forward runs the flash kernels (held against their plain versions in
+    the kernels phase), its ids padded at the end to a multiple of 128
+    so that they tile: a long window's plain band mask would not fit."""
     from singa_tpu_torch.models import _generate
     gaps = []
     with torch.no_grad(), _generate._bound(m, eng._params), \
-            plain_attention():
+            plain_attention() if plain else nullcontext():
         for p, toks in zip(prompts, streams):
-            ids = torch.as_tensor(np.concatenate([p, toks[:-1]])[None],
+            seq = np.concatenate([p, toks[:-1]])
+            pad = 0 if plain else -seq.size % 128
+            ids = torch.as_tensor(np.pad(seq, (0, pad))[None],
                                   dtype=torch.int64, device=eng._device)
-            lg = m(ids)[0, p.size - 1:].float()
+            lg = m(ids)[0, p.size - 1:seq.size].float()
             tok = torch.as_tensor(toks, device=eng._device)
             gaps.append(lg.max(-1).values
                         - lg.gather(1, tok[:, None])[:, 0])
@@ -2069,6 +2140,426 @@ def phase_checkpoint():
     check(m.graph.graph is not None, "the resumed run did not capture")
 
 
+# -- the load, banded and moe phases -----------------------------------------
+
+
+def load_run(eng, closed_tps, closed_tokens, what):
+    """The open-loop load generator (singa_tpu_torch.tools.loadgen) through
+    `eng`: LOAD_REQUESTS Poisson arrivals at LOAD_RATE_SHARE of the closed
+    wave's request rate (its tokens/s over its tokens per request), the
+    engine's counters and the card's launch counters zeroed first.  The
+    payload goes to the port's record store as a serve_load entry."""
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.serve.metrics import ServeMetrics
+    from singa_tpu_torch.tools import loadgen
+
+    rate = LOAD_RATE_SHARE * closed_tps / closed_tokens
+    wl = loadgen.build_workload(LOAD_REQUESTS, rate, LOAD_SEED,
+                                vocab=eng.model.cfg.vocab_size,
+                                **LOAD_WORKLOAD)
+    eng.metrics = ServeMetrics(flight=eng.flight)
+    fa.reset_device_launches()
+    payload = loadgen.run_load(eng, wl)
+    launches = fa.device_launches()
+    store = loadgen.append_record(payload, device="cuda",
+                                  prefix=f"load-{what}")
+    out = {"engine": what, "rate_rps": rate,
+           "closed_wave_tokens_per_s": closed_tps,
+           "closed_wave_tokens_per_request": closed_tokens,
+           "workload": {"requests": LOAD_REQUESTS, "seed": LOAD_SEED,
+                        **LOAD_WORKLOAD},
+           "arrivals_s": [wl[0].at_s, wl[-1].at_s], "payload": payload,
+           "flash_launches": launches, "record_store": store}
+    emit({"phase": "load", **out})
+    p = payload
+    check(p["completed"] + p["shed"] + p["rejected"] == LOAD_REQUESTS
+          and p["completed"] > 0, f"the load run lost requests: {p}")
+    check(launches == dict.fromkeys(fa.KERNELS, 0),
+          f"the flash kernels ran {launches} times under the load run")
+    return out
+
+
+def phase_load(m, ctx):
+    """The load generator through the serve phase's engine configuration
+    over base(), at 0.8 x the serve phase's closed-wave request rate."""
+    eng, _ = serve_engine(m)
+    out = load_run(eng, ctx["tokens_per_s"], SERVE_NEW, "base")
+    eng.close()
+    return out["flash_launches"]
+
+
+def config_model(cfg):
+    """`cfg` on the card, f32 masters from seed 0."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import Llama
+    return Llama(cfg, device=device.create_device("cuda"),
+                 generator=torch.Generator("cuda").manual_seed(0))
+
+
+def config_train(m, b, t, later):
+    """A configuration's training through set_optimizer / compile /
+    train_step (fused loss, SGD momentum 0.9): CONFIG_STEPS eager and
+    captured steps from the same weights and batches, held to each other
+    bitwise (the captured run's second, warm-up call runs under
+    set_sync_debug_mode("error")); then TRAIN_STEPS timed replays on a
+    fixed batch, each kernel's launches counted on the card per step.
+    An MoE model's aux loss is read at every step: the tensor its
+    capture recorded is rewritten by each replay."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    cfg = m.cfg
+    rng = np.random.RandomState(0)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, t))
+                               .astype(np.int32), device="cuda")
+               for _ in range(CONFIG_STEPS)]
+    x = batches[0]
+    start = {n: p.detach().cpu() for n, p in m.get_params().items()}
+    aux_seen = []
+    if cfg.num_experts:
+        pop = m._moe_aux_loss
+
+        def recorded():
+            # kept detached: a loss's autograd graph held across steps
+            # keeps its AccumulateGrad nodes on the stream of the step
+            # that made them, and the capture's backward would sync
+            # with it
+            aux = pop()
+            aux_seen.append(aux.detach())
+            return aux
+        m._moe_aux_loss = recorded
+    torch.cuda.reset_peak_memory_stats()
+    runs, aux_runs = {}, {}
+    for use_graph in (False, True):
+        m.set_params(start)
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        losses, aux = [], []
+        for i, bt in enumerate(batches):
+            if use_graph and i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, loss = m.train_step(bt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses.append(loss.item())
+            if aux_seen:
+                aux.append(aux_seen[-1].item())
+        runs[use_graph], aux_runs[use_graph] = losses, aux
+    del start
+    g = m.get_graph("train")
+    fa.reset_device_launches()
+    times, per_step, losses, aux = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = fa.device_launches()
+        (_, loss), dt = _timed(lambda: m.train_step(x))
+        losses.append(loss.item())
+        times.append(dt)
+        if aux_seen:
+            aux.append(aux_seen[-1].item())
+        after = fa.device_launches()
+        per_step.append([after[k] - before[k] for k in fa.KERNELS])
+    launches = fa.device_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if cfg.num_experts:
+        del m._moe_aux_loss
+    step_s = sorted(times)[len(times) // 2]
+    flops = m.flops_per_token(t) * b * t
+    out = {
+        "B": b, "T": t, "optimizer": "SGD(lr=0.01, momentum=0.9)",
+        "fused_loss": cfg.fused_loss, "captured": g.graph is not None,
+        "capture_s": g.capture_seconds, "graph_num_ops": g.num_ops,
+        "graph_pool_bytes": g.pool_bytes, "graph_launches": g.launches,
+        "step_ms": [dt * 1e3 for dt in times],
+        "median_step_ms": step_s * 1e3, "tokens_per_s": b * t / step_s,
+        "flops_per_token": m.flops_per_token(t), "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_bytes": peak, "losses": losses,
+        "launches": launches, "launches_per_step": per_step,
+        "expected_per_step": cfg.num_layers,
+        "eager_vs_captured": {"eager_losses": runs[False],
+                              "captured_losses": runs[True],
+                              "bitwise": runs[False] == runs[True],
+                              "eager_aux": aux_runs[False],
+                              "captured_aux": aux_runs[True]},
+        "sync_free_warm_up": True}
+    if cfg.num_experts:
+        out["aux_loss_per_step"] = aux
+        out["aux_weight"] = cfg.moe_aux_weight
+    later(out["captured"], "train_step did not run a captured graph")
+    later(all(s == [cfg.num_layers] * 3 for s in per_step),
+          f"flash kernels launched {per_step} times per step, expected "
+          f"{cfg.num_layers} each")
+    later(out["eager_vs_captured"]["bitwise"], f"captured losses "
+          f"{runs[True]} differ from eager {runs[False]}")
+    later(np.isfinite(losses).all(), f"non-finite loss: {losses}")
+    later(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return out
+
+
+def config_generate(m, b, p, n, later):
+    """generate() at (B, P, N) with bf16 weights: eager beside captured
+    (tokens held bitwise), the flash forward's launches counted on the
+    card over the captured call, prefill and decode times."""
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    cfg = m.cfg
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, (b, p))
+    kw = dict(max_new_tokens=n, param_dtype=torch.bfloat16)
+    m.generate(prompts, use_graph=False, **kw)
+    out_eager, eager_s = _timed(lambda: m.generate(prompts, use_graph=False,
+                                                   **kw))
+    m.generate(prompts, **kw)                      # eager first call
+    m.generate(prompts, **kw)                      # capture
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_device_launches()
+    out, gen_s = _timed(lambda: m.generate(prompts, **kw))
+    launches = fa.device_launches()
+    peak = torch.cuda.max_memory_allocated()
+    graphs = m._gen_sessions[(b, p, p + n, torch.bfloat16,
+                              (0.0, None, None, None))].graphs
+    prefill_ms = _median_ms(graphs["prefill"].replay)
+    expect = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    res = {"B": b, "P": p, "N": n, "param_dtype": "bfloat16",
+           "captured": graphs["decode"].graph is not None,
+           "generate_ms": gen_s * 1e3, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": (gen_s * 1e3 - prefill_ms) / (n - 1),
+           "tokens_per_s": b * n / gen_s, "eager_generate_ms": eager_s * 1e3,
+           "tokens_equal_eager": bool((out == out_eager).all()),
+           "launches": launches, "expected_launches": expect,
+           "peak_memory_bytes": peak}
+    later(res["captured"], "generate() did not run captured graphs")
+    later(launches == expect, f"the kernels ran {launches} times in a "
+          f"generate call, expected {expect}")
+    later(res["tokens_equal_eager"],
+          "captured greedy tokens differ from the eager call's")
+    later(out.shape == (b, p + n) and (out[:, :p] == prompts).all()
+          and ((out >= 0) & (out < cfg.vocab_size)).all(),
+          "generate returned a wrong shape, prompt or token")
+    return res
+
+
+def moe_row_probe(c, params):
+    """Whether a token's MoE output depends on the other tokens routed
+    with it (what serving an MoE in bf16 must face): block 0's experts on
+    8 tokens and on the first alone, dropless, and one expert product
+    at M = 8 and M = 1.  Bitwise equality of the first token's row."""
+    from singa_tpu_torch.ops import moe
+    g = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn(8, c.dim, generator=g, device="cuda").to(torch.bfloat16)
+    w = {k: params[f"blocks.0.ffn.{k}"]
+         for k in ("router", "w_in", "w_out", "w_gate")}
+
+    def ffn(xs):
+        return moe.moe_forward(xs, w["router"], w["w_in"], w["w_out"],
+                               c.moe_capacity_factor, top_k=c.moe_top_k,
+                               w_gate=w["w_gate"])
+    with torch.no_grad():
+        many, one = ffn(x)[0], ffn(x[:1])[0]
+        mm8, mm1 = (x @ w["w_in"][0])[0], (x[:1] @ w["w_in"][0])[0]
+    return {"moe_row_bitwise": torch.equal(many, one),
+            "moe_row_max_abs_diff": (many.float() - one.float()).abs()
+            .max().item(),
+            "matmul_row_bitwise_m8_vs_m1": torch.equal(mm8, mm1),
+            "matmul_row_max_abs_diff": (mm8.float() - mm1.float()).abs()
+            .max().item()}
+
+
+def config_serve(m, slots, max_len, block, prompts, new, later,
+                 gate=True):
+    """The paged engine (bf16 weights) over `prompts` x `new` tokens, all
+    submitted at once: tokens/s, TTFT, tick and chunk ms, program
+    counts, flash launches counted on the card from the engine's warm-up
+    on; the streams against generate()'s (bf16, one call per prompt) and
+    both sets' teacher-forced gaps (the kernels' forward), the engine's
+    held to the serve phase's bf16 limit when `gate`.  Returns (result,
+    engine) with the engine open.  Checks go to `later(cond, msg)`, as
+    in the other config_* helpers, so a phase prints its results before
+    any check stops the run."""
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_device_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng, _ = serve_engine(m, slots, max_len=max_len, block_size=block)
+    counts_warm = eng.compiled_counts()
+    streams, secs, _ = traffic(eng, prompts, new_tokens=new)
+    snap = eng.metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    tick_ms = _median_ms(eng._decode, n=21)
+    chunk_ms = _median_ms(eng._prefill, n=21)
+    counts = eng.compiled_counts()
+    launches = fa.device_launches()
+    kw = dict(max_new_tokens=new, param_dtype=torch.bfloat16)
+    gen = [list(map(int, m.generate(p[None], **kw)[0, p.size:]))
+           for p in prompts]
+    m._gen_sessions.clear()
+    gaps, agree = teacher_forced_gaps(m, eng, prompts, streams, plain=False)
+    ggaps, gagree = teacher_forced_gaps(m, eng, prompts, gen, plain=False)
+    n_tok = sum(len(t) for t in streams)
+    ttft = snap["ttft_ms"]
+    zero = dict.fromkeys(fa.KERNELS, 0)
+    res = {"num_slots": slots, "max_len": max_len, "block_size": block,
+           "param_dtype": "bfloat16", "requests": len(prompts),
+           "max_new_tokens": new,
+           "prompt_lens": [int(p.size) for p in prompts],
+           "compiled_counts": {"after_warm_up": counts_warm,
+                               "after_traffic": counts},
+           "captured": eng._decode.graph.graph is not None,
+           "seconds": secs, "tokens": n_tok, "tokens_per_s": n_tok / secs,
+           "ttft_ms": {"p50": ttft["p50"], "p99": ttft["p99"],
+                       "max": ttft["max"]},
+           "decode_tick_ms": tick_ms, "prefill_chunk_ms": chunk_ms,
+           "prefix_hits": snap["prefix_hits"], "steps": snap["steps"],
+           "peak_memory_bytes": peak, "flash_launches": launches,
+           "vs_generate": {**_differ(streams, gen),
+                           "token_agreement": float(np.mean(
+                               [np.mean(np.asarray(a) == np.asarray(b))
+                                for a, b in zip(streams, gen)]))},
+           "teacher_forced_bf16": {
+               "limit": SERVE_BF16_GAP,
+               "engine": _gap_summary(gaps, agree, SERVE_BF16_GAP),
+               "generate": _gap_summary(ggaps, gagree, SERVE_BF16_GAP)}}
+    later(counts == (1, 1) and res["captured"],
+          f"compiled_counts {counts}, expected (1, 1), captured")
+    later(all(len(t) == new for t in streams)
+          and all(0 <= x < m.cfg.vocab_size for t in streams for x in t),
+          "the engine's streams are short or out of range")
+    later(launches == zero, f"the flash kernels ran {launches} times on "
+          f"the serve path")
+    later(not gate or float(gaps.max()) <= SERVE_BF16_GAP,
+          f"engine tokens fail the teacher-forced check: max gap "
+          f"{gaps.max()}")
+    return res, eng
+
+
+def oracle_f32_masters(m, prompts):
+    """The serve phase's f32 oracle on `m` itself: an engine over its f32
+    masters computing in f32 (arena and activations) serves `prompts`;
+    its tokens' teacher-forced gaps, and its streams beside f32
+    generate()'s.  In bf16 an MoE's routing flips between two experts
+    whose router scores lie within a rounding of each other, which no
+    bf16 gate can tell from a fault."""
+    dev = m.device
+    saved, dev.default_dtype = dev.default_dtype, torch.float32
+    try:
+        eng, _ = serve_engine(m, param_dtype=None)
+        streams, _ = serve_traffic(eng, prompts)
+        gaps, agree = teacher_forced_gaps(m, eng, prompts, streams)
+        eng.close()
+        gen = [list(map(int, m.generate(p[None], max_new_tokens=SERVE_NEW)
+                        [0, p.size:])) for p in prompts]
+    finally:
+        dev.default_dtype = saved
+        m._gen_sessions.clear()
+    return gaps, {"delta": SERVE_DELTA, "requests": len(prompts),
+                  "sound": _gap_summary(gaps, agree, SERVE_DELTA),
+                  "vs_generate_f32": _differ(streams, gen)}
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_banded():
+    """mistral-w4096 (Mistral-7B-v0.1's widths, cut to BANDED_LAYERS
+    layers): training at T = 8192 with all three kernels banded,
+    generate() with a banded prefill, and the paged engine over prompts
+    longer than the window."""
+    from singa_tpu_torch.tools.loadgen import model_config
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model_config("mistral-w4096", BANDED_LAYERS),
+                              fused_loss=True)
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    m = config_model(cfg)
+    params = m.num_params()
+    train = config_train(m, *BANDED_TRAIN, later)
+    del m
+    _free()
+    m = config_model(cfg)
+    gen = config_generate(m, *BANDED_GEN, later)
+    rng = np.random.RandomState(BANDED_SEED)
+    slots, max_len, block, n_req, new = BANDED_SERVE
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(BANDED_PROMPTS[0], BANDED_PROMPTS[1] + 1,
+                                    n_req)]
+    serve, eng = config_serve(m, slots, max_len, block, prompts, new, later)
+    eng.close()
+    del eng, m
+    _free()
+    emit({"phase": "banded", "config": "mistral-w4096",
+          "source": "Mistral-7B-v0.1 config.json, 32 -> "
+                    f"{BANDED_LAYERS} layers", "params": params,
+          "sliding_window": cfg.sliding_window, "train": train,
+          "generate": gen, "serve": serve,
+          "phase_seconds": time.perf_counter() - t0})
+    later(min(len(p) for p in prompts) > cfg.sliding_window,
+          "a serve prompt fits the window")
+    for cond, msg in checks:
+        check(cond, msg)
+    return {"train": train, "generate": gen, "serve": serve}
+
+
+def phase_moe():
+    """mixtral-8x7b (Mixtral-8x7B-v0.1's widths, cut to MOE_LAYERS
+    layers, dropless capacity factor E/k): training with the aux loss,
+    generate(), the paged engine over the serve phase's prompts, and the
+    load generator through that engine."""
+    from singa_tpu_torch.tools.loadgen import model_config
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model_config("mixtral-8x7b", MOE_LAYERS),
+                              fused_loss=True)
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    m = config_model(cfg)
+    params = m.num_params()
+    train = config_train(m, *MOE_TRAIN, later)
+    b, t = MOE_TRAIN
+    n_tok = b * t
+    cap = math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * n_tok
+                    / cfg.num_experts)
+    train["expert_rows_over_active"] = (cfg.num_experts * cap
+                                        / (cfg.moe_top_k * n_tok))
+    del m
+    _free()
+    m = config_model(cfg)
+    gen = config_generate(m, *MOE_GEN, later)
+    prompts = serve_prompts(cfg.vocab_size)
+    serve, eng = config_serve(m, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK,
+                              prompts, SERVE_NEW, later, gate=False)
+    serve["row_probe"] = moe_row_probe(cfg, eng._params)
+    load = load_run(eng, serve["tokens_per_s"], SERVE_NEW, "mixtral-8x7b")
+    eng.close()
+    del eng
+    _free()
+    gaps, serve["teacher_forced_f32"] = oracle_f32_masters(
+        m, prompts[:SERVE_ORACLE])
+    later(float(gaps.max()) <= SERVE_DELTA, f"f32 engine tokens fail the "
+          f"teacher-forced oracle: max gap {gaps.max()} > {SERVE_DELTA}")
+    del m
+    _free()
+    emit({"phase": "moe", "config": "mixtral-8x7b",
+          "source": "Mixtral-8x7B-v0.1 config.json, 32 -> "
+                    f"{MOE_LAYERS} layers", "params": params,
+          "num_experts": cfg.num_experts, "top_k": cfg.moe_top_k,
+          "capacity_factor": cfg.moe_capacity_factor, "train": train,
+          "generate": gen, "serve": serve,
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return {"train": train, "generate": gen, "serve": serve,
+            "load": load["flash_launches"]}
+
+
 def _kernel_kind(name):
     low = name.lower()
     for kind in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"):
@@ -2240,13 +2731,126 @@ def phase_timing():
             **_bound(8 * b * h * d * pairs,
                      2 * t_bytes + 4 * kv_bytes + 2 * row_bytes)})
     for r in rows:
+        r["dims"] = [B if r["shape"] == "prefill" else TB, P, h, k, d]
+    rows += window_timing_rows(library)
+    for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        emit({"phase": "timing", "dims": [B if r["shape"] == "prefill"
-                                          else TB, P, h, k, d],
-              "dtype": "bfloat16", "causal": True, **r})
+        emit({"phase": "timing", "dtype": "bfloat16", "causal": True, **r})
     bad = [f"{r['name']}:{r['shape']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions on the "
           f"timed inputs: {bad}")
+    return rows
+
+
+def window_timing_rows(library):
+    """The three kernels at mistral-w4096's attention shape (B=1, H=32,
+    K=8, D=128, T=8192, W=4096, bf16) beside their bound, counting only
+    the in-band (q, k) pairs; the plain versions run eight query heads
+    (two kv heads) at a time, which is the same function at a quarter of
+    the memory, each kernel held against them; the library call is
+    scaled_dot_product_attention with the (T, T) boolean band mask, and
+    its gradient."""
+    import torch.nn.functional as F
+    from singa_tpu_torch import kernel_check
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, k, d, w = 1, WINDOW_T, 32, 8, 128, WINDOW_W
+    dtype, scale, hc = torch.bfloat16, 1.0 / d ** 0.5, 8
+    kc = hc * k // h
+    q, kk, v = kernel_check.make_qkv(b, t, t, h, k, d, dtype, seed=3)
+    pairs = w * (w + 1) // 2 + (t - w) * w        # in-band pairs a head
+    t_bytes = q.numel() * q.element_size()
+    kv_bytes = kk.numel() * kk.element_size()
+    row_bytes = b * h * t * 4
+    pos = torch.arange(t, device="cuda")
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, v))
+
+    def chunks(*xs):
+        """Slices of eight query heads and their two kv heads: q and do
+        (B, T, H, D), k and v (B, T, K, D), lse and delta (B, H, T, 1)."""
+        for j in range(0, h, hc):
+            kv = slice(j * k // h, j * k // h + kc)
+            yield [x[:, :, j:j + hc] if x.shape[2] == h
+                   else x[:, :, kv] if x.shape[2] == k
+                   else x[:, j:j + hc] for x in xs]
+
+    o, lse = fa._flash_fwd_cuda(q, kk, v, True, scale, w)
+    errs = [kernel_check.flash_errors(
+        o[:, :, j:j + hc], lse[:, j:j + hc],
+        *fa._flash_fwd_reference(qc, kcc, vc, True, scale, w), dtype)
+        for j, (qc, kcc, vc) in zip(range(0, h, hc), chunks(q, kk, v))]
+
+    def plain_fwd():
+        for qc, kcc, vc in chunks(q, kk, v):
+            fa._flash_fwd_reference(qc, kcc, vc, True, scale, w)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+
+    def fwd():
+        return fa._flash_fwd_cuda(q, kk, v, True, scale, w)
+    rows = [{"name": "flash_fwd", "shape": "mistral_w4096",
+             "timed_by": "cuda_graph", "ms": graph_time_ms(fwd),
+             "events_ms": cuda_time_ms(fwd),
+             "plain_ms": cuda_time_ms(plain_fwd, iters=3, warmup=1),
+             "library_ms": library(lambda: graph_time_ms(sdpa)),
+             "library_covers": ["flash_fwd"],
+             "max_abs_err": max(e["max_abs_do"] for e in errs),
+             "ok": all(e["ok"] for e in errs),
+             **_bound(4 * b * h * d * pairs,
+                      2 * t_bytes + 2 * kv_bytes + row_bytes)}]
+    g = torch.Generator("cuda").manual_seed(2)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    delta = delta.contiguous()
+    args = (q, kk, v, do, lse, delta, True, scale, w)
+    grads = (fa._launch_dq(*args), *fa._launch_dkv(*args))
+    errs = []
+    for j, (qc, kcc, vc, doc, lc, dc) in zip(
+            range(0, h, hc), chunks(q, kk, v, do, lse, delta)):
+        ref = fa._flash_bwd_reference(qc, kcc, vc, doc, lc, dc, True,
+                                      scale, w)
+        kv = slice(j * k // h, j * k // h + kc)
+        errs.append(kernel_check.flash_bwd_errors(
+            (grads[0][:, :, j:j + hc], grads[1][:, :, kv],
+             grads[2][:, :, kv]), ref, dtype))
+
+    def plain(fn):
+        def run():
+            for c in chunks(q, kk, v, do, lse, delta):
+                fn(*c, True, scale, w)
+        return run
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band,
+                                            enable_gqa=True)
+        return lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
+                                           retain_graph=True)
+    lib_bwd = library(lambda: cuda_time_ms(sdpa_bwd(), iters=10))
+    ok = all(e["ok"] for e in errs)
+    both = ["flash_bwd_dq", "flash_bwd_dkv"]
+    for name, launch, fn, mult, nbytes, err in (
+            ("flash_bwd_dq", fa._launch_dq, fa._bwd_dq_reference, 6,
+             3 * t_bytes + 2 * kv_bytes + 2 * row_bytes, ("dq",)),
+            ("flash_bwd_dkv", fa._launch_dkv, fa._bwd_dkv_reference, 8,
+             2 * t_bytes + 4 * kv_bytes + 2 * row_bytes, ("dk", "dv"))):
+        def kernel(launch=launch):
+            return launch(*args)
+        rows.append({
+            "name": name, "shape": "mistral_w4096", "timed_by": "cuda_graph",
+            "ms": graph_time_ms(kernel), "events_ms": cuda_time_ms(kernel),
+            "plain_ms": cuda_time_ms(plain(fn), iters=3, warmup=1),
+            "library_ms": lib_bwd, "library_covers": both,
+            "max_abs_err": max(e[f"max_abs_{x}"] for e in errs for x in err),
+            "ok": ok, **_bound(mult * b * h * d * pairs, nbytes)})
+    for r in rows:
+        r["dims"] = [b, t, h, k, d]
+        r["window"] = w
+        r["in_band_pairs_per_head"] = pairs
     return rows
 
 
@@ -2290,6 +2894,7 @@ def main():
     gen_launches, m = timed_phase("slice", phase_slice)
     serve_launches, serve_requests, serve_ctx = timed_phase(
         "serve", phase_serve, m)
+    load_launches = timed_phase("load", phase_load, m, serve_ctx)
     spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
                                                serve_ctx)
     mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
@@ -2301,7 +2906,11 @@ def main():
     torch.cuda.empty_cache()
     train_launches = timed_phase("train", phase_train, faults)
     timed_phase("checkpoint", phase_checkpoint)
+    banded = timed_phase("banded", phase_banded)
+    moe = timed_phase("moe", phase_moe)
     rows = timed_phase("timing", phase_timing)
+    window_rows = {r["name"]: r for r in rows
+                   if r["shape"] == "mistral_w4096"}
     kernels = []
     for r in rows:
         if r["shape"] != "train":
@@ -2323,6 +2932,25 @@ def main():
         if r["name"] == "flash_fwd":
             by_path["beam"] = {"launches": beam_launches, "calls": 1,
                                "per_call": beam_launches}
+        by_path["load"] = {"launches": load_launches[r["name"]]}
+        for path, res in (("banded", banded), ("moe", moe)):
+            tr = res["train"]
+            by_path[path] = {
+                "train": {"launches": tr["launches"][r["name"]],
+                          "steps": TRAIN_STEPS,
+                          "per_step": tr["launches"][r["name"]]
+                          / TRAIN_STEPS},
+                "generate": {"launches":
+                             res["generate"]["launches"][r["name"]],
+                             "calls": 1},
+                "serve": {"launches":
+                          res["serve"]["flash_launches"][r["name"]]}}
+        by_path["moe"]["load"] = {"launches": moe["load"][r["name"]]}
+        wr = window_rows[r["name"]]
+        at_window = {key: wr[key] for key in (
+            "dims", "window", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_covers", "max_abs_err",
+            "share_of_bound")}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[r["name"]],
@@ -2331,7 +2959,7 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_covers": r["library_covers"],
-            "timed_by": r["timed_by"]})
+            "timed_by": r["timed_by"], "at_mistral_w4096": at_window})
     emit({"phase": "end", "script_seconds": time.perf_counter() - t0,
           "phase_wall_s": wall})
     emit({"kernels": kernels})

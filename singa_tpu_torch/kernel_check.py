@@ -16,8 +16,8 @@ import torch
 from . import _build
 from .ops import flash_attention as fa
 
-__all__ = ["FLASH_CASES", "FLASH_FAULTS", "O_ROW_RTOL", "LSE_ATOL",
-           "make_qkv", "flash_errors", "check_flash", "flash_fault_source",
+__all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
+           "LSE_ATOL", "make_qkv", "flash_errors", "check_flash", "flash_fault_source",
            "flash_kernel", "FLASH_BWD_FAULTS", "GRAD_ROW_RTOL", "ROW_FLOOR",
            "flash_bwd_errors", "bwd_inputs", "check_flash_bwd",
            "flash_bwd_fault_source", "flash_bwd_kernel",
@@ -26,8 +26,12 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "O_ROW_RTOL", "LSE_ATOL",
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
 # inside a 128-key tile (a window's lower edge at D=128, and the causal
-# diagonal with Tq < Tk at Llama's G=2), and the shapes of
-# LlamaConfig.base() at prefill (B=4) and in training (B=8)
+# diagonal with Tq < Tk at Llama's G=2), the shapes of
+# LlamaConfig.base() at prefill (B=4) and in training (B=8), and a
+# window where it pays (Mistral-7B's W = 4096 at T = 8192; 8 of its 32
+# heads, a group of 4 as Mistral's, so the plain version fits), also with
+# 128 queries against the 8192 keys, where the band's lower edge falls
+# inside a 128-key tile
 FLASH_CASES = {
     "mha_noncausal_d64": (2, 512, 512, 4, 4, 64, False, None),
     "mha_causal_d64": (2, 512, 512, 4, 4, 64, True, None),
@@ -42,6 +46,8 @@ FLASH_CASES = {
     "tq512_tk1024_causal_d128": (1, 512, 1024, 16, 8, 128, True, None),
     "slice": (4, 1024, 1024, 16, 8, 128, True, None),
     "train": (8, 1024, 1024, 16, 8, 128, True, None),
+    "window4096_t8192": (1, 8192, 8192, 8, 2, 128, True, 4096),
+    "window_decode_edge": (1, 128, 8192, 8, 2, 128, True, 4096),
 }
 
 # Limits (readings in PERF.md).  o: the largest relative error of one
@@ -81,6 +87,12 @@ FLASH_FAULTS = {
         "train",
         "const uint32_t kt = ring + stage * T::kStageBytes;",
         "const uint32_t kt = ring + (stage + 1) % kS * T::kStageBytes;"),
+}
+
+
+# planted faults that must also fail the limits on further cases
+FAULT_ALSO_CASES = {
+    "window_one_key_wide": ("window4096_t8192", "window_decode_edge"),
 }
 
 

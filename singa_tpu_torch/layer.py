@@ -1,5 +1,5 @@
 """Layers, ported from ``singa_tpu/layer.py``: ``Layer``, ``Linear``,
-``Embedding``, ``RMSNorm``.
+``Embedding``, ``RMSNorm``, ``MoE``.
 
 Layers are ``nn.Module``s whose parameters are created at construction
 (the reference initializes lazily from the first input; here the caller
@@ -12,7 +12,7 @@ explicit ``torch.Generator`` on the layer's device.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from torch import nn
 from . import autograd
 from .device import Device, get_default_device
 
-__all__ = ["Layer", "Linear", "Embedding", "RMSNorm"]
+__all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "MoE"]
 
 
 class Layer(nn.Module):
@@ -153,3 +153,97 @@ class RMSNorm(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return autograd.rmsnorm(x, _maybe_cast(self.gamma, x), self.eps)
+
+
+class _MoEOp:
+    """The MoE FFN with its options bound (the reference's autograd
+    Operator; its gradient is torch autograd's)."""
+
+    def __init__(self, cf, top_k=1, swiglu=False, dispatch_mode="auto"):
+        self.cf = cf
+        self.top_k = top_k
+        self.swiglu = swiglu
+        self.dispatch_mode = dispatch_mode
+
+    def __call__(self, x, rw, wi, wo, *wg):
+        from .ops.moe import moe_forward
+        return moe_forward(x, rw, wi, wo, self.cf, return_aux=True,
+                           top_k=self.top_k,
+                           w_gate=wg[0] if self.swiglu else None,
+                           dispatch_mode=self.dispatch_mode)
+
+
+class MoE(Layer):
+    """Top-k mixture-of-experts FFN (``ops/moe.py``, GShard/Switch static
+    dispatch) over inputs of width `dim`.  Parameters: ``router`` (D, E),
+    ``w_in`` and, for SwiGLU experts, ``w_gate`` (E, D, H), ``w_out``
+    (E, H, D).
+
+    The router's load-balance losses accumulate across training-mode
+    calls (eval forwards do not record); `pop_aux_loss()` returns their
+    sum and resets: add it to the training loss once per step."""
+
+    # the aux-loss list is a side channel: a forward recomputed in the
+    # backward (activation checkpointing) would append again, so
+    # checkpointing skips any block that holds this layer
+    REMAT_SAFE = False
+
+    def __init__(self, num_experts: int, ffn_dim: int,
+                 capacity_factor: float = 1.25, top_k: int = 1,
+                 act: str = "relu", dispatch_mode: str = "auto", *,
+                 dim: int, device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        if not 1 <= top_k <= num_experts:
+            raise ValueError(
+                f"top_k={top_k} outside [1, num_experts={num_experts}]")
+        if act not in ("relu", "swiglu"):
+            raise ValueError(f"MoE act must be relu or swiglu, got {act!r}")
+        if dispatch_mode not in ("auto", "scatter", "einsum"):
+            raise ValueError(f"dispatch_mode must be auto/scatter/einsum, "
+                             f"got {dispatch_mode!r}")
+        self.num_experts = num_experts
+        self.ffn_dim = ffn_dim
+        self.capacity_factor = capacity_factor
+        self.top_k = top_k
+        self.act = act
+        self.dispatch_mode = dispatch_mode
+        self._aux_losses: List[torch.Tensor] = []
+        d, e, h = dim, num_experts, ffn_dim
+        gen = _generator(self.device, generator)
+        a = math.sqrt(6.0 / max(1, d + e))
+        std = (2.0 / (d + h)) ** 0.5
+        self.router = self._new_param((d, e))
+        self.w_in = self._new_param((e, d, h))
+        self.w_out = self._new_param((e, h, d))
+        self.w_gate = self._new_param((e, d, h)) if act == "swiglu" else None
+        with torch.no_grad():
+            self.router.uniform_(-a, a, generator=gen)
+            for w in (self.w_in, self.w_out, self.w_gate):
+                if w is not None:
+                    w.normal_(0.0, std, generator=gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the router keeps its own dtype: moe_forward routes in f32
+        extra = (self.w_gate,) if self.act == "swiglu" else ()
+        out, aux = _MoEOp(self.capacity_factor, self.top_k,
+                          self.act == "swiglu", self.dispatch_mode)(
+            x, self.router, self.w_in, self.w_out, *extra)
+        if autograd.is_training():
+            self._aux_losses.append(aux)
+        return out
+
+    @property
+    def aux_loss(self) -> Optional[torch.Tensor]:
+        """Most recent training call's balance loss."""
+        return self._aux_losses[-1] if self._aux_losses else None
+
+    def pop_aux_loss(self) -> Optional[torch.Tensor]:
+        """Sum of balance losses since the last pop; resets the store."""
+        if not self._aux_losses:
+            return None
+        total = self._aux_losses[0]
+        for a in self._aux_losses[1:]:
+            total = total + a
+        self._aux_losses = []
+        return total

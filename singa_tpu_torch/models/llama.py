@@ -1,12 +1,13 @@
 """Llama-3 family, ported from ``singa_tpu/models/llama.py``: pre-RMSNorm
 decoder blocks, rotary position embeddings, grouped-query attention,
-SwiGLU FFN, untied LM head.
+SwiGLU FFN, untied LM head; with Mistral-style sliding-window attention
+(``sliding_window``) and a Mixtral-style mixture-of-experts FFN
+(``num_experts``).
 
-Ported so far: ``forward``, ``forward_cached`` and ``generate``
-(serving), and ``train_one_batch`` with the fused or plain loss and
-optional remat (training, dense FFN).  Sliding-window attention, MoE and
-pipeline stages come with later slices and raise here rather than being
-ignored.
+Ported: ``forward``, ``forward_cached`` and ``generate`` (serving), and
+``train_one_batch`` with the fused or plain loss, the MoE balance loss
+and optional remat (training).  Pipeline stages come with the
+distribution slice and raise here rather than being ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .. import autograd, layer, model
 from ..device import Device, get_default_device
 from ..ops import kv_cache as kv_ops
 from ..ops import rope as rope_ops
-from ..ops.attention import attention
+from ..ops.attention import attention, banded_attention
 from ._generate import GenerateMixin
 from .transformer import next_token_loss, next_token_loss_fused
 
@@ -42,7 +43,8 @@ class LlamaConfig:
     # Llama-3.1-style frequency-dependent RoPE interpolation: 0 = off
     rope_scaling: float = 0.0
     rope_scaling_original_max_position: int = 8192
-    # Mistral-style sliding-window attention (0 = full causal context)
+    # Mistral-style sliding-window attention: query t attends keys in
+    # (t - window, t]; 0 = full causal context
     sliding_window: int = 0
     eps: float = 1e-5
     # training-path options of the reference (fused lm-head + CE loss)
@@ -51,7 +53,10 @@ class LlamaConfig:
     remat: bool = False
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
-    # Mixtral-style MoE FFN (0 = dense)
+    # Mixtral-style MoE: > 0 replaces every block's SwiGLU FFN with a
+    # top-`moe_top_k` mixture of `num_experts` SwiGLU experts; the
+    # balance losses join the training loss at `moe_aux_weight`.  remat
+    # skips MoE blocks (their aux losses are a side channel)
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -93,14 +98,10 @@ class LlamaConfig:
 
 
 def _check_supported(c: LlamaConfig) -> None:
-    later = [(c.sliding_window, "sliding_window", "the banded-attention slice"),
-             (c.num_experts, "num_experts", "the MoE slice"),
-             (c.pipeline_stages, "pipeline_stages", "the distribution slice")]
-    for value, name, where in later:
-        if value:
-            raise NotImplementedError(
-                f"LlamaConfig.{name}={value!r} is not ported yet; it comes "
-                f"with {where}")
+    if c.pipeline_stages:
+        raise NotImplementedError(
+            f"LlamaConfig.pipeline_stages={c.pipeline_stages!r} is not "
+            "ported yet; it comes with the distribution slice")
 
 
 class _LlamaAttention(layer.Layer):
@@ -121,6 +122,15 @@ class _LlamaAttention(layer.Layer):
         self.register_buffer("rope_sin", sin.to(device.torch_device),
                              persistent=False)
 
+    def _attend(self, q, k, v, T):
+        """Causal attention within the block, banded when the window is
+        shorter than the sequence (flash kernels with a window on the
+        card, the chunked path elsewhere)."""
+        W = self.cfg.sliding_window
+        if W and W < T:
+            return banded_attention(q, k, v, W)
+        return attention(q, k, v, causal=True)
+
     def forward(self, x: torch.Tensor, cache=None, pos=0):
         c = self.cfg
         B, T, _ = x.shape
@@ -130,16 +140,17 @@ class _LlamaAttention(layer.Layer):
         q = rope_ops.apply_rope(q, self.rope_cos, self.rope_sin, offset=pos)
         k = rope_ops.apply_rope(k, self.rope_cos, self.rope_sin, offset=pos)
         if cache is None:
-            o = attention(q, k, v, causal=True)
+            o = self._attend(q, k, v, T)
             return self.o_proj(o.reshape(B, T, c.num_heads * c.head_dim))
         ck, cv = kv_ops.update_cache(cache[0], cache[1], k, v, pos)
         if isinstance(pos, int) and pos == 0:
             # prefill: attend within the prompt through the regular stack
             # (flash kernel when the shape tiles) — what the reference's
             # ring_attention does with no 'seq' mesh installed
-            o = attention(q, k, v, causal=True)
+            o = self._attend(q, k, v, T)
         else:
-            o = kv_ops.cached_sdpa(q, ck, cv, limit=pos + T)
+            o = kv_ops.cached_sdpa(q, ck, cv, limit=pos + T,
+                                   window=c.sliding_window or None)
         out = self.o_proj(o.reshape(B, T, c.num_heads * c.head_dim))
         return out, (ck, cv)
 
@@ -164,7 +175,19 @@ class _LlamaBlock(layer.Layer):
         self.attn_norm = layer.RMSNorm(cfg.dim, eps=cfg.eps, device=device)
         self.attn = _LlamaAttention(cfg, device, generator)
         self.ffn_norm = layer.RMSNorm(cfg.dim, eps=cfg.eps, device=device)
-        self.ffn = _SwiGLU(cfg, device, generator)
+        if cfg.num_experts:
+            self.ffn = layer.MoE(cfg.num_experts, ffn_dim=cfg.ffn_dim,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 top_k=cfg.moe_top_k, act="swiglu",
+                                 dim=cfg.dim, device=device,
+                                 generator=generator)
+        else:
+            self.ffn = _SwiGLU(cfg, device, generator)
+        # activation checkpointing recomputes the forward in the
+        # backward: a block with a side channel (MoE aux losses) would
+        # record twice, so it runs plain (the reference's layer.Remat)
+        self.remat_safe = all(getattr(type(m), "REMAT_SAFE", True)
+                              for m in self.modules())
 
     def forward(self, x, cache=None, pos=0):
         if cache is not None:
@@ -203,13 +226,17 @@ class Llama(GenerateMixin, model.Model):
         """Final hidden states (B, T, dim) — everything but the lm head.
         With ``cfg.remat``, while training, each block runs under
         activation checkpointing: its internals are recomputed in the
-        backward instead of saved (the reference's ``layer.Remat``).
+        backward instead of saved (the reference's ``layer.Remat``),
+        except blocks with a side channel (MoE), which run plain.
         Parameter paths are unchanged: no wrapper module is added."""
         x = self.tok_emb(ids)
         remat = (self.cfg.remat and autograd.is_training()
                  and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            if remat and blk.remat_safe:
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         return self.norm_f(x)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -232,10 +259,21 @@ class Llama(GenerateMixin, model.Model):
             new_caches.append(nc)
         return self.lm_head(self.norm_f(x)), new_caches
 
+    def _moe_aux_loss(self) -> Optional[torch.Tensor]:
+        """Summed router balance losses of every MoE block (None when
+        dense or nothing accumulated)."""
+        total = None
+        for m in self.modules():
+            if isinstance(m, layer.MoE):
+                a = m.pop_aux_loss()
+                if a is not None:
+                    total = a if total is None else total + a
+        return total
+
     def train_one_batch(self, ids, labels=None):
-        """One training step on token ids (B, T): next-token loss, then
-        ``self.optimizer(loss)``.  Returns (loss, loss) with the fused
-        loss, else (logits, loss)."""
+        """One training step on token ids (B, T): next-token loss (plus
+        the weighted MoE balance loss), then ``self.optimizer(loss)``.
+        Returns (loss, loss) with the fused loss, else (logits, loss)."""
         tgt = labels if labels is not None else ids
         if self.cfg.fused_loss:
             loss = next_token_loss_fused(self.features(ids), self.lm_head,
@@ -244,6 +282,10 @@ class Llama(GenerateMixin, model.Model):
         else:
             logits = self.forward(ids)
             loss = next_token_loss(logits, tgt)
+        if self.cfg.num_experts:
+            aux = self._moe_aux_loss()
+            if aux is not None:
+                loss = loss + aux * self.cfg.moe_aux_weight
         self.optimizer(loss)
         if self.cfg.fused_loss:
             return loss, loss
@@ -253,14 +295,22 @@ class Llama(GenerateMixin, model.Model):
         return sum(p.numel() for p in self.get_params().values())
 
     def flops_per_token(self, seq_len: int) -> float:
-        """Training FLOPs/token ≈ 6·N_matmul + 12·L·dim·T (the reference's
-        accounting: N excludes the token-embedding gather, keeps the
-        lm head; + 2·dim·V when the fused loss recomputes the head)."""
+        """Training FLOPs/token ≈ 6·N_matmul + 12·L·dim·min(T, W) (the
+        reference's accounting: N excludes the token-embedding gather,
+        keeps the lm head, and counts only the top-k active experts of
+        an MoE block, not the capacity padding; + 2·dim·V when the fused
+        loss recomputes the head)."""
         c = self.cfg
         n = self.num_params()
         if n:
             n -= c.vocab_size * c.dim        # tok_emb gather
-        f = 6 * n + 12 * c.num_layers * c.dim * seq_len
+        if c.num_experts:
+            expert_p = 3 * c.dim * c.ffn_dim
+            n = max(n - c.num_layers * (c.num_experts - c.moe_top_k)
+                    * expert_p, 0)
+        attn_span = min(seq_len, c.sliding_window) if c.sliding_window \
+            else seq_len
+        f = 6 * n + 12 * c.num_layers * c.dim * attn_span
         if c.fused_loss:
             f += 2 * c.dim * c.vocab_size
         return f

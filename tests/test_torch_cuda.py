@@ -760,3 +760,73 @@ def test_bf16_package_round_trips_through_the_codec(cuda_device):
     assert dst.inject_handoff(back)
     dst.run_until_idle()
     assert [list(map(int, h.tokens))] == want
+
+
+# -- sliding-window and mixture-of-experts configurations ---------------------
+
+def _config_llama(cuda_device, f32=False, **kw):
+    """The tiny Llama at head_dim 32 with a window or experts; `f32`
+    computes in f32 on the card (its default is bf16 activations)."""
+    dev = cuda_device
+    if f32:
+        dev = tdevice.create_device("cuda")
+        dev.default_dtype = torch.float32
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, max_position=1024,
+                              fused_loss=True, **kw)
+    return Llama(cfg, device=dev,
+                 generator=torch.Generator("cuda").manual_seed(0))
+
+
+_CONFIGS = {"window": dict(sliding_window=128),
+            "moe": dict(num_experts=4, moe_top_k=2, moe_capacity_factor=2.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_CONFIGS))
+def test_config_captured_train_step_equals_eager_bitwise(cuda_device, kind):
+    """A windowed (all three kernels banded at T = 512 > W) and an MoE
+    train step: the captured steps' losses equal the eager ones bitwise,
+    each kernel launches once per layer a step, and the captured body's
+    warm-up syncs nothing with the host."""
+    batches = _batches(5)
+    runs = {}
+    for use_graph in (False, True):
+        m = _config_llama(cuda_device, **_CONFIGS[kind])
+        m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+        m.compile([batches[0]], is_train=True, use_graph=use_graph)
+        losses = []
+        for i, x in enumerate(batches):
+            tfa.reset_device_launches()
+            if use_graph and i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, loss = m.train_step(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses.append(loss.item())
+            assert tfa.device_launches() == dict.fromkeys(
+                tfa.KERNELS, m.cfg.num_layers)
+        runs[use_graph] = losses
+        if kind == "moe":
+            assert all(blk.ffn._aux_losses == [] for blk in m.blocks)
+    assert m.graph.graph is not None
+    assert runs[True] == runs[False]
+    assert len(set(runs[False])) == len(runs[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_CONFIGS))
+def test_config_engine_streams_equal_generate(cuda_device, kind):
+    """Computing in f32 on the card, the paged engine's streams (prompts
+    past the window; MoE at the dropless factor) equal generate()'s,
+    and its programs stay within (1, 1)."""
+    from singa_tpu_torch.serve import ServeEngine
+    m = _config_llama(cuda_device, f32=True, **_CONFIGS[kind])
+    prompts = _serve_prompts(6, m.cfg.vocab_size, lo=130, hi=300)
+    eng = ServeEngine(m, 4, 512, block_size=16)
+    got = _serve(eng, prompts)
+    want = [list(map(int, m.generate(p[None], max_new_tokens=12)
+                     [0, p.size:])) for p in prompts]
+    assert got == want
+    assert eng.compiled_counts() == (1, 1)
+    assert eng._decode.graph.graph is not None

@@ -180,7 +180,7 @@ def test_cached_sdpa_matches(limit, window, T):
 
 # -- hygiene ------------------------------------------------------------------
 
-_FORBIDDEN = ("jax", "jaxlib", "singa", "singa_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "singa", "singa_tpu", "tools")
 
 
 def _forbidden_imports(path: Path):
@@ -198,11 +198,12 @@ def _forbidden_imports(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """The package (serve/disagg and serve/net included), chip_smoke.py
-    and the module whose builder the process tier's workers import."""
+    """The package (serve/disagg, serve/net and tools included),
+    chip_smoke.py and the module whose builder the process tier's
+    workers import: no jax, no JAX package and not its ``tools``."""
     files = sorted((REPO / "singa_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
-    assert {"disagg", "net"} <= {f.parent.name for f in files}
+    assert {"disagg", "net", "tools"} <= {f.parent.name for f in files}
     assert len(files) > 10
     found = {str(f.relative_to(REPO)): _forbidden_imports(f) for f in files}
     assert not {f: b for f, b in found.items() if b}
