@@ -152,9 +152,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                same at training B=4 x T=1024 (the aux loss read at every
                step, the experts' rows over the active ones),
                generate() at B=4, P=1024, N=32, and the serve phase's
-               engine shape over its 16 prompts x 64 tokens, with a probe
-               of whether a token's bf16 expert rows depend on the batch;
-               then the load generator through that engine, as in phase 7
+               engine shape over its 16 prompts x 64 tokens; then the
+               load generator through that engine, as in phase 7; then
+               the engine and generate() rerun eagerly with their expert
+               choices traced: the bf16 engine's teacher-forced gaps held
+               to the bf16 gate where its routing agreed with the
+               forward's, where the streams part the routing and logit
+               margins, and a probe of whether a token's expert rows
+               depend on the rows beside it at each size the paths run;
+               the engine in f32 held by the f32 oracle
  17. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
@@ -306,9 +312,10 @@ LOAD_REQUESTS, LOAD_RATE_SHARE, LOAD_SEED = 48, 0.8, 0
 LOAD_WORKLOAD = dict(prompt_lens=(256, 384, 512), new_tokens=(32, 64),
                      tenants=3, shared_len=256)
 # the banded and moe phases: two published configurations
-# (singa_tpu_torch/tools/loadgen.py: mistral-w4096 from Mistral-7B-v0.1's
-# config.json, mixtral-8x7b from Mixtral-8x7B-v0.1's) at their widths,
-# cut in depth only, random weights from seed 0.  Training (B, T) with
+# (singa_tpu_torch/models/llama.py PUBLISHED: mistral-w4096 from
+# Mistral-7B-v0.1's config.json, mixtral-8x7b from Mixtral-8x7B-v0.1's)
+# at their widths, cut in depth only, random weights from seed 0.
+# Training (B, T) with
 # the fused loss; generate() (B, P, N); CONFIG_STEPS eager and captured
 # steps held bitwise
 BANDED_LAYERS, MOE_LAYERS = 4, 2
@@ -389,6 +396,25 @@ def host_time_us(fn, iters=200):
     return us
 
 
+def card_clocks():
+    """The card's SM clock against its maximum, temperature, power draw
+    and the reasons nvidia-smi gives for holding the clock down (a bit
+    mask; 0 = none): a time taken while they are set is slower than the
+    card's best."""
+    fields = ["clocks.sm", "clocks.max.sm", "temperature.gpu",
+              "power.draw", "clocks_event_reasons.active"]
+    for _ in range(2):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=" + ",".join(fields),
+             "--format=csv,noheader"], capture_output=True, text=True)
+        if smi.returncode == 0:
+            vals = smi.stdout.strip().splitlines()[0].split(", ")
+            return dict(zip(fields, vals))
+        # drivers before 535 name the reasons clocks_throttle_reasons
+        fields[-1] = "clocks_throttle_reasons.active"
+    return {"nvidia_smi_error": smi.stderr.strip() or smi.stdout.strip()}
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -399,7 +425,8 @@ def phase_card():
     emit({"phase": "card", "nvidia_smi": line, "torch_name": name,
           "count": torch.cuda.device_count(),
           "capability": list(torch.cuda.get_device_capability(0)),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "clocks": card_clocks()})
     return name
 
 
@@ -2340,30 +2367,263 @@ def config_generate(m, b, p, n, later):
     return res
 
 
-def moe_row_probe(c, params):
-    """Whether a token's MoE output depends on the other tokens routed
-    with it (what serving an MoE in bf16 must face): block 0's experts on
-    8 tokens and on the first alone, dropless, and one expert product
-    at M = 8 and M = 1.  Bitwise equality of the first token's row."""
+@contextmanager
+def route_trace():
+    """While open, every `ops.moe._route` call appends its router
+    probabilities (N, E), f32, to the yielded list.  Only eager calls
+    are seen: a CUDA-graph replay runs no Python."""
     from singa_tpu_torch.ops import moe
-    g = torch.Generator("cuda").manual_seed(4)
-    x = torch.randn(8, c.dim, generator=g, device="cuda").to(torch.bfloat16)
+    calls = []
+    saved = moe._route
+
+    def traced(logits, capacity, k):
+        out = saved(logits, capacity, k)
+        calls.append(out[4].detach().clone())
+        return out
+    moe._route = traced
+    try:
+        yield calls
+    finally:
+        moe._route = saved
+
+
+def moe_row_probe(c, params, sizes):
+    """Whether a token's MoE output depends on the rows routed beside it
+    at the sizes the serving paths run: block 0's experts (bf16,
+    dropless) on one token alone and as the last of N tokens, for each
+    N of `sizes`.  {N: the row bitwise equal, its largest difference}."""
+    from singa_tpu_torch.ops import moe
     w = {k: params[f"blocks.0.ffn.{k}"]
          for k in ("router", "w_in", "w_out", "w_gate")}
+    dev = w["router"].device
+    g = torch.Generator(dev).manual_seed(4)
+    x = torch.randn(max(sizes), c.dim, generator=g, device=dev) \
+        .to(torch.bfloat16)
 
     def ffn(xs):
         return moe.moe_forward(xs, w["router"], w["w_in"], w["w_out"],
                                c.moe_capacity_factor, top_k=c.moe_top_k,
                                w_gate=w["w_gate"])
+    out = {}
     with torch.no_grad():
-        many, one = ffn(x)[0], ffn(x[:1])[0]
-        mm8, mm1 = (x @ w["w_in"][0])[0], (x[:1] @ w["w_in"][0])[0]
-    return {"moe_row_bitwise": torch.equal(many, one),
-            "moe_row_max_abs_diff": (many.float() - one.float()).abs()
-            .max().item(),
-            "matmul_row_bitwise_m8_vs_m1": torch.equal(mm8, mm1),
-            "matmul_row_max_abs_diff": (mm8.float() - mm1.float()).abs()
-            .max().item()}
+        one = ffn(x[:1])[0]
+        for n in sizes:
+            row = ffn(torch.cat([x[1:n], x[:1]]))[-1]
+            out[n] = {"bitwise": torch.equal(row, one),
+                      "max_abs_diff": (row.float() - one.float()).abs()
+                      .max().item()}
+    return out
+
+
+def _chosen(probs, k):
+    """(..., E) router probabilities -> (the k experts chosen, sorted;
+    the margin p_k - p_(k+1) that a flip of the k-th choice must
+    cross)."""
+    v, i = probs.topk(k + 1, dim=-1)
+    return i[..., :k].sort(-1).values, v[..., k - 1] - v[..., k]
+
+
+def engine_routes(m, prompts, new):
+    """The serve engine (the moe phase's shape, bf16) over `prompts`,
+    every program dispatch run eagerly so that `route_trace` sees it:
+    (streams, each request's (new, layers, E) router probabilities of
+    the row that produced each token, the engine).  A decode tick's
+    rows are the slots; a prefill chunk's token comes from its last
+    valid row."""
+    from singa_tpu_torch.serve import program
+
+    def make(call):
+        def eager(self):
+            if self.calls == 0:
+                return call(self)
+            self.body()
+            self.calls += 1
+        return eager
+    L, slots = m.cfg.num_layers, SERVE_SLOTS
+    check(slots != SERVE_BLOCK, "a decode tick's rows and a prefill "
+          "chunk's would not be told apart")
+    routes = [[] for _ in prompts]
+    with _swap(program.Program, "__call__", make):
+        eng, _ = serve_engine(m, slots, SERVE_MAX_LEN, SERVE_BLOCK)
+        chunk_last = [0]
+        prefill_chunk = eng._prefill_chunk
+
+        def chunked(ids, start, slot):
+            chunk_last[0] = ids.size - 1
+            return prefill_chunk(ids, start, slot)
+        eng._prefill_chunk = chunked
+        with route_trace() as calls:
+            def on_token(i):
+                def cb(tok, h):
+                    last = calls[-L:]
+                    row = (h._req.slot if last[0].shape[0] == slots
+                           else chunk_last[0])
+                    routes[i].append(torch.stack([c[row] for c in last]))
+                return cb
+            hs = [eng.submit(p, max_new_tokens=new, on_token=on_token(i))
+                  for i, p in enumerate(prompts)]
+            eng.run_until_idle()
+    streams = [list(map(int, h.tokens)) for h in hs]
+    return streams, [torch.stack(r).cpu() for r in routes], eng
+
+
+def generate_routes(m, prompts, new):
+    """Eager generate() (bf16, one call per prompt) under `route_trace`:
+    (streams, each request's (new, layers, E) router probabilities of
+    the row that produced each token: the prefill's last, then each
+    decode step's one)."""
+    L = m.cfg.num_layers
+    streams, routes = [], []
+    for p in prompts:
+        with route_trace() as calls:
+            out = m.generate(p[None], max_new_tokens=new, use_graph=False,
+                             param_dtype=torch.bfloat16)
+        rows = [torch.stack([c[p.size - 1 if j == 0 else 0]
+                             for c in calls[j * L:(j + 1) * L]])
+                for j in range(new)]
+        streams.append(list(map(int, out[0, p.size:])))
+        routes.append(torch.stack(rows).cpu())
+    return streams, routes
+
+
+def teacher_routes(m, eng, prompts, streams):
+    """teacher_forced_gaps (the kernels' forward) under `route_trace`:
+    (each request's gaps, its (new, layers, E) router probabilities of
+    the row that scored each token)."""
+    L = m.cfg.num_layers
+    with route_trace() as calls:
+        gaps, _ = teacher_forced_gaps(m, eng, prompts, streams, plain=False)
+    routes, per, at = [], [], 0
+    for i, (p, toks) in enumerate(zip(prompts, streams)):
+        layer = calls[i * L:(i + 1) * L]
+        routes.append(torch.stack(layer, 1)[p.size - 1:p.size - 1
+                                            + len(toks)].cpu())
+        per.append(gaps[at:at + len(toks)])
+        at += len(toks)
+    return per, routes
+
+
+def routed_alike_gaps(routes, teacher, gaps, k, limit):
+    """A path's teacher-forced gaps split by whether the row that
+    produced each token chose the same k experts in every layer as the
+    teacher-forced forward's row: the gate holds the alike positions to
+    `limit`; the others' teacher margins show how near a flip was."""
+    alike, g_alike, g_flip, m_flip, m_alike = [], [], [], [], []
+    for r, t, g in zip(routes, teacher, gaps):
+        (ri, _), (ti, tm) = _chosen(r, k), _chosen(t, k)
+        same = (ri == ti).all(-1).all(-1).numpy()
+        margin = tm.min(-1).values.numpy()
+        alike.append(same)
+        g_alike += list(g[same])
+        g_flip += list(g[~same])
+        m_flip += list(margin[~same])
+        m_alike += list(margin[same])
+    n = int(sum(a.size for a in alike))
+    return {"limit": limit, "positions": n,
+            "routed_alike": int(sum(a.sum() for a in alike)),
+            "max_gap_alike": float(max(g_alike, default=0.0)),
+            "alike_over_limit": int(sum(x > limit for x in g_alike)),
+            "max_gap_flipped": float(max(g_flip, default=0.0)),
+            "flipped_over_limit": int(sum(x > limit for x in g_flip)),
+            "teacher_margin_flipped_max": float(max(m_flip, default=0.0)),
+            "teacher_margin_alike_median": float(np.median(m_alike))
+            if m_alike else None}
+
+
+def divergence_routes(e_streams, e_routes, g_streams, g_routes, k):
+    """For each request whose engine and generate() streams differ: the
+    first differing token, the first token (at or before it) whose
+    producing row chose other experts in the two paths, and at that
+    token each path's router margin in the layer that flipped."""
+    out = []
+    for i, (es, gs) in enumerate(zip(e_streams, g_streams)):
+        if es == gs:
+            continue
+        d = next(j for j, (a, b) in enumerate(zip(es, gs)) if a != b)
+        (ei, em), (gi, gm) = (_chosen(e_routes[i][:d + 1], k),
+                              _chosen(g_routes[i][:d + 1], k))
+        differ = (ei != gi).any(-1)                       # (d + 1, L)
+        rows = differ.any(-1).nonzero()
+        entry = {"request": i, "first_differing_token": d,
+                 "routing_differs_at_that_token": bool(differ[d].any())}
+        if rows.numel():
+            j = int(rows[0, 0])
+            lay = int(differ[j].nonzero()[0, 0])
+            entry.update({"first_routing_difference": j, "layer": lay,
+                          "engine_experts": ei[j, lay].tolist(),
+                          "generate_experts": gi[j, lay].tolist(),
+                          "engine_margin": float(em[j, lay]),
+                          "generate_margin": float(gm[j, lay])})
+        out.append(entry)
+    return out
+
+
+def teacher_split(m, eng, prompt, common, a, b):
+    """The kernels' forward over `prompt` and the `common` tokens under
+    the engine's weights: at the next position, its logit of token `a`
+    minus its logit of `b`."""
+    from singa_tpu_torch.models import _generate
+    seq = np.concatenate([prompt, np.asarray(common, prompt.dtype)])
+    ids = torch.as_tensor(np.pad(seq, (0, -seq.size % 128))[None],
+                          dtype=torch.int64, device=eng._device)
+    with torch.no_grad(), _generate._bound(m, eng._params):
+        lg = m(ids)[0, seq.size - 1].float()
+    return float(lg[a] - lg[b])
+
+
+def moe_route_check(m, prompts, new, captured, gen, later):
+    """Why the bf16 MoE engine's streams leave generate()'s, and a bf16
+    gate on the engine that routing flips cannot trip.  The engine and
+    generate() rerun eagerly under `route_trace` (their streams held
+    bitwise to the captured runs'), and the teacher-forced forward over
+    each path's streams with it: at each token, whether the producing
+    row chose the same experts in the path and in the forward.  Where
+    it did, the engine's gap is held to SERVE_BF16_GAP.  Beside it, the
+    row probe at every size the paths run an MoE layer on, and, where
+    the two paths' streams part, the first routing difference, the
+    router margins there, and the forward's logit split between the two
+    paths' tokens."""
+    k = m.cfg.moe_top_k
+    e_streams, e_routes, eng = engine_routes(m, prompts, new)
+    e_gaps, te_routes = teacher_routes(m, eng, prompts, e_streams)
+    g_streams, g_routes = generate_routes(m, prompts, new)
+    g_gaps, tg_routes = teacher_routes(m, eng, prompts, g_streams)
+    pad = [(p.size + new - 1) + (-(p.size + new - 1) % 128)
+           for p in prompts]
+    sizes = sorted({1, SERVE_SLOTS, SERVE_BLOCK, MOE_GEN[0] * MOE_GEN[1],
+                    *(p.size for p in prompts), *pad})
+    probe = moe_row_probe(m.cfg, eng._params, sizes)
+    divergence = divergence_routes(e_streams, e_routes, g_streams,
+                                   g_routes, k)
+    for d in divergence:
+        i, j = d["request"], d["first_differing_token"]
+        d["teacher_logit_engine_minus_generate"] = teacher_split(
+            m, eng, prompts[i], e_streams[i][:j], e_streams[i][j],
+            g_streams[i][j])
+    eng.close()
+    del eng
+    m._gen_sessions.clear()
+    res = {
+        "eager_engine_equals_captured": e_streams == captured,
+        "eager_generate_equals_captured": g_streams == gen,
+        "engine": routed_alike_gaps(e_routes, te_routes, e_gaps, k,
+                                    SERVE_BF16_GAP),
+        "generate": routed_alike_gaps(g_routes, tg_routes, g_gaps, k,
+                                      SERVE_BF16_GAP),
+        "divergence": divergence,
+        "row_probe": {"sizes": sizes,
+                      "bitwise_at_every_size": all(
+                          v["bitwise"] for v in probe.values()),
+                      "differing": {n: v for n, v in probe.items()
+                                    if not v["bitwise"]}}}
+    later(res["eager_engine_equals_captured"]
+          and res["eager_generate_equals_captured"],
+          "an eager rerun's streams differ from the captured run's")
+    eg = res["engine"]
+    later(eg["routed_alike"] > 0 and eg["alike_over_limit"] == 0,
+          f"bf16 engine tokens fail the teacher-forced check where "
+          f"routing agreed: {eg}")
+    return res
 
 
 def config_serve(m, slots, max_len, block, prompts, new, later,
@@ -2373,10 +2633,10 @@ def config_serve(m, slots, max_len, block, prompts, new, later,
     counts, flash launches counted on the card from the engine's warm-up
     on; the streams against generate()'s (bf16, one call per prompt) and
     both sets' teacher-forced gaps (the kernels' forward), the engine's
-    held to the serve phase's bf16 limit when `gate`.  Returns (result,
-    engine) with the engine open.  Checks go to `later(cond, msg)`, as
-    in the other config_* helpers, so a phase prints its results before
-    any check stops the run."""
+    held to the serve phase's bf16 limit when `gate`.  Checks go to
+    `later(cond, msg)`, as in the other config_* helpers, so a phase
+    prints its results before any check stops the run.  Returns (result,
+    engine, its streams, generate()'s) with the engine open."""
     from singa_tpu_torch.ops import flash_attention as fa
 
     fa.reset_device_launches()
@@ -2431,7 +2691,7 @@ def config_serve(m, slots, max_len, block, prompts, new, later,
     later(not gate or float(gaps.max()) <= SERVE_BF16_GAP,
           f"engine tokens fail the teacher-forced check: max gap "
           f"{gaps.max()}")
-    return res, eng
+    return res, eng, streams, gen
 
 
 def oracle_f32_masters(m, prompts):
@@ -2439,8 +2699,8 @@ def oracle_f32_masters(m, prompts):
     masters computing in f32 (arena and activations) serves `prompts`;
     its tokens' teacher-forced gaps, and its streams beside f32
     generate()'s.  In bf16 an MoE's routing flips between two experts
-    whose router scores lie within a rounding of each other, which no
-    bf16 gate can tell from a fault."""
+    whose router scores lie within a rounding of each other, and a
+    flipped token's gap exceeds the bf16 gate (moe_route_check)."""
     dev = m.device
     saved, dev.default_dtype = dev.default_dtype, torch.float32
     try:
@@ -2468,11 +2728,11 @@ def phase_banded():
     layers): training at T = 8192 with all three kernels banded,
     generate() with a banded prefill, and the paged engine over prompts
     longer than the window."""
-    from singa_tpu_torch.tools.loadgen import model_config
+    from singa_tpu_torch.models.llama import PUBLISHED
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(model_config("mistral-w4096", BANDED_LAYERS),
-                              fused_loss=True)
+    cfg = dataclasses.replace(PUBLISHED["mistral-w4096"],
+                              num_layers=BANDED_LAYERS, fused_loss=True)
     checks = []
 
     def later(cond, msg):
@@ -2489,7 +2749,8 @@ def phase_banded():
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in rng.randint(BANDED_PROMPTS[0], BANDED_PROMPTS[1] + 1,
                                     n_req)]
-    serve, eng = config_serve(m, slots, max_len, block, prompts, new, later)
+    serve, eng, _, _ = config_serve(m, slots, max_len, block, prompts, new,
+                                    later)
     eng.close()
     del eng, m
     _free()
@@ -2511,11 +2772,11 @@ def phase_moe():
     layers, dropless capacity factor E/k): training with the aux loss,
     generate(), the paged engine over the serve phase's prompts, and the
     load generator through that engine."""
-    from singa_tpu_torch.tools.loadgen import model_config
+    from singa_tpu_torch.models.llama import PUBLISHED
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(model_config("mixtral-8x7b", MOE_LAYERS),
-                              fused_loss=True)
+    cfg = dataclasses.replace(PUBLISHED["mixtral-8x7b"],
+                              num_layers=MOE_LAYERS, fused_loss=True)
     checks = []
 
     def later(cond, msg):
@@ -2534,12 +2795,16 @@ def phase_moe():
     m = config_model(cfg)
     gen = config_generate(m, *MOE_GEN, later)
     prompts = serve_prompts(cfg.vocab_size)
-    serve, eng = config_serve(m, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK,
-                              prompts, SERVE_NEW, later, gate=False)
-    serve["row_probe"] = moe_row_probe(cfg, eng._params)
+    # the engine is gated where routing agreed (moe_route_check)
+    serve, eng, streams, gen_streams = config_serve(
+        m, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK, prompts, SERVE_NEW,
+        later, gate=False)
     load = load_run(eng, serve["tokens_per_s"], SERVE_NEW, "mixtral-8x7b")
     eng.close()
     del eng
+    _free()
+    serve["routing"] = moe_route_check(m, prompts, SERVE_NEW, streams,
+                                       gen_streams, later)
     _free()
     gaps, serve["teacher_forced_f32"] = oracle_f32_masters(
         m, prompts[:SERVE_ORACLE])
@@ -2961,7 +3226,7 @@ def main():
             "library_covers": r["library_covers"],
             "timed_by": r["timed_by"], "at_mistral_w4096": at_window})
     emit({"phase": "end", "script_seconds": time.perf_counter() - t0,
-          "phase_wall_s": wall})
+          "phase_wall_s": wall, "clocks_after_timing": card_clocks()})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

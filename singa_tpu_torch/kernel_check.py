@@ -27,11 +27,12 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
 # inside a 128-key tile (a window's lower edge at D=128, and the causal
 # diagonal with Tq < Tk at Llama's G=2), the shapes of
-# LlamaConfig.base() at prefill (B=4) and in training (B=8), and a
-# window where it pays (Mistral-7B's W = 4096 at T = 8192; 8 of its 32
-# heads, a group of 4 as Mistral's, so the plain version fits), also with
-# 128 queries against the 8192 keys, where the band's lower edge falls
-# inside a 128-key tile
+# LlamaConfig.base() at prefill (B=4) and in training (B=8), Mixtral-
+# 8x7B's training shape (32 heads over 8 K/V heads: dK/dV sums groups of
+# 4 at T = 1024 causal), and a window where it pays (Mistral-7B's W =
+# 4096 at T = 8192; 8 of its 32 heads, a group of 4 as Mistral's, so the
+# plain version fits), also with 128 queries against the 8192 keys,
+# where the band's lower edge falls inside a 128-key tile
 FLASH_CASES = {
     "mha_noncausal_d64": (2, 512, 512, 4, 4, 64, False, None),
     "mha_causal_d64": (2, 512, 512, 4, 4, 64, True, None),
@@ -46,6 +47,7 @@ FLASH_CASES = {
     "tq512_tk1024_causal_d128": (1, 512, 1024, 16, 8, 128, True, None),
     "slice": (4, 1024, 1024, 16, 8, 128, True, None),
     "train": (8, 1024, 1024, 16, 8, 128, True, None),
+    "mixtral_train": (4, 1024, 1024, 32, 8, 128, True, None),
     "window4096_t8192": (1, 8192, 8192, 8, 2, 128, True, 4096),
     "window_decode_edge": (1, 128, 8192, 8, 2, 128, True, 4096),
 }

@@ -20,6 +20,7 @@ from torch import nn
 
 from . import autograd
 from .device import Device, get_default_device
+from .ops.moe import moe_forward
 
 __all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "MoE"]
 
@@ -155,24 +156,6 @@ class RMSNorm(Layer):
         return autograd.rmsnorm(x, _maybe_cast(self.gamma, x), self.eps)
 
 
-class _MoEOp:
-    """The MoE FFN with its options bound (the reference's autograd
-    Operator; its gradient is torch autograd's)."""
-
-    def __init__(self, cf, top_k=1, swiglu=False, dispatch_mode="auto"):
-        self.cf = cf
-        self.top_k = top_k
-        self.swiglu = swiglu
-        self.dispatch_mode = dispatch_mode
-
-    def __call__(self, x, rw, wi, wo, *wg):
-        from .ops.moe import moe_forward
-        return moe_forward(x, rw, wi, wo, self.cf, return_aux=True,
-                           top_k=self.top_k,
-                           w_gate=wg[0] if self.swiglu else None,
-                           dispatch_mode=self.dispatch_mode)
-
-
 class MoE(Layer):
     """Top-k mixture-of-experts FFN (``ops/moe.py``, GShard/Switch static
     dispatch) over inputs of width `dim`.  Parameters: ``router`` (D, E),
@@ -225,10 +208,10 @@ class MoE(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the router keeps its own dtype: moe_forward routes in f32
-        extra = (self.w_gate,) if self.act == "swiglu" else ()
-        out, aux = _MoEOp(self.capacity_factor, self.top_k,
-                          self.act == "swiglu", self.dispatch_mode)(
-            x, self.router, self.w_in, self.w_out, *extra)
+        out, aux = moe_forward(x, self.router, self.w_in, self.w_out,
+                               self.capacity_factor, return_aux=True,
+                               top_k=self.top_k, w_gate=self.w_gate,
+                               dispatch_mode=self.dispatch_mode)
         if autograd.is_training():
             self._aux_losses.append(aux)
         return out

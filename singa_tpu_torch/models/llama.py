@@ -27,7 +27,7 @@ from ..ops.attention import attention, banded_attention
 from ._generate import GenerateMixin
 from .transformer import next_token_loss, next_token_loss_fused
 
-__all__ = ["LlamaConfig", "Llama"]
+__all__ = ["LlamaConfig", "Llama", "PUBLISHED"]
 
 
 @dataclass
@@ -95,6 +95,25 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.num_heads
+
+
+# published configurations at their widths and depths (not presets: the
+# JAX package has none); cut the depth with dataclasses.replace
+PUBLISHED = {
+    # Mistral-7B-v0.1, its config.json: sliding_window 4096
+    "mistral-w4096": LlamaConfig(
+        vocab_size=32000, dim=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, ffn_dim=14336, max_position=32768,
+        rope_theta=10000.0, eps=1e-5, sliding_window=4096),
+    # Mixtral-8x7B-v0.1, its config.json: 8 experts, top-2; the capacity
+    # factor E/k = 4.0 routes dropless, as the JAX package's HF import
+    # sets it (singa_tpu/models/convert.py)
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, dim=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, ffn_dim=14336, max_position=32768,
+        rope_theta=1e6, eps=1e-5, num_experts=8, moe_top_k=2,
+        moe_capacity_factor=4.0),
+}
 
 
 def _check_supported(c: LlamaConfig) -> None:

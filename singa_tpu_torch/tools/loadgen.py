@@ -45,38 +45,17 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 __all__ = ["build_workload", "run_load", "append_record", "parse_ratios",
-           "model_config", "main"]
-
-
-def _published():
-    """The configurations the generator builds, at their published widths
-    and depths (``--layers`` cuts the depth)."""
-    from ..models import LlamaConfig
-    return {
-        "tiny": LlamaConfig.tiny(),
-        "base": LlamaConfig.base(),
-        # Mistral-7B-v0.1, its config.json: sliding_window 4096
-        "mistral-w4096": LlamaConfig(
-            vocab_size=32000, dim=4096, num_layers=32, num_heads=32,
-            num_kv_heads=8, ffn_dim=14336, max_position=32768,
-            rope_theta=10000.0, eps=1e-5, sliding_window=4096),
-        # Mixtral-8x7B-v0.1, its config.json: 8 experts, top-2; the
-        # capacity factor E/k = 4.0 routes dropless, as the JAX package's
-        # HF import sets it (singa_tpu/models/convert.py)
-        "mixtral-8x7b": LlamaConfig(
-            vocab_size=32000, dim=4096, num_layers=32, num_heads=32,
-            num_kv_heads=8, ffn_dim=14336, max_position=32768,
-            rope_theta=1e6, eps=1e-5, num_experts=8, moe_top_k=2,
-            moe_capacity_factor=4.0),
-    }
-
+           "main"]
 
 CONFIG_NAMES = ("tiny", "base", "mistral-w4096", "mixtral-8x7b")
 
 
-def model_config(name: str, layers: Optional[int] = None):
-    """The LlamaConfig called `name`, cut to `layers` layers if given."""
-    cfg = _published()[name]
+def _model_config(name: str, layers: Optional[int] = None):
+    """The LlamaConfig `--config` names (a preset, or one of
+    ``models.llama.PUBLISHED``), cut to `layers` layers if given."""
+    from ..models import LlamaConfig, llama
+    presets = {"tiny": LlamaConfig.tiny, "base": LlamaConfig.base}
+    cfg = presets[name]() if name in presets else llama.PUBLISHED[name]
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
@@ -284,7 +263,7 @@ def _build_model(args):
     from ..models import Llama
     dev = create_device(args.device)
     gen = torch.Generator(dev.torch_device.type).manual_seed(args.seed)
-    return Llama(model_config(args.config, args.layers), device=dev,
+    return Llama(_model_config(args.config, args.layers), device=dev,
                  generator=gen)
 
 

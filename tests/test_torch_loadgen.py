@@ -14,7 +14,8 @@ from singa_tpu import models as jmodels
 from singa_tpu import tensor as jtensor
 from singa_tpu.serve import ServeEngine as JEngine
 from singa_tpu_torch import device as tdevice
-from singa_tpu_torch.models import Llama, LlamaConfig, load_reference_params
+from singa_tpu_torch.models import (Llama, LlamaConfig, llama,
+                                    load_reference_params)
 from singa_tpu_torch.obs import schema as tschema
 from singa_tpu_torch.serve import Router, ServeEngine, build_pools
 from singa_tpu_torch.tools import loadgen as tload
@@ -181,12 +182,15 @@ def test_cli_serves_and_records_on_the_cpu(tmp_path, capsys):
 
 
 def test_model_configs_keep_their_published_widths():
-    mis = tload.model_config("mistral-w4096", layers=4)
-    mix = tload.model_config("mixtral-8x7b", layers=2)
+    mis = tload._model_config("mistral-w4096", layers=4)
+    mix = tload._model_config("mixtral-8x7b", layers=2)
     assert (mis.dim, mis.num_heads, mis.num_kv_heads, mis.ffn_dim,
             mis.sliding_window, mis.num_layers, mis.rope_theta) == \
         (4096, 32, 8, 14336, 4096, 4, 10000.0)
     assert (mix.num_experts, mix.moe_top_k, mix.moe_capacity_factor,
             mix.num_layers, mix.rope_theta, mix.sliding_window) == \
         (8, 2, 4.0, 2, 1e6, 0)
-    assert tload.model_config("base") == LlamaConfig.base()
+    assert tload._model_config("base") == LlamaConfig.base()
+    assert tload._model_config("tiny") == LlamaConfig.tiny()
+    assert llama.PUBLISHED["mistral-w4096"].num_layers == 32
+    assert llama.PUBLISHED["mixtral-8x7b"].num_layers == 32
