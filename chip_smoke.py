@@ -161,7 +161,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
                margins, and a probe of whether a token's expert rows
                depend on the rows beside it at each size the paths run;
                the engine in f32 held by the f32 oracle
- 17. timing  — each kernel, its plain version and the PyTorch call that
+ 17. cnn    — the vision zoo through compile/train_step: ImageNet
+               ResNet-50 (224², 1,000 classes) and CIFAR ResNet-18 (32²),
+               each at B=256, bf16 activations over f32 masters,
+               SGD(0.1, momentum 0.9, weight decay 1e-4), random images
+               from a seed.  5 steps of a second model from the same seed
+               eagerly and 5 captured, under deterministic cuDNN, held
+               bitwise in losses and every state (BatchNorm's running
+               statistics included); then eager steps and a fresh capture
+               with 20 timed replays: step ms, images/s, MFU (3 x the
+               counted forward FLOPs beside the published 8.18 GFLOP an
+               image), peak memory, graph pool bytes.  ResNet-50 also: the
+               bytes saved for the backward an image, the card's f32
+               step (TF32 off) at B=8 against the port on the
+               CPU with the same weights, a captured eval equal to an eager
+               one bitwise, a profile of one replay by kind (convolution,
+               layout transposes, copies and casts, other), and no
+               activation-sized layout copy in an eager step.  Then
+               tools/train_cnn.py: one epoch of the synthetic MNIST CNN and
+               CIFAR VGG-11, each evaluating through its captured eval
+               step.  No flash kernel runs on the path
+ 18. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shape, beside the card's bound, each kernel also
@@ -329,6 +349,34 @@ BANDED_SERVE = (4, 8192, 32, 8, 32)
 BANDED_PROMPTS, BANDED_SEED = (4608, 7936), 6
 # the timing phase's long window: mistral-w4096's attention at its shape
 WINDOW_T, WINDOW_W = 8192, 4096
+# the cnn phase: ImageNet ResNet-50 at 224² and CIFAR ResNet-18 at 32²,
+# each at B = CNN_B (bench.py's ResNet-50 cell), bf16 activations over
+# f32 masters, SGD(lr 0.1, momentum 0.9, weight decay 1e-4), images and
+# labels from seed CNN_SEED.  CNN_BITWISE steps eager (a second model
+# from the same seed) and captured, under deterministic cuDNN, held
+# bitwise; then, as the path normally runs, CNN_EAGER eager steps and
+# CNN_STEPS timed replays of a fresh capture
+CNN_B, CNN_SEED = 256, 0
+CNN_BITWISE, CNN_EAGER, CNN_STEPS = 5, 3, 20
+CNN_SGD = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+# ResNet-50's forward at 224² in GFLOP, torchvision's 4.09 GMAC at 2
+# FLOPs a multiply-add: the published count beside the counted one
+RESNET50_GFLOP = 8.18
+# the card's f32 step (TF32 off) against the port on the CPU at
+# CNN_CHECK_B with the same weights: logits within CNN_F32_LOGIT of the
+# largest logit, the loss within CNN_F32_LOSS relative, each gradient
+# within CNN_F32_GRAD by Frobenius norm.  The gradients' limit is wide
+# because the function is: at B = 8 an input changed by one ulp
+# (x·(1 + 2⁻²³)) moves ResNet-50's f32 gradients on the card itself by
+# ~2 % (median) to ~3 % (PERF.md): the script measures that spread and
+# prints it beside the comparison.  The gate's other side is measured
+# too: with a planted fault on the card (every convolution reading its
+# weight flipped in H and W) the same comparison must exceed the limit
+CNN_CHECK_B = 8
+CNN_F32_LOGIT, CNN_F32_LOSS, CNN_F32_GRAD = 1e-4, 1e-5, 5e-2
+# the CLI runs (singa_tpu_torch.tools.train_cnn): one epoch each of the
+# synthetic sets (2,048 training, 256 test images)
+CNN_CLI = (("cnn", "mnist"), ("vgg11", "cifar10"))
 
 
 def emit(obj):
@@ -2825,14 +2873,358 @@ def phase_moe():
             "load": load["flash_launches"]}
 
 
+def _host_states(m):
+    return {n: t.detach().cpu().clone() for n, t in m.get_states().items()}
+
+
+def _images(shape, classes, b=CNN_B, seed=CNN_SEED):
+    """A batch of random images (b, *shape) and labels on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((b, *shape), generator=gen, device="cuda")
+    y = torch.randint(0, classes, (b,), generator=gen, device="cuda")
+    return x, y.to(torch.int32)
+
+
+def _step_grads(m, x, y):
+    """One training-mode forward's logits and loss and every parameter's
+    gradient, on the host, without an update."""
+    from singa_tpu_torch import autograd
+    with autograd.train_mode():
+        logits = m.forward(x).float()
+        loss = autograd.softmax_cross_entropy(logits, y)
+        grads = {p.param_name: g.cpu() for p, g in autograd.backward(loss)}
+    for p in m.get_params().values():
+        p.grad = None
+    return logits.detach().cpu(), loss.item(), grads
+
+
+@contextmanager
+def flipped_conv_weights():
+    """A planted fault: every convolution reads its HWIO weight flipped
+    in H and W (a correlation computed as a convolution)."""
+    from singa_tpu_torch import autograd
+    conv = autograd.conv2d
+    autograd.conv2d = lambda x, w, *a, **k: conv(x, w.flip(0, 1), *a, **k)
+    try:
+        yield
+    finally:
+        autograd.conv2d = conv
+
+
+def cnn_f32_vs_cpu(m, factory, x, y, start):
+    """The card's f32 step (TF32 off) at CNN_CHECK_B against the port on
+    the CPU with the same weights, and the same comparison with the
+    convolutions' weights flipped on the card, which must fail it; `m`'s
+    states are restored after."""
+    from singa_tpu_torch import device
+    xb, yb = x[:CNN_CHECK_B], y[:CNN_CHECK_B]
+    cpu_m = factory(device=device.create_device("cpu"))
+    cpu_m.set_states(start)
+    card = _step_grads(m, xb, yb)
+    m.set_states(start)
+    ulp = _step_grads(m, xb * (1 + 2 ** -23), yb)
+    m.set_states(start)
+    with flipped_conv_weights():
+        fault = _step_grads(m, xb, yb)
+    host = _step_grads(cpu_m, xb.cpu(), yb.cpu())
+    m.set_states(start)
+    del cpu_m
+
+    def grad_diffs(a, b):
+        return sorted(((a[2][n] - g).norm() / g.norm()).item()
+                      for n, g in b[2].items())
+    logit = ((card[0] - host[0]).abs().max() / host[0].abs().max()).item()
+    loss = abs(card[1] - host[1]) / abs(host[1])
+    grads, spread = grad_diffs(card, host), grad_diffs(ulp, card)
+    planted = grad_diffs(fault, host)
+    return {"B": CNN_CHECK_B, "dtype": "float32", "tf32": False,
+            "logit_err_over_max": logit, "loss_card": card[1],
+            "loss_cpu": host[1], "loss_rel_diff": loss,
+            "grad_rel_diff_max": grads[-1],
+            "grad_rel_diff_median": grads[len(grads) // 2],
+            "card_one_ulp_input_grad_rel_diff_max": spread[-1],
+            "card_one_ulp_input_grad_rel_diff_median":
+                spread[len(spread) // 2],
+            "planted_fault": {
+                "what": "every conv weight flipped in H and W on the card",
+                "grad_rel_diff_max": planted[-1],
+                "grad_rel_diff_median": planted[len(planted) // 2],
+                "grad_rel_diff_min": planted[0],
+                "loss_rel_diff": abs(fault[1] - host[1]) / abs(host[1]),
+                "fails_the_gate": planted[-1] > CNN_F32_GRAD},
+            "limits": {"logit": CNN_F32_LOGIT, "loss": CNN_F32_LOSS,
+                       "grad": CNN_F32_GRAD},
+            "ok": logit <= CNN_F32_LOGIT and loss <= CNN_F32_LOSS
+            and grads[-1] <= CNN_F32_GRAD and planted[-1] > CNN_F32_GRAD}
+
+
+def cnn_eval_check(m, x):
+    """Captured eval forwards (eager-recorded, warm-up, capture + replay,
+    replay) against an eager eval forward, bitwise."""
+    m.compile([x], is_train=False, use_graph=True)
+    outs = [m(x) for _ in range(4)]
+    g = m.get_graph("eval")
+    captured, pool = g.graph is not None, g.pool_bytes
+    del g
+    m.compile([x], is_train=False, use_graph=False)
+    eager = m(x)
+    return {"captured": captured, "pool_bytes": pool,
+            "bitwise": all(torch.equal(o, eager) for o in outs),
+            "finite": bool(torch.isfinite(eager).all())}
+
+
+def activation_copies(fn, numel):
+    """Ops of one call of fn that copy at least `numel` elements, as the
+    profiler records the aten ops (nested ones included): layout copies
+    (aten::clone, which .contiguous() calls) and dtype casts
+    (aten::_to_copy)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"aten::clone": 0, "aten::_to_copy": 0}
+    for e in p.events():
+        if e.name in counts and e.input_shapes and e.input_shapes[0] \
+                and math.prod(e.input_shapes[0]) >= numel:
+            counts[e.name] += 1
+    return {"min_numel": numel, "layout_copies": counts["aten::clone"],
+            "casts": counts["aten::_to_copy"]}
+
+
+def saved_bytes(m, x):
+    """Bytes of the tensors autograd saves for the backward of one
+    training-mode forward of `x` (each storage once); `m`'s running
+    statistics move, so the caller restores them.  The saved tensors are
+    held here, not in the graph: a node saving its own output would
+    otherwise hold itself alive, with the parameters' gradient
+    accumulators made on this stream, which a later capture on its own
+    stream cannot use."""
+    from singa_tpu_torch import autograd
+    kept = []
+
+    def pack(t):
+        kept.append(t)
+        return len(kept) - 1
+
+    def unpack(_):
+        raise RuntimeError("saved_bytes runs no backward")
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack), \
+            autograd.train_mode():
+        m.forward(x.to(m.device.default_dtype))
+    sizes = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+             for t in kept}
+    kept.clear()
+    return sum(sizes.values())
+
+
+def cnn_train(name, factory, shape, classes, later, full=False):
+    """`factory`'s model trained at CNN_B through set_optimizer, compile
+    and train_step: CNN_BITWISE steps eager (a second model from the
+    same seed) and captured under deterministic cuDNN, held bitwise and
+    then timed as replays; then, as the path runs, CNN_EAGER eager
+    steps and a fresh capture with CNN_STEPS timed replays.  `full` adds
+    the f32 check against the CPU, the eval check, a profile of one
+    replay and the activation copies of an eager step."""
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.utils.flops import model_forward_flops
+    from singa_tpu_torch.utils.metrics import peak_flops
+
+    dev = device.create_device("cuda")
+
+    def build():
+        gen = torch.Generator("cuda").manual_seed(CNN_SEED)
+        return factory(device=dev, generator=gen)
+    m = build()
+    start = _host_states(m)
+    x, y = _images(shape, classes)
+    res = {"model": name, "B": CNN_B, "input_hwc": list(shape),
+           "classes": classes, "optimizer": f"SGD({CNN_SGD})",
+           "params": sum(p.numel() for p in m.get_params().values())}
+    if full:
+        one, two = saved_bytes(m, x[:1]), saved_bytes(m, x[:2])
+        res["saved_for_backward"] = {"bytes_per_image": two - one,
+                                     "bytes_fixed": 2 * one - two}
+        res["f32_vs_cpu"] = cnn_f32_vs_cpu(m, factory, x, y, start)
+        later(res["f32_vs_cpu"]["ok"], f"{name}: the card's f32 step differs "
+              f"from the CPU's: {res['f32_vs_cpu']}")
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        e = build()
+        later(all(torch.equal(t.cpu(), start[n])
+                  for n, t in e.get_states().items()),
+              f"{name}: two models from one seed differ")
+        e.set_optimizer(opt.SGD(**CNN_SGD))
+        e.compile([x], is_train=True, use_graph=False)
+        eager = [e.train_step(x, y)[1].item() for _ in range(CNN_BITWISE)]
+        eager_states = _host_states(e)
+        del e
+        _free()
+        m.set_optimizer(opt.SGD(**CNN_SGD))
+        m.compile([x], is_train=True, use_graph=True)
+        cap = [m.train_step(x, y)[1].item() for _ in range(CNN_BITWISE)]
+        differ = [n for n, t in _host_states(m).items()
+                  if not torch.equal(t, eager_states[n])]
+        det = [_timed(lambda: m.train_step(x, y))[1]
+               for _ in range(CNN_STEPS)]
+        res["captured_vs_eager"] = {
+            "cudnn_deterministic": True, "steps": CNN_BITWISE,
+            "eager_losses": eager, "captured_losses": cap,
+            "bitwise_losses": eager == cap, "states_differing": differ,
+            "states": len(eager_states),
+            "replay_median_step_ms": sorted(det)[len(det) // 2] * 1e3}
+        later(eager == cap and not differ, f"{name}: captured steps are not "
+              f"the eager ones bitwise: {res['captured_vs_eager']}")
+        if full:
+            res["eval_captured_vs_eager"] = ev = cnn_eval_check(m, x)
+            later(ev["captured"] and ev["bitwise"] and ev["finite"],
+                  f"{name}: the captured eval differs from eager: {ev}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del eager_states
+    _free()
+
+    # as the path runs: eager steps, then a fresh capture and its replays
+    m.set_states(start)
+    m.set_optimizer(opt.SGD(**CNN_SGD))
+    m.compile([x], is_train=True, use_graph=False)
+    eager_s = [_timed(lambda: m.train_step(x, y))[1] for _ in range(CNN_EAGER)]
+    m.compile([x], is_train=True, use_graph=True)
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = [_timed(lambda: m.train_step(x, y)) for _ in range(3)]
+    losses = [out[1].item() for out, _ in first]
+    times = []
+    for _ in range(CNN_STEPS):
+        (_, loss), t = _timed(lambda: m.train_step(x, y))
+        losses.append(loss.item())
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    g = m.get_graph("train")
+    flops_img = model_forward_flops(m, x[:1].to(dev.default_dtype))
+    step_s = sorted(times)[len(times) // 2]
+    eager_step = sorted(eager_s)[len(eager_s) // 2]
+    step_flops = 3 * flops_img * CNN_B
+    rate = peak_flops()
+    res.update({
+        "captured": g.graph is not None, "capture_s": g.capture_seconds,
+        "graph_num_ops": g.num_ops, "graph_flops": g.flops(),
+        "graph_pool_bytes": g.pool_bytes, "graph_launches": g.launches,
+        "first_calls_ms": [t * 1e3 for _, t in first],
+        "step_ms": [t * 1e3 for t in times], "median_step_ms": step_s * 1e3,
+        "images_per_s": CNN_B / step_s,
+        "forward_flops_per_image": flops_img,
+        "flops_per_step": step_flops,
+        "mfu": step_flops / step_s / rate, "peak_flops": rate,
+        "eager": {"step_ms": [t * 1e3 for t in eager_s],
+                  "median_step_ms": eager_step * 1e3,
+                  "images_per_s": CNN_B / eager_step,
+                  "mfu": step_flops / eager_step / rate},
+        "peak_memory_bytes": peak, "allocated_before_bytes": live,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "losses": losses})
+    del g
+    later(res["captured"], f"{name}: train_step did not capture")
+    later(np.isfinite(losses).all(), f"{name}: non-finite loss {losses}")
+    if full:
+        res["flash_launches_before_profile"] = fa.device_launches()
+        res["profile"] = phase_profile(
+            lambda: m.train_step(x, y),
+            f"one replayed {name} train step, B={CNN_B}",
+            dict.fromkeys(fa.KERNELS, 0))
+        m.compile([x], is_train=True, use_graph=False)
+        _free()
+        res["copies_in_an_eager_step"] = cp = activation_copies(
+            lambda: m.train_step(x, y), CNN_B * 7 * 7 * 512)
+        later(cp["layout_copies"] == 0, f"{name}: an eager step copies "
+              f"activations into another layout: {cp}")
+    del m
+    return res
+
+
+def cnn_cli(later):
+    """tools/train_cnn.py on the card: one epoch of each CNN_CLI pair."""
+    from singa_tpu_torch.tools import train_cnn
+    runs = {}
+    for model, data in CNN_CLI:
+        t0 = time.perf_counter()
+        out = train_cnn.main(["--model", model, "--dataset", data,
+                              "--epochs", "1", "--lr", "0.01",
+                              "--log-every", "0"])
+        ep = out["epochs"][0]
+        runs[f"{model}/{data}"] = {
+            "batch_size": out["batch_size"], "steps": out["steps_per_epoch"],
+            "first_loss": ep["losses"][0], "last_loss": ep["losses"][-1],
+            "train_loss": ep["train_loss"], "train_acc": ep["train_acc"],
+            "test_acc": ep["test_acc"], "images_per_s": ep["images_per_s"],
+            "eval_captured": out["eval_captured"], "device": out["device"],
+            "seconds": time.perf_counter() - t0}
+        later(np.isfinite(ep["losses"]).all(),
+              f"train_cnn {model}: non-finite loss {ep['losses']}")
+        later(out["eval_captured"] and out["device"].startswith("cuda"),
+              f"train_cnn {model}: the eval did not run captured on the "
+              f"card: {runs[f'{model}/{data}']}")
+        _free()
+    return runs
+
+
+def phase_cnn():
+    """The vision path: ImageNet ResNet-50 and CIFAR ResNet-18 training
+    through compile/train_step as CUDA graphs, and the train_cnn CLI; no
+    flash kernel runs."""
+    from singa_tpu_torch import models
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    fa.reset_device_launches()
+    r50 = cnn_train("resnet50", models.resnet50, (224, 224, 3), 1000, later,
+                    full=True)
+    _free()
+    r18 = cnn_train("resnet18_cifar", models.resnet18, (32, 32, 3), 10, later)
+    _free()
+    cli = cnn_cli(later)
+    before = r50.pop("flash_launches_before_profile")
+    after = fa.device_launches()
+    launches = {k: before[k] + after[k] for k in fa.KERNELS}
+    r50["published_forward_flops_per_image"] = RESNET50_GFLOP * 1e9
+    emit({"phase": "cnn", "resnet50": r50, "resnet18_cifar": r18,
+          "cli": cli, "flash_launches": launches,
+          "phase_seconds": time.perf_counter() - t0})
+    later(abs(r50["forward_flops_per_image"] / 1e9 - RESNET50_GFLOP)
+          <= 0.02 * RESNET50_GFLOP, "ResNet-50's counted forward FLOPs are "
+          "not the published count")
+    later(not any(launches.values()), f"flash kernels ran on the CNN path: "
+          f"{launches}")
+    for cond, msg in checks:
+        check(cond, msg)
+    return launches
+
+
+#: kernels that convert an activation between NCHW and NHWC
+LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose")
+
+
 def _kernel_kind(name):
     low = name.lower()
     for kind in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"):
         if kind + "_" in low:
             return kind
+    if any(s in low for s in LAYOUT_KERNELS):
+        return "layout_transpose"
+    # cuDNN's implicit-GEMM convolutions are xmma kernels too
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad")):
+        return "convolution"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "xmma", "gemv")):
         return "matmul"
+    if "copy" in low:
+        return "copy_or_cast"
     return "other"
+
 
 
 def phase_profile(fn, what, expect):
@@ -2875,7 +3267,8 @@ def phase_profile(fn, what, expect):
           "device_busy_share": busy_ms / wall_ms if busy_ms
           else "not measured",
           "host_idle_ms": wall_ms - busy_ms if busy_ms else "not measured",
-          "device_ms_by_kind": by_kind, "kernels_by_name": seen,
+          "device_ms_by_kind": by_kind, "launches_by_kind": count,
+          "kernels_by_name": seen,
           "kernels_counted_on_card": counted, "expected_kernels": expect,
           "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                           for k, v in top]})
@@ -2884,6 +3277,8 @@ def phase_profile(fn, what, expect):
     if busy_ms:
         check(seen == expect, f"the profile of {what} saw {seen} launches "
               f"of the hand-written kernels, expected {expect}")
+    return {"device_ms_by_kind": by_kind, "launches_by_kind": count,
+            "device_busy_ms": busy_ms}
 
 
 def _bound(flops, nbytes):
@@ -3173,6 +3568,7 @@ def main():
     timed_phase("checkpoint", phase_checkpoint)
     banded = timed_phase("banded", phase_banded)
     moe = timed_phase("moe", phase_moe)
+    cnn_launches = timed_phase("cnn", phase_cnn)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
@@ -3211,6 +3607,7 @@ def main():
                 "serve": {"launches":
                           res["serve"]["flash_launches"][r["name"]]}}
         by_path["moe"]["load"] = {"launches": moe["load"][r["name"]]}
+        by_path["cnn"] = {"launches": cnn_launches[r["name"]]}
         wr = window_rows[r["name"]]
         at_window = {key: wr[key] for key in (
             "dims", "window", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,7 +1,9 @@
-"""Operators of the Llama path, ported from ``singa_tpu/autograd.py``:
-the forward math of Linear, Embedding, Cast, SiLU and RMSNorm, the
-train/eval flag, ``backward``, and the two losses
-(``softmax_cross_entropy`` and ``fused_linear_cross_entropy``).
+"""Operators ported from ``singa_tpu/autograd.py``: the forward math of
+Linear, Embedding, Cast, SiLU and RMSNorm (the Llama path); of ReLU,
+Tanh, Sigmoid, Dropout, Flatten, ReduceMean, Conv2d, MaxPool2d,
+AvgPool2d and BatchNorm (the CNN path); the train/eval flag,
+``backward``, and the losses (``softmax_cross_entropy``,
+``fused_linear_cross_entropy``, ``mse_loss``).
 
 Plain functions on ``torch.Tensor`` with the reference's dtype rules.
 torch autograd is the tape: the reference's ``Operator``/``backward``
@@ -17,10 +19,12 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear", "embedding", "cast", "silu", "rmsnorm",
+__all__ = ["linear", "embedding", "cast", "silu", "rmsnorm", "relu",
+           "tanh", "sigmoid", "dropout", "flatten", "reduce_mean",
+           "conv2d", "max_pool2d", "avg_pool2d", "batchnorm",
            "set_training", "is_training", "train_mode", "eval_mode",
            "backward", "softmax_cross_entropy", "cross_entropy",
-           "fused_linear_cross_entropy"]
+           "fused_linear_cross_entropy", "mse_loss"]
 
 # global train/eval flag (reference: autograd.training)
 training: bool = False
@@ -81,6 +85,135 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * gamma).to(x.dtype)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def dropout(x: torch.Tensor, p: float = 0.5,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Zero each element with probability p and scale the rest by
+    1/(1-p) in training; the identity in eval or at p = 0.  The mask is
+    drawn from `generator` (the reference draws from a jax key)."""
+    if not training or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator).bool()
+    return torch.where(mask, x * (1.0 / keep), torch.zeros_like(x))
+
+
+def flatten(x: torch.Tensor, start_axis: int = 0) -> torch.Tensor:
+    """Keep the dims before `start_axis`, merge the rest (row-major, so
+    an NHWC map flattens in (H, W, C) order)."""
+    return x.reshape(tuple(x.shape[:start_axis]) + (-1,))
+
+
+def reduce_mean(x: torch.Tensor, axis=None, keepdims: bool = False):
+    if axis is None:
+        return x.mean()
+    return x.mean(dim=axis, keepdim=keepdims)
+
+
+def mse_loss(x: torch.Tensor, t) -> torch.Tensor:
+    """sum((x - t)^2) / x.numel()."""
+    d = x - torch.as_tensor(t, device=x.device, dtype=x.dtype)
+    return (d * d).sum() / float(d.numel())
+
+
+# ---------------------------------------------------------------------------
+# conv / pool / norm: NHWC activations, HWIO weights, as in the reference.
+# The ops compute through NCHW views of NHWC tensors (channels-last
+# memory, which cuDNN reads as it is), so no activation is copied into
+# another layout.
+# ---------------------------------------------------------------------------
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_pads(padding, size, kernel, stride, dilation):
+    """((top, bottom), (left, right)) as XLA reads `padding`: an int, a
+    pair of ints, a pair of (low, high) pairs, "VALID", or "SAME"
+    (output ceil(size / stride), the low side taking total // 2)."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return ((0, 0), (0, 0))
+        if mode != "SAME":
+            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+        pads = []
+        for n, k, s, d in zip(size, kernel, stride, dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return tuple(tuple(p) if isinstance(p, (tuple, list)) else (p, p)
+                 for p in padding)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, stride=1, padding=0,
+           groups: int = 1, dilation=1) -> torch.Tensor:
+    """2-D convolution of an NHWC `x` with an HWIO `w` (I = C / groups);
+    the output is NHWC in x's dtype.  `padding` as `_conv_pads`; pads
+    that F.conv2d cannot express (low != high) are applied first."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    (pt, pb), (pl, pr) = _conv_pads(padding, x.shape[1:3], w.shape[:2],
+                                    stride, dilation)
+    xc = x.permute(0, 3, 1, 2)
+    if pt != pb or pl != pr:
+        xc = F.pad(xc, (pl, pr, pt, pb))
+        pt = pl = 0
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride, (pt, pl), dilation,
+                 groups)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _pool(fn, x, kernel, stride, padding, fill):
+    """Run an NCHW pool on the NCHW view of NHWC `x`; pads wider than
+    half the window (which the torch pools refuse) are applied first
+    with `fill`."""
+    kernel = _pair(kernel)
+    stride = _pair(stride or kernel)
+    xc = x.permute(0, 3, 1, 2)
+    if padding > min(kernel) // 2:
+        xc = F.pad(xc, (padding,) * 4, value=fill)
+        padding = 0
+    return fn(xc, kernel, stride, padding).permute(0, 2, 3, 1)
+
+
+def max_pool2d(x: torch.Tensor, kernel, stride=None, padding: int = 0):
+    """Max over windows of an NHWC `x`, padded with -inf."""
+    return _pool(F.max_pool2d, x, kernel, stride, padding, float("-inf"))
+
+
+def avg_pool2d(x: torch.Tensor, kernel, stride=None, padding: int = 0):
+    """Mean over windows of an NHWC `x`, padded with 0 and divided by
+    the full window (count_include_pad)."""
+    return _pool(F.avg_pool2d, x, kernel, stride, padding, 0.0)
+
+
+def batchnorm(x: torch.Tensor, gamma, beta, mean, var, eps: float = 1e-5):
+    """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis,
+    computed in f32 from whatever dtypes the statistics and affine
+    parameters come in; the output is in x's dtype.  The four per-channel
+    vectors fold into scale = gamma / sqrt(var + eps) and shift = beta -
+    mean * scale first, so x passes through one activation-sized op (and
+    autograd saves x once); their gradients flow through scale and
+    shift."""
+    scale = torch.rsqrt(var.float() + eps) * gamma
+    shift = beta - mean * scale
+    return torch.addcmul(shift, x.float(), scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

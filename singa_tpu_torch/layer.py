@@ -1,12 +1,20 @@
 """Layers, ported from ``singa_tpu/layer.py``: ``Layer``, ``Linear``,
-``Embedding``, ``RMSNorm``, ``MoE``.
+``Embedding``, ``RMSNorm``, ``MoE``, and the vision layers ``Conv2d``,
+``BatchNorm2d``, ``MaxPool2d``, ``AvgPool2d``, ``GlobalAvgPool2d``,
+``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``Dropout``,
+``Sequential`` and the loss layers ``CrossEntropyLoss``, ``MSELoss``.
 
 Layers are ``nn.Module``s whose parameters are created at construction
 (the reference initializes lazily from the first input; here the caller
 gives the input width).  Parameters are f32 masters named as in the
 reference (``W``, ``table``, ``gamma``), so ``get_params()`` keys are
-the reference's attribute paths one to one.  Random init draws from an
-explicit ``torch.Generator`` on the layer's device.
+the reference's attribute paths one to one: a list of layers is an
+``nn.ModuleList`` under the reference's attribute (``layers.<i>``,
+``hidden.<i>``).  Random init draws from an explicit
+``torch.Generator`` on the layer's device.
+
+Vision layers keep the reference's layouts: NHWC activations
+(``data_format="NCHW"`` takes and gives NCHW) and HWIO conv kernels.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ from . import autograd
 from .device import Device, get_default_device
 from .ops.moe import moe_forward
 
-__all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "MoE"]
+__all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "MoE", "Conv2d",
+           "BatchNorm2d", "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d",
+           "Flatten", "ReLU", "Tanh", "Sigmoid", "Dropout", "Sequential",
+           "CrossEntropyLoss", "MSELoss"]
 
 
 class Layer(nn.Module):
@@ -230,3 +241,207 @@ class MoE(Layer):
             total = total + a
         self._aux_losses = []
         return total
+
+
+# ---------------------------------------------------------------------------
+# vision layers
+# ---------------------------------------------------------------------------
+
+def _nhwc(x: torch.Tensor, data_format: str) -> torch.Tensor:
+    """An NHWC view of `x` (a permuted view when x is NCHW)."""
+    return x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
+
+
+def _from_nhwc(y: torch.Tensor, data_format: str) -> torch.Tensor:
+    return y.permute(0, 3, 1, 2) if data_format == "NCHW" else y
+
+
+class Conv2d(Layer):
+    """Conv layer over `in_channels` inputs: HWIO kernel ``W`` (He-normal
+    init over kh·kw·in/groups), zero bias ``b``."""
+
+    def __init__(self, out_channels: int, kernel_size, in_channels: int,
+                 stride=1, padding=0, bias: bool = True, groups: int = 1,
+                 dilation=1, data_format: str = "NHWC",
+                 device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"channels {in_channels} -> {out_channels} do "
+                             f"not split into {groups} groups")
+        self.out_channels, self.in_channels = out_channels, in_channels
+        self.kernel_size = autograd._pair(kernel_size)
+        self.stride, self.padding = stride, padding
+        self.groups, self.dilation = groups, dilation
+        self.data_format = data_format
+        kh, kw = self.kernel_size
+        std = math.sqrt(2.0 / max(1, in_channels * kh * kw // groups))
+        self.W = self._new_param((kh, kw, in_channels // groups,
+                                  out_channels))
+        with torch.no_grad():
+            self.W.normal_(0.0, std,
+                           generator=_generator(self.device, generator))
+        self.b = None
+        if bias:
+            self.b = self._new_param((out_channels,))
+            with torch.no_grad():
+                self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _nhwc(x, self.data_format)
+        b = None if self.b is None else _maybe_cast(self.b, x)
+        y = autograd.conv2d(x, _maybe_cast(self.W, x), b, self.stride,
+                            self.padding, self.groups, self.dilation)
+        return _from_nhwc(y, self.data_format)
+
+
+class BatchNorm2d(Layer):
+    """Batch normalisation over the channel axis, as the reference's:
+    batch statistics in f32, the variance E[x²] − E[x]² (biased), the
+    running statistics ``running = momentum·running + (1 −
+    momentum)·batch`` (biased variance too), and mean, variance, γ and
+    β cast to the compute dtype before normalising.
+
+    The running statistics are updated in place, so a captured step
+    (which reads and writes them by address) updates them on every
+    replay."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, data_format: str = "NHWC",
+                 device: Optional[Device] = None):
+        super().__init__(device)
+        self.num_features, self.momentum, self.eps = num_features, momentum, eps
+        self.data_format = data_format
+        c = num_features
+        self.gamma = self._new_param((c,))
+        self.beta = self._new_param((c,))
+        dev = self.device.torch_device
+        self.register_buffer("running_mean", torch.zeros(c, device=dev))
+        self.register_buffer("running_var", torch.ones(c, device=dev))
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+            self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nchw = self.data_format == "NCHW" and x.dim() == 4
+        if nchw:
+            x = x.permute(0, 2, 3, 1)
+        if autograd.is_training():
+            axes = tuple(range(x.dim() - 1))
+            # cast once: the statistics and the normalisation read one
+            # f32 copy, which autograd saves once
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            var = (xf * xf).mean(dim=axes) - mean * mean
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            xf, mean, var = x, self.running_mean, self.running_var
+        y = autograd.batchnorm(xf, _maybe_cast(self.gamma, x),
+                               _maybe_cast(self.beta, x),
+                               _maybe_cast(mean, x), _maybe_cast(var, x),
+                               self.eps).to(x.dtype)
+        return y.permute(0, 3, 1, 2) if nchw else y
+
+
+class _Deviceless(Layer):
+    """A layer that makes no tensors of its own, so needs no device."""
+
+    def __init__(self):
+        nn.Module.__init__(self)
+        self.device = None
+
+
+class _Pool2d(_Deviceless):
+    def __init__(self, kernel_size, stride=None, padding: int = 0,
+                 data_format: str = "NHWC"):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.data_format = data_format
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._op(_nhwc(x, self.data_format), self.kernel_size,
+                     self.stride, self.padding)
+        return _from_nhwc(y, self.data_format)
+
+
+class MaxPool2d(_Pool2d):
+    _op = staticmethod(autograd.max_pool2d)
+
+
+class AvgPool2d(_Pool2d):
+    _op = staticmethod(autograd.avg_pool2d)
+
+
+class GlobalAvgPool2d(_Deviceless):
+    def __init__(self, data_format: str = "NHWC"):
+        super().__init__()
+        self.data_format = data_format
+
+    def forward(self, x):
+        axes = (1, 2) if self.data_format == "NHWC" else (2, 3)
+        return autograd.reduce_mean(x, axes)
+
+
+class Flatten(_Deviceless):
+    def __init__(self, start_axis: int = 1):
+        super().__init__()
+        self.start_axis = start_axis
+
+    def forward(self, x):
+        return autograd.flatten(x, self.start_axis)
+
+
+class ReLU(_Deviceless):
+    def forward(self, x):
+        return autograd.relu(x)
+
+
+class Tanh(_Deviceless):
+    def forward(self, x):
+        return autograd.tanh(x)
+
+
+class Sigmoid(_Deviceless):
+    def forward(self, x):
+        return autograd.sigmoid(x)
+
+
+class Dropout(Layer):
+    """Dropout whose masks come from `generator` (default: the device's);
+    a captured train step registers it, so each replay draws anew."""
+
+    def __init__(self, p: float = 0.5, device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.p = p
+        self.generator = _generator(self.device, generator)
+
+    def forward(self, x):
+        return autograd.dropout(x, self.p, self.generator)
+
+
+class Sequential(_Deviceless):
+    """Layers applied in order, named ``layers.<i>`` as in the reference."""
+
+    def __init__(self, *layers: nn.Module):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class CrossEntropyLoss(_Deviceless):
+    def forward(self, logits, target):
+        return autograd.softmax_cross_entropy(logits, target)
+
+
+class MSELoss(_Deviceless):
+    def forward(self, x, t):
+        return autograd.mse_loss(x, t)

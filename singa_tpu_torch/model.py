@@ -23,7 +23,7 @@ from . import autograd, faults
 from .device import Device, get_default_device
 from .graph import CapturedGraph, record
 from .graph import epoch as graph_epoch
-from .layer import Layer
+from .layer import Dropout, Layer
 from .obs import attr as obs_attr
 from .obs import events as obs_events
 from .opt import Optimizer
@@ -194,10 +194,13 @@ class _StepExecutor:
     one real step.  What a step reads that changes between steps is on
     the device: the batch (static inputs), the optimizer's step
     (`Optimizer.step_tensor`, advanced inside the graph), the
-    parameters and slots (updated in place).  Outputs are cloned out of
-    the graph's pool, so a result held from one step is not overwritten
-    by the next.  A capture that fails raises; nothing falls back to
-    eager.  On the CPU device every call runs the body eagerly.
+    parameters, slots and buffers such as BatchNorm's running
+    statistics (updated in place, and read by address by an eval
+    step), the dropout generators (registered with the graph).  Outputs
+    are cloned out of the graph's pool, so a result held from one step
+    is not overwritten by the next.  A capture that fails raises;
+    nothing falls back to eager.  On the CPU device every call runs the
+    body eagerly.
 
     A train executor owns the optimizer's slots: at construction it
     makes a fresh slot for each parameter, or takes one restored into
@@ -303,10 +306,19 @@ class _StepExecutor:
 
     def _capture(self, batch):
         self._static_in = tuple(t.clone() for t in batch)
+        gens = _dropout_generators(self.model) if self.is_train else ()
         self._static_out = self.captured.capture(
-            lambda: self._run(self._static_in), self._stream)
+            lambda: self._run(self._static_in), self._stream, gens)
         self.captured.replay()
         return _clone(self._static_out)
+
+
+def _dropout_generators(model) -> tuple:
+    """The generators a training step draws dropout masks from: a
+    captured step registers them, so each replay draws new masks."""
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, Dropout) and m.p > 0}
+    return tuple(gens.values())
 
 
 def _sync(device: torch.device) -> None:

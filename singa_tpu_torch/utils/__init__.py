@@ -1,6 +1,8 @@
-"""singa_tpu_torch.utils — checkpoints (``utils.checkpoint``) and
-failure detection (``utils.failure``), ported from ``singa_tpu/utils``."""
+"""singa_tpu_torch.utils — checkpoints (``utils.checkpoint``), failure
+detection (``utils.failure``), data loading (``utils.data``), metrics
+(``utils.metrics``) and forward FLOPs (``utils.flops``), ported from
+``singa_tpu/utils``."""
 
-from . import checkpoint, failure
+from . import checkpoint, data, failure, flops, metrics
 
-__all__ = ["checkpoint", "failure"]
+__all__ = ["checkpoint", "data", "failure", "flops", "metrics"]

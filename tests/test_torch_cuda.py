@@ -830,3 +830,129 @@ def test_config_engine_streams_equal_generate(cuda_device, kind):
     assert got == want
     assert eng.compiled_counts() == (1, 1)
     assert eng._decode.graph.graph is not None
+
+
+# -- the vision zoo ------------------------------------------------------------------
+
+def _cifar_resnet18(dev, seed=0):
+    from singa_tpu_torch import models
+    gen = torch.Generator(dev.torch_device.type).manual_seed(seed)
+    return models.resnet18(device=dev, generator=gen)
+
+
+def _images(b, hw=32, seed=0):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return (torch.randn(b, hw, hw, 3, generator=gen, device="cuda"),
+            torch.randint(0, 10, (b,), generator=gen, device="cuda"))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_cnn_captured_train_step_equals_eager_bitwise(cuda_device,
+                                                      deterministic_cudnn):
+    """CIFAR ResNet-18 in bf16: 5 captured steps (eager, warm-up,
+    capture + replay, 2 replays) and 5 eager steps of a second model
+    from the same seed, on two alternating batches: the same losses,
+    parameters and BatchNorm running statistics, bit for bit."""
+    batches = [_images(8, seed=s) for s in (1, 2)]
+    runs = {}
+    for use_graph in (False, True):
+        m = _cifar_resnet18(cuda_device)
+        m.set_optimizer(topt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4))
+        m.compile([batches[0][0]], is_train=True, use_graph=use_graph)
+        losses = [m.train_step(*batches[i % 2])[1].item() for i in range(5)]
+        runs[use_graph] = (losses, {n: t.detach().clone() for n, t in
+                                    m.get_states().items()})
+    assert m.get_graph("train").graph is not None
+    assert runs[True][0] == runs[False][0]
+    for n, t in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], t), n
+    assert not torch.equal(runs[True][1]["bn1.running_mean"],
+                           torch.zeros(64, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cnn_captured_eval_equals_eager(cuda_device, deterministic_cudnn):
+    """The eval step captured (third call) and replayed reads the running
+    statistics by address: after a train step moves them, a replay
+    equals an eager eval forward."""
+    m = _cifar_resnet18(cuda_device)
+    x, y = _images(8)
+    m.compile([x], is_train=False, use_graph=True)
+    outs = [m(x) for _ in range(3)]
+    assert m.get_graph("eval").graph is not None
+    m.set_optimizer(topt.SGD(lr=0.1, momentum=0.9))
+    m.train_step(x, y)            # a train executor's first call: eager
+    m.eval()
+    replay = m(x)
+    assert not torch.equal(replay, outs[-1])
+    m.compile([x], is_train=False, use_graph=False)
+    eager = m(x)
+    assert outs[0].dtype == torch.float32
+    assert torch.equal(replay, eager)
+
+
+@pytest.mark.cuda
+def test_cnn_f32_forward_matches_the_cpu(cuda_device):
+    """The card's f32 forward (TF32 off) and one step's loss and
+    gradients against the port on the CPU with the same weights: logits
+    within 1e-4 of the largest, loss 1e-5 relative, each gradient
+    within 2e-2 by Frobenius norm (a ReLU input within rounding of 0
+    takes the other branch on one side)."""
+    from singa_tpu_torch import autograd
+    m = _cifar_resnet18(cuda_device)
+    host = _cifar_resnet18(tdevice.create_device("cpu"))
+    host.set_states({n: t.cpu() for n, t in m.get_states().items()})
+    x, y = _images(8)
+
+    def step(model, xs, ys):
+        with autograd.train_mode():
+            logits = model.forward(xs).float()
+            loss = autograd.softmax_cross_entropy(logits, ys)
+            grads = {p.param_name: g.cpu() for p, g in
+                     autograd.backward(loss)}
+        return logits.detach().cpu(), loss.item(), grads
+    card = step(m, x, y)
+    cpu = step(host, x.cpu(), y.cpu())
+    assert (card[0] - cpu[0]).abs().max() <= 1e-4 * cpu[0].abs().max()
+    assert abs(card[1] - cpu[1]) <= 1e-5 * abs(cpu[1])
+    for n, g in cpu[2].items():
+        assert (card[2][n] - g).norm() <= 2e-2 * g.norm(), n
+
+
+@pytest.mark.cuda
+def test_cnn_captured_dropout_draws_new_masks_and_equals_eager(
+        cuda_device, deterministic_cudnn):
+    """AlexNet at 64² with dropout 0.5: a captured train step registers
+    the dropout generator, so each replay draws new masks.  At lr 0 the
+    parameters stay put and six steps on one batch give six different
+    losses (a mask frozen at capture would repeat the third's); at lr
+    0.01 the captured run from a generator seed equals an eager run
+    from the same seed bit for bit, in losses and parameters."""
+    from singa_tpu_torch import models
+    x, y = _images(8, hw=64)
+    for lr in (0.0, 0.01):
+        runs = {}
+        for use_graph in (False, True):
+            gen = torch.Generator("cuda").manual_seed(0)
+            m = models.AlexNet(num_classes=10, dropout=0.5,
+                               input_shape=(64, 64, 3), device=cuda_device,
+                               generator=gen)
+            cuda_device.SetRandSeed(7)        # the dropout layers' generator
+            m.set_optimizer(topt.SGD(lr=lr))
+            m.compile([x], is_train=True, use_graph=use_graph)
+            losses = [m.train_step(x, y)[1].item() for _ in range(6)]
+            runs[use_graph] = (losses, {n: t.detach().clone() for n, t in
+                                        m.get_params().items()})
+        assert m.get_graph("train").graph is not None
+        assert runs[True][0] == runs[False][0], lr
+        for n, t in runs[False][1].items():
+            assert torch.equal(runs[True][1][n], t), (lr, n)
+        if lr == 0.0:
+            assert len(set(runs[True][0])) == 6, runs[True][0]
