@@ -136,8 +136,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
   15. banded — mistral-w4096 (Mistral-7B-v0.1's widths, sliding window
                4096, cut to 4 layers; singa_tpu_torch/tools/loadgen.py
                holds the configuration): training at B=1 x T=8192 (fused
-               loss, SGD momentum), all three kernels banded, 4 eager and
-               4 captured steps from the same weights held bitwise (the
+               loss, SGD momentum), all three kernels banded, 5 eager and
+               5 captured steps from the same weights held bitwise in
+               losses and parameters (the
                captured run's warm-up call under set_sync_debug_mode
                "error"), 10 timed replays with 4 launches of each kernel
                a step counted on the card, MFU with the window term;
@@ -181,13 +182,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tools/train_cnn.py: one epoch of the synthetic MNIST CNN and
                CIFAR VGG-11, each evaluating through its captured eval
                step.  No flash kernel runs on the path
- 18. timing  — each kernel, its plain version and the PyTorch call that
+ 18. transformer — GPT-2 124M (GPT2Config(): published widths and 12
+               layers, dropout 0.1) and BERT-base (BERTConfig(num_labels=2)),
+               random weights from seed 0, bf16 activations over f32
+               masters.  GPT-2: generate() at B=4, P=512, N=32 (captured =
+               eager bitwise, 12 forward launches a call counted on the
+               card); the paged engine (8 slots, 1024, blocks of 32, bf16)
+               over 16 prompts of 128-640 tokens x 64 tokens ((1, 1)
+               programs, no flash launch, the bf16 teacher-forced gate; an
+               f32 engine's streams equal f32 generate()'s and pass the f32
+               oracle); training at B=8 x T=1024 (fused loss, SGD 0.01 /
+               momentum 0.9): the step with the kernels against the plain
+               versions at the train phase's limits, 5 eager and 5
+               captured steps bitwise in losses and parameters, 10 timed
+               replays with 12 launches of each kernel a step, the graph's
+               own FLOPs as hfu_graph, and MFU from them less the fused
+               loss's recomputed head plus the flash kernels' causal
+               FLOPs, a profile of one replay.  BERT
+               at bench.py's cell, B=256 x T=128, SGD 0.01 / momentum 0.9:
+               5 eager and 5 captured steps bitwise in losses and
+               parameters, 10 timed replays (samples/s, MFU from
+               flops_per_token), a profile of one replay; an eval with a
+               padding mask captured = eager bitwise and blind to the
+               padded ids; the f32 eval against the port on the CPU; no
+               flash launch anywhere on BERT's path (T = 128 takes the
+               plain attention, as in the reference)
+ 19. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
-               training shape, beside the card's bound, each kernel also
-               held against its plain version on the timed inputs; the
-               forward also at the prefill shape.  The kernels' calls are
-               timed as CUDA-graph replays (device time: one call can take
+               training shapes of base() and GPT-2, beside the card's
+               bound, each kernel also held against its plain version on
+               the timed inputs; the forward also at base()'s prefill
+               shape and at BERT-base's (B=256, T=128, not causal).  The
+               kernels' calls are timed as CUDA-graph replays (device
+               time: one call can take
                less time on the card than its wrapper takes on the host),
                with back-to-back event timing and the wrapper's host time
                per call reported beside; then the three kernels at
@@ -337,11 +365,11 @@ LOAD_WORKLOAD = dict(prompt_lens=(256, 384, 512), new_tokens=(32, 64),
 # at their widths, cut in depth only, random weights from seed 0.
 # Training (B, T) with
 # the fused loss; generate() (B, P, N); CONFIG_STEPS eager and captured
-# steps held bitwise
+# steps held bitwise (here and in the transformer phase)
 BANDED_LAYERS, MOE_LAYERS = 4, 2
 BANDED_TRAIN, MOE_TRAIN = (1, 8192), (4, 1024)
 BANDED_GEN, MOE_GEN = (1, 8192, 32), (4, 1024, 32)
-CONFIG_STEPS = 4
+CONFIG_STEPS = 5
 # the banded engine: (slots, max_len, block_size, requests, new tokens),
 # its prompts of BANDED_PROMPTS tokens (all past the window), seed
 # BANDED_SEED; the moe engine is the serve phase's, over its prompts
@@ -377,6 +405,30 @@ CNN_F32_LOGIT, CNN_F32_LOSS, CNN_F32_GRAD = 1e-4, 1e-5, 5e-2
 # the CLI runs (singa_tpu_torch.tools.train_cnn): one epoch each of the
 # synthetic sets (2,048 training, 256 test images)
 CNN_CLI = (("cnn", "mnist"), ("vgg11", "cifar10"))
+# the transformer phase: GPT-2 124M (GPT2Config(): vocab 50257, 1024
+# positions, dim 768, 12 layers, 12 heads, dropout 0.1) and BERT-base
+# (BERTConfig(num_labels=2)), published widths and depths, random
+# weights from seed 0.  GPT-2: generate() (B, P, N) with bf16 weights;
+# the paged engine (slots, max_len, block size, requests, new tokens)
+# over prompts of GPT2_PROMPTS tokens from seed GPT2_SEED, bf16 weights;
+# training at (B, T), fused loss, SGD(0.01, momentum 0.9), CONFIG_STEPS
+# eager and captured steps held bitwise (losses and parameters), the
+# step with the kernels against the plain versions at the train phase's
+# limits over GPT2_GRAD_NAMES.  BERT at bench.py's cell (B, T), SGD(0.01,
+# momentum 0.9), CONFIG_STEPS eager and captured steps held bitwise; an
+# eval with a padding mask (BERT_EVAL_B rows, the last BERT_PAD
+# positions padded); its f32 eval on the card against the port on the
+# CPU (TF32 off) at BERT_CHECK_B rows: logits within BERT_F32_LOGIT of
+# the largest
+GPT2_GEN = (4, 512, 32)
+GPT2_SERVE = (8, 1024, 32, 16, 64)
+GPT2_PROMPTS, GPT2_SEED = (128, 640), 11
+GPT2_TRAIN = (8, 1024)
+GPT2_GRAD_NAMES = ("wte.table", "blocks.0.attn.q_proj.W",
+                   "blocks.11.mlp.c_proj.W", "ln_f.gamma")
+BERT_TRAIN = (256, 128)
+BERT_EVAL_B, BERT_PAD = 64, 40
+BERT_CHECK_B, BERT_F32_LOGIT = 4, 1e-4
 
 
 def emit(obj):
@@ -463,11 +515,16 @@ def card_clocks():
     return {"nvidia_smi_error": smi.stderr.strip() or smi.stdout.strip()}
 
 
-def phase_card():
+def smi_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    line = smi_line()
     print(line, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "card", "nvidia_smi": line, "torch_name": name,
@@ -1974,19 +2031,24 @@ def phase_beam(m):
     return launches["flash_fwd"]
 
 
-def _loss_and_grads(m, ids):
-    """One step's loss and the gradients of GRAD_NAMES, without an
-    update (the path of train_one_batch up to the optimizer)."""
-    from singa_tpu_torch import autograd
+def _llama_loss(m, x):
+    """base()'s training loss: the fused loss against the lm head."""
     from singa_tpu_torch.models.transformer import next_token_loss_fused
+    return next_token_loss_fused(m.features(x), m.lm_head, x,
+                                 chunk_rows=m.cfg.fused_loss_chunk)
+
+
+def _loss_and_grads(m, ids, names=GRAD_NAMES, loss_fn=_llama_loss):
+    """One step's loss and the gradients of `names`, without an update
+    (the path of train_one_batch up to the optimizer)."""
+    from singa_tpu_torch import autograd
     x = torch.as_tensor(ids, device="cuda")
     params = m.get_params()
-    names = {id(p): n for n, p in params.items()}
+    ids_of = {id(p): n for n, p in params.items()}
     with autograd.train_mode():
-        loss = next_token_loss_fused(m.features(x), m.lm_head, x,
-                                     chunk_rows=m.cfg.fused_loss_chunk)
-        grads = {names[id(p)]: g for p, g in autograd.backward(loss)
-                 if names[id(p)] in GRAD_NAMES}
+        loss = loss_fn(m, x)
+        grads = {ids_of[id(p)]: g for p, g in autograd.backward(loss)
+                 if ids_of[id(p)] in names}
     for p in params.values():
         p.grad = None
     return loss.item(), grads
@@ -1997,7 +2059,7 @@ def _step_errors(loss, grads, loss_p, g_p):
     (gradients by Frobenius norm), and whether they pass the limits."""
     loss_rel = abs(loss - loss_p) / abs(loss_p)
     grad_rel = {n: ((grads[n] - g_p[n]).norm() / g_p[n].norm()).item()
-                for n in GRAD_NAMES}
+                for n in g_p}
     return {"loss": loss, "loss_rel_diff": loss_rel,
             "grad_rel_diff": grad_rel,
             "ok": loss_rel <= TRAIN_LOSS_RTOL
@@ -2271,27 +2333,41 @@ def config_model(cfg):
                  generator=torch.Generator("cuda").manual_seed(0))
 
 
-def config_train(m, b, t, later):
+def _token_batch(rng, vocab, b, t):
+    """One (b, t) batch of token ids on the card: a causal LM's input."""
+    return (torch.as_tensor(rng.randint(0, vocab, (b, t)).astype(np.int32),
+                            device="cuda"),)
+
+
+def config_train(m, b, t, later, expect, flops_per_token=None,
+                 make_batch=_token_batch):
     """A configuration's training through set_optimizer / compile /
-    train_step (fused loss, SGD momentum 0.9): CONFIG_STEPS eager and
-    captured steps from the same weights and batches, held to each other
-    bitwise (the captured run's second, warm-up call runs under
-    set_sync_debug_mode("error")); then TRAIN_STEPS timed replays on a
-    fixed batch, each kernel's launches counted on the card per step.
-    An MoE model's aux loss is read at every step: the tensor its
-    capture recorded is rewritten by each replay."""
+    train_step (SGD momentum 0.9): CONFIG_STEPS eager and captured steps
+    from the same weights, batches (`make_batch(rng, vocab, b, t)`: the
+    train_step arguments) and dropout generator seed, their losses and
+    the parameters after them held to each other bitwise (the captured
+    run's second, warm-up call runs under set_sync_debug_mode("error"));
+    then TRAIN_STEPS timed replays on a fixed batch, each kernel's
+    launches counted on the card per step, which must be `expect` each.
+    `hfu_graph` counts the captured graph's own FLOPs (what the card
+    ran: recomputations included, the flash kernels' left out); `mfu`
+    counts `flops_per_token`, the model's own FLOPs, where the caller
+    gives them.  An MoE model's aux loss is read at every step: the
+    tensor its capture recorded is rewritten by each replay."""
     from singa_tpu_torch import opt
+    from singa_tpu_torch.model import _dropout_generators
     from singa_tpu_torch.ops import flash_attention as fa
 
     cfg = m.cfg
+    moe = getattr(cfg, "num_experts", 0)
     rng = np.random.RandomState(0)
-    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, t))
-                               .astype(np.int32), device="cuda")
+    batches = [make_batch(rng, cfg.vocab_size, b, t)
                for _ in range(CONFIG_STEPS)]
     x = batches[0]
     start = {n: p.detach().cpu() for n, p in m.get_params().items()}
+    dropout = _dropout_generators(m)
     aux_seen = []
-    if cfg.num_experts:
+    if moe:
         pop = m._moe_aux_loss
 
         def recorded():
@@ -2307,27 +2383,37 @@ def config_train(m, b, t, later):
     runs, aux_runs = {}, {}
     for use_graph in (False, True):
         m.set_params(start)
+        for gen in dropout:
+            gen.manual_seed(0)
         m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
-        m.compile([x], is_train=True, use_graph=use_graph)
+        m.compile(list(x), is_train=True, use_graph=use_graph)
         losses, aux = [], []
         for i, bt in enumerate(batches):
             if use_graph and i == 1:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                _, loss = m.train_step(bt)
+                _, loss = m.train_step(*bt)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             losses.append(loss.item())
             if aux_seen:
                 aux.append(aux_seen[-1].item())
         runs[use_graph], aux_runs[use_graph] = losses, aux
+        if not use_graph:
+            eager_end = {n: p.detach().cpu()
+                         for n, p in m.get_params().items()}
     del start
+    # one parameter at a time: the host holds one copy of the weights
+    # here, not two
+    differ = [n for n, p in m.get_params().items()
+              if not torch.equal(p.detach().cpu(), eager_end[n])]
+    del eager_end
     g = m.get_graph("train")
     fa.reset_device_launches()
     times, per_step, losses, aux = [], [], [], []
     for _ in range(TRAIN_STEPS):
         before = fa.device_launches()
-        (_, loss), dt = _timed(lambda: m.train_step(x))
+        (_, loss), dt = _timed(lambda: m.train_step(*x))
         losses.append(loss.item())
         times.append(dt)
         if aux_seen:
@@ -2336,35 +2422,46 @@ def config_train(m, b, t, later):
         per_step.append([after[k] - before[k] for k in fa.KERNELS])
     launches = fa.device_launches()
     peak = torch.cuda.max_memory_allocated()
-    if cfg.num_experts:
+    if moe:
         del m._moe_aux_loss
     step_s = sorted(times)[len(times) // 2]
-    flops = m.flops_per_token(t) * b * t
+    peak_rate = PEAK_FLOPS[torch.bfloat16]
     out = {
         "B": b, "T": t, "optimizer": "SGD(lr=0.01, momentum=0.9)",
-        "fused_loss": cfg.fused_loss, "captured": g.graph is not None,
+        "fused_loss": getattr(cfg, "fused_loss", None),
+        "captured": g.graph is not None,
         "capture_s": g.capture_seconds, "graph_num_ops": g.num_ops,
+        "graph_flops": g.flops(),
         "graph_pool_bytes": g.pool_bytes, "graph_launches": g.launches,
         "step_ms": [dt * 1e3 for dt in times],
         "median_step_ms": step_s * 1e3, "tokens_per_s": b * t / step_s,
-        "flops_per_token": m.flops_per_token(t), "flops_per_step": flops,
-        "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+        "samples_per_s": b / step_s,
+        "hfu_graph": g.flops() / step_s / peak_rate,
         "peak_memory_bytes": peak, "losses": losses,
         "launches": launches, "launches_per_step": per_step,
-        "expected_per_step": cfg.num_layers,
-        "eager_vs_captured": {"eager_losses": runs[False],
+        "expected_per_step": expect,
+        "eager_vs_captured": {"steps": CONFIG_STEPS,
+                              "eager_losses": runs[False],
                               "captured_losses": runs[True],
                               "bitwise": runs[False] == runs[True],
                               "eager_aux": aux_runs[False],
-                              "captured_aux": aux_runs[True]},
+                              "captured_aux": aux_runs[True],
+                              "states_bitwise": not differ,
+                              "states_differing": differ[:8]},
         "sync_free_warm_up": True}
-    if cfg.num_experts:
+    if flops_per_token is not None:
+        out["flops_per_token"] = flops_per_token
+        out["flops_per_step"] = flops_per_token * b * t
+        out["mfu"] = flops_per_token * b * t / step_s / peak_rate
+    later(not differ, f"captured parameters differ from eager: "
+          f"{differ[:8]}")
+    if moe:
         out["aux_loss_per_step"] = aux
         out["aux_weight"] = cfg.moe_aux_weight
     later(out["captured"], "train_step did not run a captured graph")
-    later(all(s == [cfg.num_layers] * 3 for s in per_step),
+    later(all(s == [expect] * 3 for s in per_step),
           f"flash kernels launched {per_step} times per step, expected "
-          f"{cfg.num_layers} each")
+          f"{expect} each")
     later(out["eager_vs_captured"]["bitwise"], f"captured losses "
           f"{runs[True]} differ from eager {runs[False]}")
     later(np.isfinite(losses).all(), f"non-finite loss: {losses}")
@@ -2787,7 +2884,8 @@ def phase_banded():
         checks.append((bool(cond), msg))
     m = config_model(cfg)
     params = m.num_params()
-    train = config_train(m, *BANDED_TRAIN, later)
+    train = config_train(m, *BANDED_TRAIN, later, cfg.num_layers,
+                         m.flops_per_token(BANDED_TRAIN[1]))
     del m
     _free()
     m = config_model(cfg)
@@ -2831,7 +2929,8 @@ def phase_moe():
         checks.append((bool(cond), msg))
     m = config_model(cfg)
     params = m.num_params()
-    train = config_train(m, *MOE_TRAIN, later)
+    train = config_train(m, *MOE_TRAIN, later, cfg.num_layers,
+                         m.flops_per_token(MOE_TRAIN[1]))
     b, t = MOE_TRAIN
     n_tok = b * t
     cap = math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * n_tok
@@ -3205,6 +3304,212 @@ def phase_cnn():
     return launches
 
 
+def gpt2_model(cfg):
+    """GPT-2 at `cfg` on the card, f32 masters from seed 0."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import GPT2
+    return GPT2(cfg, device=device.create_device("cuda"),
+                generator=torch.Generator("cuda").manual_seed(0))
+
+
+def _gpt2_loss(m, x):
+    """GPT-2's training loss: the fused loss against the tied head."""
+    from singa_tpu_torch.models.transformer import next_token_loss_fused_w
+    h = m.features(x)
+    return next_token_loss_fused_w(h, m._tied_head_w(h), x)
+
+
+def gpt2_kernel_vs_plain(m, ids):
+    """One GPT-2 step's loss and gradients with the kernels against the
+    same step with their plain versions, eagerly, the dropout masks
+    drawn alike (the generator reseeded before each)."""
+    from singa_tpu_torch.model import _dropout_generators
+    gens = _dropout_generators(m)
+
+    def run():
+        for g in gens:
+            g.manual_seed(1)
+        return _loss_and_grads(m, ids, GPT2_GRAD_NAMES, _gpt2_loss)
+    with plain_attention():
+        loss_p, g_p = run()
+    return {**_step_errors(*run(), loss_p, g_p), "loss_plain": loss_p,
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
+
+
+def _bert_batch(rng, vocab, b, t):
+    """One BERT classification batch on the card: ids (b, t), labels
+    (b,) of two classes."""
+    return (torch.as_tensor(rng.randint(0, vocab, (b, t)).astype(np.int32),
+                            device="cuda"),
+            torch.as_tensor(rng.randint(0, 2, b).astype(np.int32),
+                            device="cuda"))
+
+
+def bert_eval(m, later):
+    """BERT's eval with a padding mask (the attention's plain path):
+    captured at its third call, bitwise the eager call; the padded
+    positions' ids changed leave every logit as it was; then the f32
+    eval on the card against the port on the CPU with the same
+    weights."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import BERT
+    cfg = m.cfg
+    rng = np.random.RandomState(3)
+    b, t = BERT_EVAL_B, BERT_TRAIN[1]
+    ids = rng.randint(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    tt = np.zeros((b, t), np.int32)
+    tt[:, t // 2:] = 1
+    mask = np.ones((b, t), np.int32)
+    mask[:, t - BERT_PAD:] = 0
+    other = ids.copy()
+    other[:, t - BERT_PAD:] = rng.randint(0, cfg.vocab_size, (b, BERT_PAD))
+    args = [torch.as_tensor(a, device="cuda") for a in (ids, tt, mask)]
+    m.eval()
+    with torch.no_grad():
+        m.graph_mode = False
+        eager = m(*args)
+        m.graph_mode = True
+        outs = [m(*args) for _ in range(3)]
+        padded = m(torch.as_tensor(other, device="cuda"), *args[1:])
+    g = m.get_graph("eval")
+    res = {"B": b, "T": t, "padded_positions": BERT_PAD,
+           "logits_shape": list(eager.shape),
+           "captured": g is not None and g.graph is not None,
+           "captured_equals_eager": all(torch.equal(o, eager) for o in outs),
+           "padding_ignored": torch.equal(padded, outs[-1]),
+           "finite": bool(torch.isfinite(eager).all())}
+    # f32 on the card (TF32 off) against the CPU, the same weights
+    dev = m.device
+    saved, dev.default_dtype = dev.default_dtype, torch.float32
+    try:
+        cpu = BERT(cfg, device=device.create_device("cpu"))
+        cpu.set_params({n: p.detach().cpu()
+                        for n, p in m.get_params().items()})
+        cpu.eval()
+        n = BERT_CHECK_B
+        with torch.no_grad():
+            m.graph_mode = False
+            card = m(*(a[:n] for a in args)).float().cpu()
+            host = cpu(*(torch.as_tensor(a[:n]) for a in (ids, tt, mask)))
+    finally:
+        dev.default_dtype = saved
+        m.graph_mode = True
+    err = float((card - host).abs().max() / host.abs().max())
+    res["f32_vs_cpu"] = {"rows": n, "max_rel_to_largest": err,
+                         "limit": BERT_F32_LOGIT}
+    later(res["captured"] and res["captured_equals_eager"],
+          "BERT's captured eval differs from the eager one")
+    later(res["padding_ignored"], "BERT's logits moved with padded ids")
+    later(res["finite"] and res["logits_shape"] == [b, cfg.num_labels],
+          f"BERT's eval logits: shape {res['logits_shape']}, finite "
+          f"{res['finite']}")
+    later(err <= BERT_F32_LOGIT, f"BERT's f32 logits on the card differ "
+          f"from the CPU's by {err} of the largest")
+    return res
+
+
+def phase_transformer():
+    """GPT-2 124M: generate(), the paged engine and training; then
+    BERT-base training at bench.py's cell, and its eval.  Published
+    widths and depths, random weights from seed 0, bf16 activations over
+    f32 masters."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.models import BERT, BERTConfig, GPT2Config
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    cfg = GPT2Config()
+    m = gpt2_model(cfg)
+    params = sum(p.numel() for p in m.get_params().values())
+    gen = config_generate(m, *GPT2_GEN, later)
+    slots, max_len, block, n_req, new = GPT2_SERVE
+    rng = np.random.RandomState(GPT2_SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(GPT2_PROMPTS[0], GPT2_PROMPTS[1] + 1,
+                                    n_req)]
+    serve, eng, _, _ = config_serve(m, slots, max_len, block, prompts, new,
+                                    later)
+    eng.close()
+    del eng
+    _free()
+    gaps, serve["teacher_forced_f32"] = oracle_f32_masters(
+        m, prompts[:SERVE_ORACLE])
+    later(float(gaps.max()) <= SERVE_DELTA, f"GPT-2's f32 engine tokens "
+          f"fail the teacher-forced oracle: max gap {gaps.max()}")
+    later(serve["teacher_forced_f32"]["vs_generate_f32"]["streams_equal"],
+          "GPT-2's f32 engine streams differ from f32 generate()'s: "
+          f"{serve['teacher_forced_f32']['vs_generate_f32']}")
+    del m
+    _free()
+
+    m = gpt2_model(dataclasses.replace(cfg, fused_loss=True))
+    b, t = GPT2_TRAIN
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (b, t))
+    vs_plain = gpt2_kernel_vs_plain(m, ids.astype(np.int32))
+    later(vs_plain["ok"], f"GPT-2's step with the kernels differs from "
+          f"plain: {vs_plain}")
+    train = config_train(m, b, t, later, cfg.num_layers)
+    train["kernel_vs_plain"] = vs_plain
+    # model FLOPs from the captured graph's aten count: less the fused
+    # loss's recomputation of the tied head's logits in the backward
+    # (2 V D a token), plus the flash kernels' FLOPs, which the count
+    # leaves out (4 a causal (q, k) pair and head dim forward, 8 backward)
+    head = 2 * cfg.vocab_size * cfg.dim * b * t
+    hd = cfg.dim // cfg.num_heads
+    attn = 12 * b * cfg.num_heads * hd * (t * (t + 1) // 2) * cfg.num_layers
+    flops = train["graph_flops"] - head + attn
+    train.update({
+        "recomputed_head_flops": head, "attention_kernel_flops": attn,
+        "flops_source": "captured graph (aten ops) - recomputed head "
+                        "+ flash kernels", "flops_per_step": flops,
+        "flops_per_token": flops / (b * t),
+        "mfu": flops / (train["median_step_ms"] / 1e3)
+        / PEAK_FLOPS[torch.bfloat16]})
+    x = torch.as_tensor(ids.astype(np.int32), device="cuda")
+    train["profile"] = phase_profile(
+        lambda: m.train_step(x), f"one replayed GPT-2 train step, B={b} "
+        f"T={t}", dict.fromkeys(fa.KERNELS, cfg.num_layers))
+    del m, x
+    _free()
+
+    bcfg = BERTConfig(num_labels=2)
+    bm = BERT(bcfg, device=device.create_device("cuda"),
+              generator=torch.Generator("cuda").manual_seed(0))
+    bparams = sum(p.numel() for p in bm.get_params().values())
+    bb, bt = BERT_TRAIN
+    bert_train = config_train(bm, bb, bt, later, 0, bm.flops_per_token(bt),
+                              make_batch=_bert_batch)
+    batch = _bert_batch(np.random.RandomState(0), bcfg.vocab_size, bb, bt)
+    bert_train["profile"] = phase_profile(
+        lambda: bm.train_step(*batch), f"one replayed BERT-base train step, "
+        f"B={bb} T={bt}", dict.fromkeys(fa.KERNELS, 0))
+    fa.reset_device_launches()
+    evals = bert_eval(bm, later)
+    bert_launches = fa.device_launches()
+    del bm, batch
+    _free()
+    emit({"phase": "transformer", "card": smi_line(),
+          "gpt2": {"config": "GPT2Config() (GPT-2 124M)", "params": params,
+                   "generate": gen, "serve": serve, "train": train},
+          "bert": {"config": "BERTConfig(num_labels=2) (BERT-base)",
+                   "params": bparams, "train": bert_train, "eval": evals,
+                   "eval_flash_launches": bert_launches},
+          "phase_seconds": time.perf_counter() - t0})
+    later(params == 124_439_808, f"GPT-2 has {params} parameters")
+    later(bparams == 109_483_778, f"BERT-base has {bparams} parameters")
+    later(not any(bert_launches.values()), f"flash kernels ran in BERT's "
+          f"eval: {bert_launches}")
+    for cond, msg in checks:
+        check(cond, msg)
+    return {"gpt2": {"train": train["launches"], "generate": gen["launches"],
+                     "serve": serve["flash_launches"]},
+            "bert": {"train": bert_train["launches"]}}
+
+
 #: kernels that convert an activation between NCHW and NHWC
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose")
 
@@ -3289,73 +3594,71 @@ def _bound(flops, nbytes):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_timing():
-    """Each kernel, its plain version and the PyTorch call computing the
-    same function (a yardstick the port never calls), beside the card's
-    bound, at the training shape; the forward also at the prefill
-    shape.  Each kernel is also held against its plain version on the
-    inputs it is timed on."""
+def _library(timed):
+    """A library yardstick's time, or None where this torch lacks it."""
+    try:
+        return timed()
+    except (TypeError, RuntimeError) as e:    # no enable_gqa in torch
+        print(f"library yardstick unavailable: {e}", file=sys.stderr)
+        return None
+
+
+def attention_timing_rows(shape, b, t, h, k, d, causal, backward):
+    """The forward (and with `backward` the dQ and dK/dV kernels) at
+    (B, T, H, K, D) in bf16, each beside its bound, its plain version
+    and the PyTorch call computing the same function
+    (scaled_dot_product_attention, its gradient), and held against its
+    plain version on the inputs it is timed on."""
     import torch.nn.functional as F
     from singa_tpu_torch import kernel_check
     from singa_tpu_torch.ops import flash_attention as fa
 
-    h, k, d = 16, 8, 128
     dtype = torch.bfloat16
     scale = 1.0 / d ** 0.5
+    q, kk, v = kernel_check.make_qkv(b, t, t, h, k, d, dtype, seed=1)
+    pairs = t * (t + 1) // 2 if causal else t * t     # (q, k) pairs
+    t_bytes = q.numel() * q.element_size()    # one (B, T, H, D) tensor
+    kv_bytes = kk.numel() * kk.element_size()
+    row_bytes = b * h * t * 4                 # one (B, H, T) f32
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, v))
+    gqa = dict(enable_gqa=True) if k != h else {}
 
-    def library(timed):
-        try:
-            return timed()
-        except (TypeError, RuntimeError) as e:    # no enable_gqa in torch
-            print(f"library yardstick unavailable: {e}", file=sys.stderr)
-            return None
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              **gqa)
+    o, lse = fa._flash_fwd_cuda(q, kk, v, causal, scale)
+    errs = kernel_check.flash_errors(
+        o, lse, *fa._flash_fwd_reference(q, kk, v, causal, scale), dtype)
 
-    rows = []
-    for b, shape in ((B, "prefill"), (TB, "train")):
-        q, kk, v = kernel_check.make_qkv(b, P, P, h, k, d, dtype, seed=1)
-        pairs = P * (P + 1) // 2                  # causal (q, k) pairs
-        t_bytes = q.numel() * q.element_size()    # one (B, T, H, D) tensor
-        kv_bytes = kk.numel() * kk.element_size()
-        row_bytes = b * h * P * 4                 # one (B, H, T) f32
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        o, lse = fa._flash_fwd_cuda(q, kk, v, True, scale)
-        errs = kernel_check.flash_errors(
-            o, lse, *fa._flash_fwd_reference(q, kk, v, True, scale), dtype)
-
-        def kernel():
-            return fa._flash_fwd_cuda(q, kk, v, True, scale)
-        rows.append({
-            "name": "flash_fwd", "shape": shape, "timed_by": "cuda_graph",
-            "ms": graph_time_ms(kernel),
-            "events_ms": cuda_time_ms(kernel),
-            "host_us_per_call": host_time_us(kernel),
-            "plain_ms": graph_time_ms(
-                lambda: fa._flash_fwd_reference(q, kk, v, True, scale),
-                reps=2, replays=5),
-            "library_ms": library(lambda: graph_time_ms(sdpa)),
-            "library_covers": ["flash_fwd"],
-            "max_abs_err": errs["max_abs_do"], "ok": errs["ok"],
-            **_bound(4 * b * h * d * pairs,
-                     2 * t_bytes + 2 * kv_bytes + row_bytes)})
-        if shape != "train":
-            continue
+    def kernel():
+        return fa._flash_fwd_cuda(q, kk, v, causal, scale)
+    rows = [{
+        "name": "flash_fwd", "shape": shape, "timed_by": "cuda_graph",
+        "ms": graph_time_ms(kernel),
+        "events_ms": cuda_time_ms(kernel),
+        "host_us_per_call": host_time_us(kernel),
+        "plain_ms": graph_time_ms(
+            lambda: fa._flash_fwd_reference(q, kk, v, causal, scale),
+            reps=2, replays=5),
+        "library_ms": _library(lambda: graph_time_ms(sdpa)),
+        "library_covers": ["flash_fwd"],
+        "max_abs_err": errs["max_abs_do"], "ok": errs["ok"],
+        **_bound(4 * b * h * d * pairs,
+                 2 * t_bytes + 2 * kv_bytes + row_bytes)}]
+    if backward:
         g = torch.Generator("cuda").manual_seed(2)
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
-        args = (q, kk, v, do, lse, delta.contiguous(), True, scale)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                            enable_gqa=True)
+        args = (q, kk, v, do, lse, delta.contiguous(), causal, scale)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                            **gqa)
         dot = do.transpose(1, 2)
 
         def sdpa_bwd():
             return torch.autograd.grad(og, (qg, kg, vg), dot,
                                        retain_graph=True)
-        lib_bwd = library(lambda: cuda_time_ms(sdpa_bwd))
+        lib_bwd = _library(lambda: cuda_time_ms(sdpa_bwd))
         # one SDPA backward computes dq, dk and dv: its time is both rows'
         both = ["flash_bwd_dq", "flash_bwd_dkv"]
         errs = kernel_check.flash_bwd_errors(
@@ -3391,11 +3694,31 @@ def phase_timing():
             **_bound(8 * b * h * d * pairs,
                      2 * t_bytes + 4 * kv_bytes + 2 * row_bytes)})
     for r in rows:
-        r["dims"] = [B if r["shape"] == "prefill" else TB, P, h, k, d]
-    rows += window_timing_rows(library)
+        r["dims"] = [b, t, h, k, d]
+        r["causal"] = causal
+    return rows
+
+
+def phase_timing():
+    """Each kernel, its plain version and the PyTorch call computing the
+    same function (a yardstick the port never calls), beside the card's
+    bound, at base()'s training shape and GPT-2's; the forward also at
+    base()'s prefill shape and at BERT-base's (B=256, T=128, not causal:
+    a shape the route sends to the plain path, timed for the next
+    decision on it); then mistral-w4096's window.  Each kernel is also
+    held against its plain version on the inputs it is timed on."""
+    rows = []
+    for shape, b, t, h, k, d, causal, backward in (
+            ("prefill", B, P, 16, 8, 128, True, False),
+            ("train", TB, P, 16, 8, 128, True, True),
+            ("gpt2_train", *GPT2_TRAIN, 12, 12, 64, True, True),
+            ("bert", *BERT_TRAIN, 12, 12, 64, False, False)):
+        rows += attention_timing_rows(shape, b, t, h, k, d, causal, backward)
+    rows += window_timing_rows(_library)
     for r in rows:
+        r.setdefault("causal", True)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        emit({"phase": "timing", "dtype": "bfloat16", "causal": True, **r})
+        emit({"phase": "timing", "dtype": "bfloat16", **r})
     bad = [f"{r['name']}:{r['shape']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions on the "
           f"timed inputs: {bad}")
@@ -3569,9 +3892,12 @@ def main():
     banded = timed_phase("banded", phase_banded)
     moe = timed_phase("moe", phase_moe)
     cnn_launches = timed_phase("cnn", phase_cnn)
+    transformer = timed_phase("transformer", phase_transformer)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
+    shape_rows = {(r["shape"], r["name"]): r for r in rows
+                  if r["shape"] in ("gpt2_train", "bert")}
     kernels = []
     for r in rows:
         if r["shape"] != "train":
@@ -3608,11 +3934,24 @@ def main():
                           res["serve"]["flash_launches"][r["name"]]}}
         by_path["moe"]["load"] = {"launches": moe["load"][r["name"]]}
         by_path["cnn"] = {"launches": cnn_launches[r["name"]]}
-        wr = window_rows[r["name"]]
-        at_window = {key: wr[key] for key in (
-            "dims", "window", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_covers", "max_abs_err",
-            "share_of_bound")}
+        gp = transformer["gpt2"]
+        by_path["gpt2"] = {
+            "train": {"launches": gp["train"][r["name"]],
+                      "steps": TRAIN_STEPS,
+                      "per_step": gp["train"][r["name"]] / TRAIN_STEPS},
+            "generate": {"launches": gp["generate"][r["name"]],
+                         "calls": 1},
+            "serve": {"launches": gp["serve"][r["name"]]}}
+        by_path["bert"] = {"train": {
+            "launches": transformer["bert"]["train"][r["name"]],
+            "steps": TRAIN_STEPS}}
+
+        def at(row):
+            return {key: row[key] for key in (
+                "dims", "window", "causal", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_covers", "max_abs_err",
+                "share_of_bound") if key in row}
+        at_window = at(window_rows[r["name"]])
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[r["name"]],
@@ -3621,7 +3960,9 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_covers": r["library_covers"],
-            "timed_by": r["timed_by"], "at_mistral_w4096": at_window})
+            "timed_by": r["timed_by"], "at_mistral_w4096": at_window,
+            **{f"at_{sh}": at(row) for (sh, name), row in shape_rows.items()
+               if name == r["name"]}})
     emit({"phase": "end", "script_seconds": time.perf_counter() - t0,
           "phase_wall_s": wall, "clocks_after_timing": card_clocks()})
     emit({"kernels": kernels})

@@ -1,7 +1,8 @@
 """Operators ported from ``singa_tpu/autograd.py``: the forward math of
 Linear, Embedding, Cast, SiLU and RMSNorm (the Llama path); of ReLU,
 Tanh, Sigmoid, Dropout, Flatten, ReduceMean, Conv2d, MaxPool2d,
-AvgPool2d and BatchNorm (the CNN path); the train/eval flag,
+AvgPool2d and BatchNorm (the CNN path); of LayerNorm, Gelu, Softmax and
+LogSoftmax (the GPT-2 and BERT path); the train/eval flag,
 ``backward``, and the losses (``softmax_cross_entropy``,
 ``fused_linear_cross_entropy``, ``mse_loss``).
 
@@ -19,7 +20,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear", "embedding", "cast", "silu", "rmsnorm", "relu",
+__all__ = ["linear", "embedding", "cast", "silu", "rmsnorm", "layernorm",
+           "gelu", "softmax", "log_softmax", "relu",
            "tanh", "sigmoid", "dropout", "flatten", "reduce_mean",
            "conv2d", "max_pool2d", "avg_pool2d", "batchnorm",
            "set_training", "is_training", "train_mode", "eval_mode",
@@ -67,9 +69,46 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     return y
 
 
+# a table whose rows repeat at least this many times on average in one
+# batch (BERT's token types: 16,384) sums its gradient as a one-hot
+# product; others (vocabularies, positions) by a sort
+_ONE_HOT_REPEATS = 128
+
+
+class _Embedding(torch.autograd.Function):
+    """Row lookup whose backward adds each row's gradients in a fixed
+    order.  torch's CUDA embedding backward adds a row that many tokens
+    share (BERT's positions and token types: hundreds to thousands of
+    repeats) in an order that changes from run to run, so two runs of
+    one step, eager or captured, would part in the last bits.  Here the
+    gradient is index_put_ with accumulate, which on the card sorts the
+    ids stably and adds each row's repeats one after another; where
+    every row repeats many times that serial sum would be slow, and the
+    gradient is onehot(ids)ᵀ · dy, a matmul of 2·rows·N·D FLOPs, instead.
+    The choice reads shapes only, so a captured step makes it too."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        ids = ids.reshape(-1)
+        g = dy.reshape(-1, dy.shape[-1])
+        if ids.numel() >= _ONE_HOT_REPEATS * ctx.rows:
+            rows = torch.arange(ctx.rows, device=ids.device)
+            return (rows[:, None] == ids).to(g.dtype) @ g, None
+        dw = g.new_zeros(ctx.rows, g.shape[1])
+        return dw.index_put_((ids,), g, accumulate=True), None
+
+
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup: out[i] = table[ids[i]]."""
-    return F.embedding(ids.long(), table)
+    """Row lookup: out[i] = table[ids[i]]; the table's gradient is summed
+    in a fixed order (`_Embedding`)."""
+    return _Embedding.apply(table, ids.long())
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -85,6 +124,31 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * gamma).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis:
+    statistics in f32 (a bf16 variance loses rows of near-zero spread),
+    output in the input dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """GELU: ``approximate=True`` is the tanh form (GPT-2's gelu_new),
+    False the exact erf form (BERT)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=axis)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

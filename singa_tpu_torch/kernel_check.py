@@ -29,10 +29,13 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
 # diagonal with Tq < Tk at Llama's G=2), the shapes of
 # LlamaConfig.base() at prefill (B=4) and in training (B=8), Mixtral-
 # 8x7B's training shape (32 heads over 8 K/V heads: dK/dV sums groups of
-# 4 at T = 1024 causal), and a window where it pays (Mistral-7B's W =
-# 4096 at T = 8192; 8 of its 32 heads, a group of 4 as Mistral's, so the
-# plain version fits), also with 128 queries against the 8192 keys,
-# where the band's lower edge falls inside a 128-key tile
+# 4 at T = 1024 causal), GPT-2 124M's training shape (12 heads, no
+# grouping, head dim 64, B=8 at T = 1024 causal) and its generate()
+# prefill (B=4 at P = 512 causal), and a window where it
+# pays (Mistral-7B's W = 4096 at T = 8192; 8 of its 32 heads, a group of
+# 4 as Mistral's, so the plain version fits), also with 128 queries
+# against the 8192 keys, where the band's lower edge falls inside a
+# 128-key tile
 FLASH_CASES = {
     "mha_noncausal_d64": (2, 512, 512, 4, 4, 64, False, None),
     "mha_causal_d64": (2, 512, 512, 4, 4, 64, True, None),
@@ -48,6 +51,8 @@ FLASH_CASES = {
     "slice": (4, 1024, 1024, 16, 8, 128, True, None),
     "train": (8, 1024, 1024, 16, 8, 128, True, None),
     "mixtral_train": (4, 1024, 1024, 32, 8, 128, True, None),
+    "gpt2_train": (8, 1024, 1024, 12, 12, 64, True, None),
+    "gpt2_prefill": (4, 512, 512, 12, 12, 64, True, None),
     "window4096_t8192": (1, 8192, 8192, 8, 2, 128, True, 4096),
     "window_decode_edge": (1, 128, 8192, 8, 2, 128, True, 4096),
 }

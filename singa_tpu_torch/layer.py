@@ -1,5 +1,7 @@
 """Layers, ported from ``singa_tpu/layer.py``: ``Layer``, ``Linear``,
-``Embedding``, ``RMSNorm``, ``MoE``, and the vision layers ``Conv2d``,
+``Embedding``, ``RMSNorm``, ``MoE``, the transformer layers
+``LayerNorm``, ``Gelu``, ``Softmax`` and ``MultiHeadAttention``, and the
+vision layers ``Conv2d``,
 ``BatchNorm2d``, ``MaxPool2d``, ``AvgPool2d``, ``GlobalAvgPool2d``,
 ``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``Dropout``,
 ``Sequential`` and the loss layers ``CrossEntropyLoss``, ``MSELoss``.
@@ -28,9 +30,12 @@ from torch import nn
 
 from . import autograd
 from .device import Device, get_default_device
+from .ops import kv_cache as kv_ops
+from .ops.attention import attention
 from .ops.moe import moe_forward
 
-__all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "MoE", "Conv2d",
+__all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "LayerNorm", "Gelu",
+           "Softmax", "MultiHeadAttention", "MoE", "Conv2d",
            "BatchNorm2d", "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d",
            "Flatten", "ReLU", "Tanh", "Sigmoid", "Dropout", "Sequential",
            "CrossEntropyLoss", "MSELoss"]
@@ -165,6 +170,70 @@ class RMSNorm(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return autograd.rmsnorm(x, _maybe_cast(self.gamma, x), self.eps)
+
+
+class LayerNorm(Layer):
+    """LayerNorm over the last axis of width `dim`: ``gamma`` ones,
+    ``beta`` zeros."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 device: Optional[Device] = None):
+        super().__init__(device)
+        self.dim, self.eps = dim, eps
+        self.gamma = self._new_param((dim,))
+        self.beta = self._new_param((dim,))
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+            self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.layernorm(x, _maybe_cast(self.gamma, x),
+                                  _maybe_cast(self.beta, x), self.eps)
+
+
+class MultiHeadAttention(Layer):
+    """Multi-head attention over inputs of width `embed_dim`: biased
+    ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` (D, D), through
+    ``ops.attention.attention`` (the flash kernels on the card for
+    sequences of 512 and more without an explicit mask).
+
+    With a KV cache, `pos` an int 0 is the prompt: full attention
+    within it, and the cache written.  Any other `pos` (an int, a 0-d
+    tensor, or a (B,) tensor of per-row depths) writes the new keys at
+    `pos` and attends the cache below ``pos + T`` (``cached_sdpa``); no
+    branch reads a tensor `pos` on the host, so the step captures."""
+
+    def __init__(self, num_heads: int, embed_dim: int, causal: bool = False,
+                 device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} does not split into "
+                             f"{num_heads} heads")
+        self.num_heads, self.embed_dim, self.causal = \
+            num_heads, embed_dim, causal
+        d = embed_dim
+        kw = dict(device=self.device, generator=generator)
+        self.q_proj = Linear(d, d, **kw)
+        self.k_proj = Linear(d, d, **kw)
+        self.v_proj = Linear(d, d, **kw)
+        self.out_proj = Linear(d, d, **kw)
+
+    def forward(self, x: torch.Tensor, mask=None, cache=None, pos=0):
+        B, T, D = x.shape
+        H = self.num_heads
+        q = self.q_proj(x).reshape(B, T, H, D // H)
+        k = self.k_proj(x).reshape(B, T, H, D // H)
+        v = self.v_proj(x).reshape(B, T, H, D // H)
+        if cache is None:
+            o = attention(q, k, v, causal=self.causal, mask=mask)
+            return self.out_proj(o.reshape(B, T, D))
+        ck, cv = kv_ops.update_cache(cache[0], cache[1], k, v, pos)
+        if isinstance(pos, int) and pos == 0:
+            o = attention(q, k, v, causal=self.causal, mask=mask)
+        else:
+            o = kv_ops.cached_sdpa(q, ck, cv, limit=pos + T, mask=mask)
+        return self.out_proj(o.reshape(B, T, D)), (ck, cv)
 
 
 class MoE(Layer):
@@ -403,6 +472,27 @@ class ReLU(_Deviceless):
 class Tanh(_Deviceless):
     def forward(self, x):
         return autograd.tanh(x)
+
+
+class Gelu(_Deviceless):
+    """GELU; ``approximate=True`` (the default, as in the reference) is
+    the tanh form, False the exact erf form."""
+
+    def __init__(self, approximate: bool = True):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return autograd.gelu(x, self.approximate)
+
+
+class Softmax(_Deviceless):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.softmax(x, self.axis)
 
 
 class Sigmoid(_Deviceless):

@@ -8,7 +8,9 @@ num_beams 1, 2 and 4, with and without eos_id, at length_penalty 0.5 and
 1.0; the session's path equals the eager one bitwise; num_beams=1 is
 greedy generate(); the reported score is the returned sequence's
 log-probability under a teacher-forced forward; beam sessions share
-generate()'s MAX_SESSIONS cap."""
+generate()'s MAX_SESSIONS cap.  GPT2Config.tiny() (learned positions,
+its own forward_cached) goes through the same search and is held to
+the reference's the same way."""
 
 import numpy as np
 import pytest
@@ -17,8 +19,8 @@ import torch
 from singa_tpu import models as jmodels
 from singa_tpu import tensor as jtensor
 from singa_tpu_torch import device as tdevice
-from singa_tpu_torch.models import (Llama, LlamaConfig, _generate,
-                                    load_reference_params)
+from singa_tpu_torch.models import (GPT2, GPT2Config, Llama, LlamaConfig,
+                                    _generate, load_reference_params)
 
 N = 6
 #: |score - reference score| for the returned hypothesis (f32 sums of
@@ -50,9 +52,15 @@ def pair():
 def test_beam_equals_the_reference(pair, num_beams, with_eos,
                                    length_penalty):
     jm, tm, prompt, eos = pair
-    kw = dict(max_new_tokens=N, num_beams=num_beams,
-              eos_id=eos if with_eos else None,
-              length_penalty=length_penalty, return_scores=True)
+    _beam_is_the_reference(jm, tm, prompt, num_beams=num_beams,
+                           eos_id=eos if with_eos else None,
+                           length_penalty=length_penalty)
+
+
+def _beam_is_the_reference(jm, tm, prompt, **kw):
+    """The port's sequences equal the reference's, its scores within
+    SCORE_TOL, and its captured search equals its eager one bitwise."""
+    kw.update(max_new_tokens=N, return_scores=True)
     want, wscore = jm.generate_beam(prompt, **kw)
     got, score = tm.generate_beam(prompt, **kw)
     eager, escore = tm.generate_beam(prompt, use_graph=False, **kw)
@@ -62,6 +70,26 @@ def test_beam_equals_the_reference(pair, num_beams, with_eos,
                                atol=SCORE_TOL)
     np.testing.assert_array_equal(eager, got)
     np.testing.assert_array_equal(escore, score)
+
+
+@pytest.fixture(scope="module")
+def gpt2_pair():
+    """(reference GPT-2 tiny, the port's with its weights, prompt (2, 8))."""
+    jtensor.set_seed(0)
+    jm = jmodels.GPT2(jmodels.GPT2Config.tiny())
+    prompt = np.random.RandomState(1).randint(
+        0, jm.cfg.vocab_size, (2, 8)).astype(np.int32)
+    jm.compile([jtensor.from_numpy(prompt)], is_train=False, use_graph=True)
+    jm.eval()
+    tm = GPT2(GPT2Config.tiny(), device=tdevice.create_device("cpu"))
+    load_reference_params(tm, {n: np.asarray(t.data)
+                               for n, t in jm.get_params().items()})
+    return jm, tm, prompt
+
+
+@pytest.mark.parametrize("num_beams", [2, 4])
+def test_gpt2_beam_equals_the_reference(gpt2_pair, num_beams):
+    _beam_is_the_reference(*gpt2_pair, num_beams=num_beams)
 
 
 def test_one_beam_is_greedy_generate(pair):

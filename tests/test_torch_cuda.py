@@ -956,3 +956,95 @@ def test_cnn_captured_dropout_draws_new_masks_and_equals_eager(
             assert torch.equal(runs[True][1][n], t), (lr, n)
         if lr == 0.0:
             assert len(set(runs[True][0])) == 6, runs[True][0]
+
+
+# -- the transformer family ------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 512, 30522],
+                         ids=["token_types", "positions", "vocab"])
+def test_embedding_gradient_repeats_bitwise(cuda_device, rows):
+    """The table gradient at BERT-base's training shape (B=256 x T=128,
+    dim 768) sums each row's repeats in one order: five backwards give
+    the same bits, within f32 rounding of a float64 sum, with torch's
+    deterministic mode left off.  The ids repeat as BERT's do: token
+    types mostly 0, every position 256 times, and vocabulary ids drawn
+    from a Zipf law (the commonest id thousands of times)."""
+    from singa_tpu_torch import autograd as tautograd
+    b, t, d = 256, 128, 768             # token types: the one-hot product
+    rng = np.random.RandomState(0)
+    if rows == 2:
+        ids = (rng.rand(b, t) < 0.1).astype(np.int64)
+    elif rows == 512:
+        ids = np.broadcast_to(np.arange(t), (b, t)).copy()
+    else:
+        ids = np.minimum(rng.zipf(1.2, (b, t)) - 1, rows - 1)
+    ids = torch.as_tensor(ids, device="cuda")
+    g = torch.Generator("cuda").manual_seed(1)
+    dy = torch.randn(b, t, d, generator=g, device="cuda")
+    table = torch.zeros(rows, d, device="cuda", requires_grad=True)
+    assert not torch.are_deterministic_algorithms_enabled()
+    grads = [torch.autograd.grad(tautograd.embedding(table, ids), table,
+                                 dy)[0] for _ in range(5)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    for gr in grads[1:]:
+        assert torch.equal(gr, grads[0])
+    want = torch.zeros(rows, d, dtype=torch.float64).index_add_(
+        0, ids.reshape(-1).cpu(), dy.reshape(-1, d).double().cpu())
+    err = (grads[0].double().cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_gpt2_captured_train_step_equals_eager_bitwise(cuda_device):
+    """GPT-2 at its width (dim 768, 12 heads of 64) cut to 2 layers, at
+    T = 512 (the flash route) with dropout 0.1 and the fused loss: six
+    captured steps equal six eager ones from the same weights and
+    dropout seed bit for bit, in losses and parameters, and each step
+    launches every kernel once a layer."""
+    from singa_tpu_torch.models import GPT2, GPT2Config
+    cfg = GPT2Config(num_layers=2, fused_loss=True)
+    rng = np.random.RandomState(4)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 512)),
+                               device="cuda") for _ in range(6)]
+    runs = {}
+    for use_graph in (False, True):
+        m = GPT2(cfg, device=cuda_device,
+                 generator=torch.Generator("cuda").manual_seed(0))
+        cuda_device.SetRandSeed(3)            # the dropout layers' generator
+        m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+        m.compile([batches[0]], is_train=True, use_graph=use_graph)
+        losses = []
+        for x in batches:
+            tfa.reset_device_launches()
+            losses.append(m.train_step(x)[1].item())
+            assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS, 2)
+        runs[use_graph] = (losses, {n: t.detach().clone()
+                                    for n, t in m.get_params().items()})
+    assert m.get_graph("train").graph is not None
+    assert runs[True][0] == runs[False][0]
+    assert np.isfinite(runs[True][0]).all()
+    for n, t in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], t), n
+
+
+@pytest.mark.cuda
+def test_bert_routes_t128_to_the_plain_path(cuda_device):
+    """BERT at T = 128 runs the plain attention (the route starts at
+    512, as the reference's), with or without a padding mask: no flash
+    launch in a training step or an eval."""
+    from singa_tpu_torch.models import BERT, BERTConfig
+    m = BERT(BERTConfig(num_layers=2, num_labels=2), device=cuda_device,
+             generator=torch.Generator("cuda").manual_seed(0))
+    m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+    ids = torch.randint(0, 30522, (4, 128), device="cuda")
+    y = torch.tensor([0, 1, 1, 0], device="cuda")
+    mask = torch.ones((4, 128), dtype=torch.int32, device="cuda")
+    mask[:, 100:] = 0
+    tfa.reset_device_launches()
+    m.compile([ids], is_train=True, use_graph=False)
+    _, loss = m.train_step(ids, y)
+    m.eval()
+    logits = m(ids, None, mask)
+    assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS, 0)
+    assert np.isfinite(loss.item()) and logits.shape == (4, 2)
