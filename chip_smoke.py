@@ -207,7 +207,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
                padded ids; the f32 eval against the port on the CPU; no
                flash launch anywhere on BERT's path (T = 128 takes the
                plain attention, as in the reference)
- 19. timing  — each kernel, its plain version and the PyTorch call that
+ 19. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
+               bench.py's cell (BERTConfig(num_labels=2), seed 0, B=256 x
+               T=128): exported by the port (to_onnx), serialised and
+               parsed back (bytes, export / serialise / parse seconds),
+               checked (check_model) and imported on the card (prepare);
+               its eval logits against the native model's on the export's
+               batch, in bf16 (the bf16 gate) and in f32 (SONNX_F32_LOGIT),
+               which an import of the parsed proto with one LayerNorm
+               gamma scaled by 1.01 must fail; then trained through
+               set_optimizer / set_loss / compile / train_step (SGD 0.01
+               / momentum 0.9, softmax_cross_entropy): 5 eager and 5
+               captured steps bitwise in losses and parameters, 10 timed
+               replays (step ms, samples/s, MFU from the native model's
+               flops_per_token(128)) beside the transformer phase's
+               native step, a profile of one replay by kind.  GPT-2 124M
+               (GPT2Config(), seed 0) exported (its tied head one shared
+               initializer) and imported for inference at B=8 x T=128:
+               logits in bf16 and f32 against the native forward, a
+               captured eval bitwise the eager one, ms a call and
+               tokens/s of each.  No flash launch on either path, counted
+               on the card
+ 20. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -429,6 +450,20 @@ GPT2_GRAD_NAMES = ("wte.table", "blocks.0.attn.q_proj.W",
 BERT_TRAIN = (256, 128)
 BERT_EVAL_B, BERT_PAD = 64, 40
 BERT_CHECK_B, BERT_F32_LOGIT = 4, 1e-4
+# the sonnx phase: BERT-base at bench.py's cell (BERT_TRAIN, SGD 0.01 /
+# momentum 0.9, softmax_cross_entropy) exported by the port, its bytes
+# parsed back and imported on the card, trained as the transformer phase
+# trains the native model; GPT-2 124M exported and imported at the
+# reference's session shape SONNX_GPT2 (B, T) for inference.  Logits of
+# an import against its native model, both on the card: in f32 (TF32
+# off) within SONNX_F32_LOGIT of the largest, which a planted fault (the
+# parsed proto's SONNX_PLANT initializer scaled by SONNX_PLANT_SCALE)
+# must exceed; in bf16 within LOGIT_RTOL, the bf16 gate.  Each at the
+# export's own batch: an exported graph's shapes are static
+SONNX_GPT2 = (8, 128)
+SONNX_F32_LOGIT = 1e-4
+SONNX_PLANT, SONNX_PLANT_SCALE = "blocks.11.ln_2.gamma", 1.01
+SONNX_EVAL_CALLS = 10
 
 
 def emit(obj):
@@ -2340,7 +2375,7 @@ def _token_batch(rng, vocab, b, t):
 
 
 def config_train(m, b, t, later, expect, flops_per_token=None,
-                 make_batch=_token_batch):
+                 make_batch=_token_batch, cfg=None):
     """A configuration's training through set_optimizer / compile /
     train_step (SGD momentum 0.9): CONFIG_STEPS eager and captured steps
     from the same weights, batches (`make_batch(rng, vocab, b, t)`: the
@@ -2353,12 +2388,13 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
     ran: recomputations included, the flash kernels' left out); `mfu`
     counts `flops_per_token`, the model's own FLOPs, where the caller
     gives them.  An MoE model's aux loss is read at every step: the
-    tensor its capture recorded is rewritten by each replay."""
+    tensor its capture recorded is rewritten by each replay.  `cfg`
+    stands in for a model without one (an ONNX import)."""
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import _dropout_generators
     from singa_tpu_torch.ops import flash_attention as fa
 
-    cfg = m.cfg
+    cfg = cfg or m.cfg
     moe = getattr(cfg, "num_experts", 0)
     rng = np.random.RandomState(0)
     batches = [make_batch(rng, cfg.vocab_size, b, t)
@@ -3507,7 +3543,225 @@ def phase_transformer():
         check(cond, msg)
     return {"gpt2": {"train": train["launches"], "generate": gen["launches"],
                      "serve": serve["flash_launches"]},
-            "bert": {"train": bert_train["launches"]}}
+            "bert": {"train": bert_train["launches"],
+                     "step": {k: bert_train[k] for k in (
+                         "median_step_ms", "samples_per_s", "mfu")}}}
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _round_trip(native, inputs, later, what):
+    """`native` exported by the port at `inputs`, serialised, parsed back
+    and checked: the parsed proto and the codec's figures."""
+    from singa_tpu_torch import sonnx
+    t = time.perf_counter()
+    p = sonnx.to_onnx(native, inputs)
+    t_export = time.perf_counter() - t
+    t = time.perf_counter()
+    data = p.SerializeToString()
+    t_ser = time.perf_counter() - t
+    del p
+    t = time.perf_counter()
+    parsed = sonnx.load_model_from_string(data)
+    t_parse = time.perf_counter() - t
+    sonnx.check_model(parsed)
+    ops = {}
+    for n in parsed.graph.node:
+        ops[n.op_type] = ops.get(n.op_type, 0) + 1
+    later(ops.get("LayerNormalization") and ops.get("Gelu"),
+          f"{what}'s export lacks single LayerNormalization / Gelu nodes: "
+          f"{ops}")
+    return parsed, {"bytes": len(data), "export_s": t_export,
+                    "serialize_s": t_ser, "parse_s": t_parse,
+                    "nodes": len(parsed.graph.node),
+                    "initializers": len(parsed.graph.initializer),
+                    "ops": ops}
+
+
+def _logit_checks(native, rep, args, later, what, plant=None):
+    """An import's eval logits against its native model's on the card,
+    both eager, on the export's inputs: in bf16 (LOGIT_RTOL of the
+    largest) and in f32, TF32 off (SONNX_F32_LOGIT); with `plant` (a
+    thunk making a faulty import), the same f32 comparison must exceed
+    the limit."""
+    dev = native.device
+    native.eval()
+    rep.eval()
+    res = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            saved, dev.default_dtype = dev.default_dtype, dtype
+            try:
+                want = native(*args)
+                got = rep(*args)
+                key = "bf16" if dtype == torch.bfloat16 else "f32"
+                res[key] = {"max_rel_to_largest": _rel_err(got, want),
+                            "limit": LOGIT_RTOL if key == "bf16"
+                            else SONNX_F32_LOGIT,
+                            "dtype": str(got.dtype),
+                            "finite": bool(torch.isfinite(got).all())}
+                if plant is not None and key == "f32":
+                    bad = plant()
+                    bad.eval()
+                    res["planted"] = {"initializer": SONNX_PLANT,
+                                      "scale": SONNX_PLANT_SCALE,
+                                      "max_rel_to_largest":
+                                      _rel_err(bad(*args), want)}
+                    del bad
+            finally:
+                dev.default_dtype = saved
+    res["shape"] = list(got.shape)
+    for key in ("bf16", "f32"):
+        r = res[key]
+        later(r["finite"] and r["max_rel_to_largest"] <= r["limit"],
+              f"{what}'s import differs from the native model in {key}: "
+              f"{r}")
+    if plant is not None:
+        later(res["planted"]["max_rel_to_largest"] > SONNX_F32_LOGIT,
+              f"{what}'s planted fault passes the f32 logit limit: "
+              f"{res['planted']}")
+    return res
+
+
+def _planted(parsed, device):
+    """A thunk importing `parsed` with its SONNX_PLANT initializer scaled
+    by SONNX_PLANT_SCALE (the proto itself left as it was)."""
+    from singa_tpu_torch import sonnx
+
+    def make():
+        init = next(t for t in parsed.graph.initializer
+                    if t.name == SONNX_PLANT)
+        raw = init.raw_data
+        init.raw_data = sonnx.from_array(
+            sonnx.to_array(init) * SONNX_PLANT_SCALE).raw_data
+        try:
+            return sonnx.prepare(parsed, device=device)
+        finally:
+            init.raw_data = raw
+    return make
+
+
+def sonnx_gpt2(later):
+    """GPT-2 124M exported and imported for inference: logits against
+    the native forward, a captured eval against an eager one (bitwise)
+    and their times, no flash launch."""
+    from singa_tpu_torch import sonnx
+    from singa_tpu_torch.models import GPT2Config
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPT2Config()
+    native = gpt2_model(cfg)
+    b, t = SONNX_GPT2
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, t)).astype(np.int32), device="cuda")
+    parsed, codec = _round_trip(native, [ids], later, "GPT-2")
+    # the tied head: one initializer that the embedding and the head read
+    codec["wte_initializers"] = sum(
+        t.name == "wte.table" for t in parsed.graph.initializer)
+    codec["wte_readers"] = [n.op_type for n in parsed.graph.node
+                            if "wte.table" in n.input]
+    later(codec["wte_initializers"] == 1 and len(codec["wte_readers"]) == 2,
+          f"GPT-2's tied head is not one shared initializer: {codec}")
+    t0 = time.perf_counter()
+    rep = sonnx.prepare(parsed, device=native.device)
+    prepare_s = time.perf_counter() - t0
+    logits = _logit_checks(native, rep, [ids], later, "GPT-2")
+    del native, parsed
+    _free()
+    params = sum(p.numel() for p in rep.get_params().values())
+    fa.reset_device_launches()
+    with torch.no_grad():
+        rep.graph_mode = False
+        eager = rep(ids)
+        rep.compile([ids], is_train=False, use_graph=True)
+        outs = [rep(ids) for _ in range(3)]
+        rep.graph_mode = False
+        eager_ms = _median_ms(lambda: rep(ids))
+        rep.graph_mode = True
+        graph_ms = _median_ms(lambda: rep(ids), SONNX_EVAL_CALLS)
+    launches = fa.device_launches()
+    calls = 4 + 5 + SONNX_EVAL_CALLS
+    g = rep.get_graph("eval")
+    res = {"config": "GPT2Config() (GPT-2 124M)", "B": b, "T": t,
+           "params": params, "codec": codec, "prepare_s": prepare_s,
+           "logits": logits,
+           "captured": g is not None and g.graph is not None,
+           "captured_equals_eager": all(torch.equal(o, eager) for o in outs),
+           "eager_ms": eager_ms, "captured_ms": graph_ms,
+           "tokens_per_s": b * t / (graph_ms / 1e3),
+           "eager_tokens_per_s": b * t / (eager_ms / 1e3),
+           "flash_launches": launches, "calls_counted": calls}
+    later(res["captured"] and res["captured_equals_eager"],
+          "GPT-2's imported captured eval differs from the eager one")
+    later(params == 124_439_808, f"GPT-2's import has {params} parameters")
+    later(not any(launches.values()), f"flash kernels ran on GPT-2's "
+          f"import: {launches}")
+    del rep, eager, outs
+    _free()
+    return res
+
+
+def phase_sonnx(native_bert):
+    """BERT-base through the ONNX path at bench.py's cell: exported by
+    the port, serialised and parsed back, imported (sonnx.prepare) on the
+    card and trained through compile/train_step, beside the native BERT
+    step that the transformer phase measured (`native_bert`); its logits
+    against the native model's; a profile of one replay; then GPT-2 124M
+    imported for inference.  No flash launch on either path: an imported
+    attention is MatMul / Softmax."""
+    from singa_tpu_torch import autograd, device, sonnx
+    from singa_tpu_torch.models import BERT, BERTConfig
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    bcfg = BERTConfig(num_labels=2)
+    dev = device.create_device("cuda")
+    native = BERT(bcfg, device=dev,
+                  generator=torch.Generator("cuda").manual_seed(0))
+    bb, bt = BERT_TRAIN
+    ids, labels = _bert_batch(np.random.RandomState(0), bcfg.vocab_size,
+                              bb, bt)
+    flops_per_token = native.flops_per_token(bt)
+    parsed, codec = _round_trip(native, [ids], later, "BERT")
+    t = time.perf_counter()
+    rep = sonnx.prepare(parsed, device=dev)
+    prepare_s = time.perf_counter() - t
+    logits = _logit_checks(native, rep, [ids], later, "BERT",
+                           _planted(parsed, dev))
+    del native, parsed
+    _free()
+    params = sum(p.numel() for p in rep.get_params().values())
+    rep.set_loss(autograd.softmax_cross_entropy)
+    train = config_train(rep, bb, bt, later, 0, flops_per_token,
+                         make_batch=_bert_batch, cfg=bcfg)
+    train["profile"] = phase_profile(
+        lambda: rep.train_step(ids, labels), f"one replayed train step of "
+        f"the imported BERT-base, B={bb} T={bt}", dict.fromkeys(fa.KERNELS, 0))
+    del rep
+    _free()
+    bert = {"config": "BERTConfig(num_labels=2) (BERT-base), exported and "
+                      "re-imported", "params": params, "codec": codec,
+            "prepare_s": prepare_s, "logits": logits, "train": train,
+            "native_step": native_bert,
+            "step_vs_native": train["median_step_ms"]
+            / native_bert["median_step_ms"]}
+    later(params == 109_483_778, f"BERT's import has {params} parameters")
+    gpt2 = sonnx_gpt2(later)
+    emit({"phase": "sonnx", "card": smi_line(), "bert": bert, "gpt2": gpt2,
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return {"bert_train": train["launches"],
+            "gpt2_eval": gpt2["flash_launches"],
+            "gpt2_calls": gpt2["calls_counted"]}
 
 
 #: kernels that convert an activation between NCHW and NHWC
@@ -3893,6 +4147,8 @@ def main():
     moe = timed_phase("moe", phase_moe)
     cnn_launches = timed_phase("cnn", phase_cnn)
     transformer = timed_phase("transformer", phase_transformer)
+    sonnx_launches = timed_phase("sonnx", phase_sonnx,
+                                 transformer["bert"]["step"])
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
@@ -3945,6 +4201,12 @@ def main():
         by_path["bert"] = {"train": {
             "launches": transformer["bert"]["train"][r["name"]],
             "steps": TRAIN_STEPS}}
+        by_path["sonnx"] = {
+            "bert_train": {"launches":
+                           sonnx_launches["bert_train"][r["name"]],
+                           "steps": TRAIN_STEPS},
+            "gpt2_eval": {"launches": sonnx_launches["gpt2_eval"][r["name"]],
+                          "calls": sonnx_launches["gpt2_calls"]}}
 
         def at(row):
             return {key: row[key] for key in (

@@ -30,6 +30,7 @@ from . import utils
 from . import obs
 from . import faults
 from . import serve
+from . import sonnx
 
 __all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
-           "models", "utils", "obs", "faults", "serve"]
+           "models", "utils", "obs", "faults", "serve", "sonnx"]

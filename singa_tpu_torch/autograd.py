@@ -4,7 +4,8 @@ Tanh, Sigmoid, Dropout, Flatten, ReduceMean, Conv2d, MaxPool2d,
 AvgPool2d and BatchNorm (the CNN path); of LayerNorm, Gelu, Softmax and
 LogSoftmax (the GPT-2 and BERT path); the train/eval flag,
 ``backward``, and the losses (``softmax_cross_entropy``,
-``fused_linear_cross_entropy``, ``mse_loss``).
+``fused_linear_cross_entropy``, ``mse_loss``).  Functions with a
+one-node ONNX form are marked ``@unit`` for the exporter (``_unit``).
 
 Plain functions on ``torch.Tensor`` with the reference's dtype rules.
 torch autograd is the tape: the reference's ``Operator``/``backward``
@@ -19,6 +20,8 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ._unit import unit
 
 __all__ = ["linear", "embedding", "cast", "silu", "rmsnorm", "layernorm",
            "gelu", "softmax", "log_softmax", "relu",
@@ -61,6 +64,7 @@ def eval_mode():
     return _TrainingScope(False)
 
 
+@unit("linear")
 def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     """y = x @ W (+ b), W of shape (in, out)."""
     y = torch.matmul(x, w)
@@ -105,12 +109,14 @@ class _Embedding(torch.autograd.Function):
         return dw.index_put_((ids,), g, accumulate=True), None
 
 
+@unit("embedding")
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row lookup: out[i] = table[ids[i]]; the table's gradient is summed
     in a fixed order (`_Embedding`)."""
     return _Embedding.apply(table, ids.long())
 
 
+@unit("cast")
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
@@ -119,6 +125,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+@unit("rmsnorm")
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     """Statistics in f32, output in the input dtype (Llama style)."""
     xf = x.float()
@@ -126,6 +133,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     return (xf * torch.rsqrt(ms + eps) * gamma).to(x.dtype)
 
 
+@unit("layernorm")
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis:
@@ -137,16 +145,19 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
+@unit("gelu")
 def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
     """GELU: ``approximate=True`` is the tanh form (GPT-2's gelu_new),
     False the exact erf form (BERT)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@unit("softmax")
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x, dim=axis)
 
 
+@unit("log_softmax")
 def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.log_softmax(x, dim=axis)
 
@@ -226,6 +237,7 @@ def _conv_pads(padding, size, kernel, stride, dilation):
                  for p in padding)
 
 
+@unit("conv2d")
 def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, stride=1, padding=0,
            groups: int = 1, dilation=1) -> torch.Tensor:
     """2-D convolution of an NHWC `x` with an HWIO `w` (I = C / groups);
@@ -256,17 +268,20 @@ def _pool(fn, x, kernel, stride, padding, fill):
     return fn(xc, kernel, stride, padding).permute(0, 2, 3, 1)
 
 
+@unit("max_pool2d")
 def max_pool2d(x: torch.Tensor, kernel, stride=None, padding: int = 0):
     """Max over windows of an NHWC `x`, padded with -inf."""
     return _pool(F.max_pool2d, x, kernel, stride, padding, float("-inf"))
 
 
+@unit("avg_pool2d")
 def avg_pool2d(x: torch.Tensor, kernel, stride=None, padding: int = 0):
     """Mean over windows of an NHWC `x`, padded with 0 and divided by
     the full window (count_include_pad)."""
     return _pool(F.avg_pool2d, x, kernel, stride, padding, 0.0)
 
 
+@unit("batchnorm")
 def batchnorm(x: torch.Tensor, gamma, beta, mean, var, eps: float = 1e-5):
     """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis,
     computed in f32 from whatever dtypes the statistics and affine

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from .._unit import unit
+
 __all__ = ["attention", "sdpa", "SDPA", "pick_band_chunk", "banded_sdpa",
            "BandedSDPA", "banded_attention"]
 
@@ -96,6 +98,7 @@ class SDPA:
     __call__ = fwd
 
 
+@unit("attention")
 def attention(q, k, v, causal: bool = False, mask=None,
               scale: Optional[float] = None) -> torch.Tensor:
     """(B, T, H, D) attention with optional causal/explicit mask."""

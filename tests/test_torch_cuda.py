@@ -1048,3 +1048,82 @@ def test_bert_routes_t128_to_the_plain_path(cuda_device):
     logits = m(ids, None, mask)
     assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS, 0)
     assert np.isfinite(loss.item()) and logits.shape == (4, 2)
+
+
+def _onnx_bert(device, num_layers=2, b=4, t=128):
+    """BERT at its width (dim 768, 12 heads) cut to `num_layers`, from
+    seed 0, exported by the port at (b, t) and re-imported on `device`:
+    the rep, its ids and labels."""
+    from singa_tpu_torch import sonnx
+    from singa_tpu_torch.models import BERT, BERTConfig
+    m = BERT(BERTConfig(num_layers=num_layers, num_labels=2), device=device,
+             generator=torch.Generator("cuda").manual_seed(0))
+    rng = np.random.RandomState(5)
+    ids = torch.as_tensor(rng.randint(0, 30522, (b, t)), device="cuda")
+    y = torch.as_tensor(rng.randint(0, 2, b), device="cuda")
+    data = sonnx.to_onnx(m, [ids]).SerializeToString()
+    return sonnx.prepare(data, device=device), ids, y
+
+
+@pytest.mark.cuda
+def test_onnx_bert_captured_train_step_equals_eager_bitwise(cuda_device):
+    """A BERT exported and re-imported trains through compile(use_graph=
+    True): five captured steps equal five eager ones from the same
+    weights bit for bit, in losses and parameters; no flash launch."""
+    from singa_tpu_torch import autograd as tautograd
+    runs = {}
+    for use_graph in (False, True):
+        rep, ids, y = _onnx_bert(cuda_device)
+        rep.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+        rep.set_loss(tautograd.softmax_cross_entropy)
+        rep.compile([ids], is_train=True, use_graph=use_graph)
+        tfa.reset_device_launches()
+        losses = [rep.train_step(ids, y)[1].item() for _ in range(5)]
+        assert tfa.device_launches() == dict.fromkeys(tfa.KERNELS, 0)
+        runs[use_graph] = (losses, {n: t.detach().clone()
+                                    for n, t in rep.get_params().items()})
+    assert rep.get_graph("train").graph is not None
+    assert runs[True][0] == runs[False][0]
+    assert np.isfinite(runs[True][0]).all()
+    for n, t in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], t), n
+
+
+@pytest.mark.cuda
+def test_onnx_shape_lane_captures_without_a_host_sync(cuda_device):
+    """Shape → Gather → Concat → Reshape folds on the host: the eval
+    step's warm-up runs under set_sync_debug_mode("error"), its capture
+    replays, and the captured output equals the eager one."""
+    from singa_tpu_torch.sonnx import proto
+    f32, mk = proto.TensorProto.FLOAT, proto.make_node
+    nodes = [mk("MatMul", ["x", "w"], ["h"]),
+             mk("Shape", ["h"], ["s"]),
+             mk("Gather", ["s", "i0"], ["d0"], axis=0),
+             mk("Concat", ["d0", "neg1"], ["tgt"], axis=0),
+             mk("Reshape", ["h", "tgt"], ["y"])]
+    w = np.random.RandomState(0).randn(4, 5).astype(np.float32)
+    g = proto.make_graph(
+        nodes, "g", [proto.make_tensor_value_info("x", f32, [2, 3, 4])],
+        [proto.make_tensor_value_info("y", f32, [2, 15])],
+        [proto.from_array(w, "w"),
+         proto.from_array(np.array([0], np.int64), "i0"),
+         proto.from_array(np.array([-1], np.int64), "neg1")])
+    from singa_tpu_torch import sonnx
+    rep = sonnx.prepare(proto.make_model(g), device=cuda_device)
+    x = torch.randn(2, 3, 4, device="cuda")
+    rep.eval()
+    with torch.no_grad():
+        eager = rep(x)
+        rep.compile([x], is_train=False, use_graph=True)
+        outs = [rep(x)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(rep(x))             # warm-up, then capture
+            outs.append(rep(x))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append(rep(x))
+    assert rep.get_graph("eval").graph is not None
+    assert eager.shape == (2, 15)
+    for o in outs:
+        assert torch.equal(o, eager)

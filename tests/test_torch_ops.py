@@ -180,7 +180,8 @@ def test_cached_sdpa_matches(limit, window, T):
 
 # -- hygiene ------------------------------------------------------------------
 
-_FORBIDDEN = ("jax", "jaxlib", "singa", "singa_tpu", "tools")
+_FORBIDDEN = ("jax", "jaxlib", "singa", "singa_tpu", "tools", "ml_dtypes",
+              "onnx")
 
 
 def _forbidden_imports(path: Path):
@@ -203,7 +204,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     workers import: no jax, no JAX package and not its ``tools``."""
     files = sorted((REPO / "singa_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
-    assert {"disagg", "net", "tools"} <= {f.parent.name for f in files}
+    assert {"disagg", "net", "tools", "sonnx"} <= {f.parent.name
+                                                   for f in files}
     assert len(files) > 10
     found = {str(f.relative_to(REPO)): _forbidden_imports(f) for f in files}
     assert not {f: b for f, b in found.items() if b}
@@ -213,8 +215,10 @@ def test_forbidden_import_detector_catches_each_form(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom singa_tpu.ops import rope\n"
                    "import singa_tpu_torch\nfrom . import device\n"
-                   "from singa import tensor\n")
-    assert _forbidden_imports(src) == ["jax.numpy", "singa_tpu.ops", "singa"]
+                   "from singa import tensor\nimport ml_dtypes\n"
+                   "from onnx import helper\nimport onnxruntime\n")
+    assert _forbidden_imports(src) == ["jax.numpy", "singa_tpu.ops", "singa",
+                                       "ml_dtypes", "onnx"]
 
 
 def test_auto_device_is_the_card_or_raises(monkeypatch):
