@@ -228,7 +228,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
                captured eval bitwise the eager one, ms a call and
                tokens/s of each.  No flash launch on either path, counted
                on the card
- 20. timing  — each kernel, its plain version and the PyTorch call that
+ 20. dist    — data-parallel training over NCCL at a world of 1 (the
+               machine has one card): parallel.init_distributed on a
+               free local port, the data mesh set, the group destroyed
+               at the end.  base()'s training cell (B=8 x T=1024, fused
+               loss, SGD 0.01 / 0.9) through DistOpt in three modes:
+               plain, compression="int8_ring" and shard_weight_update
+               (ZeRO-1), each as the train phase's step is driven: 5
+               eager and 5 captured steps bitwise in losses and
+               parameters, 10 timed replays with 16 launches of each
+               flash kernel a step counted on the card, step ms,
+               tokens/s, MFU and peak memory beside phase train's; one
+               eager step's grad_sync ms (an obs.attr ledger) and ms; the
+               int8 ring's residual of one parameter after its first
+               step bitwise g - dequant(quant(g)); the plain DistOpt
+               steps bitwise those of the base optimizer.  ResNet-50 at
+               phase cnn's cell through DistOpt (captured = eager
+               bitwise, timed replays beside phase cnn's) and through
+               tools/train_cnn --dist (one epoch of 2,048 synthetic
+               images, 8 steps, the step captured); no
+               flash launch there.  No allreduce bandwidth: one rank
+               moves nothing between cards
+ 21. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -251,7 +272,8 @@ from the counters the kernels advance on the card
 as they run.
 
 Weights and inputs are random, drawn from fixed seeds.  The script needs
-the repository beside it and a CUDA card; without either it fails.  It
+the repository beside it and a CUDA card; without either it fails.
+Phase dist binds a TCP store to a free port of 127.0.0.1.  It
 writes one checkpoint under build/ and removes it, and appends the
 load runs' serve_load entries to runs/torch/records.jsonl.
 """
@@ -464,6 +486,18 @@ SONNX_GPT2 = (8, 128)
 SONNX_F32_LOGIT = 1e-4
 SONNX_PLANT, SONNX_PLANT_SCALE = "blocks.11.ln_2.gamma", 1.01
 SONNX_EVAL_CALLS = 10
+# phase dist: DistOpt over NCCL at a world of 1 (the card's machine has
+# one card); base()'s training cell through each sync mode, then
+# ResNet-50 at phase cnn's cell
+DIST_MODES = {"plain": {}, "int8_ring": {"compression": "int8_ring"},
+              "zero1": {"shard_weight_update": True}}
+DIST_EQUAL_STEPS = 2           # DistOpt vs the base optimizer, bitwise
+DIST_RESIDUAL_PARAM = "blocks.0.attn.q_proj.W"
+DIST_RING_BLOCK = 256
+
+
+#: what later phases put beside their own numbers, by phase
+SUMMARY = {}
 
 
 def emit(obj):
@@ -2230,6 +2264,9 @@ def phase_train(fault_libs):
         "captured_fault_vs_plain": {CAPTURED_FAULT: captured_fault},
     }
     emit(result)
+    SUMMARY["train"] = {k: result[k] for k in (
+        "optimizer", "median_step_ms", "tokens_per_s", "mfu",
+        "peak_memory_bytes", "graph_pool_bytes")}
     check(result["captured"], "train_step did not run a captured graph")
     check(g.launches == {k: cfg.num_layers for k in launches},
           f"the train graph holds {g.launches}")
@@ -2374,8 +2411,22 @@ def _token_batch(rng, vocab, b, t):
                             device="cuda"),)
 
 
+def _opt_name(o) -> str:
+    """An optimizer as the records name it."""
+    from singa_tpu_torch import opt
+    if isinstance(o, opt.DistOpt):
+        kw = {k: getattr(o, k) for k in ("compression", "compress_dtype",
+                                         "topk_ratio", "shard_weight_update")
+              if getattr(o, k)}
+        return f"DistOpt({_opt_name(o.opt)}, {kw})"
+    if isinstance(o, opt.SGD):
+        return (f"SGD(lr={o.sched.lr}, momentum={o.momentum}, "
+                f"weight_decay={o.weight_decay})")
+    return type(o).__name__
+
+
 def config_train(m, b, t, later, expect, flops_per_token=None,
-                 make_batch=_token_batch, cfg=None):
+                 make_batch=_token_batch, cfg=None, make_opt=None):
     """A configuration's training through set_optimizer / compile /
     train_step (SGD momentum 0.9): CONFIG_STEPS eager and captured steps
     from the same weights, batches (`make_batch(rng, vocab, b, t)`: the
@@ -2389,11 +2440,13 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
     counts `flops_per_token`, the model's own FLOPs, where the caller
     gives them.  An MoE model's aux loss is read at every step: the
     tensor its capture recorded is rewritten by each replay.  `cfg`
-    stands in for a model without one (an ONNX import)."""
+    stands in for a model without one (an ONNX import); `make_opt` makes
+    the optimizer of each run (default SGD(0.01, momentum 0.9))."""
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import _dropout_generators
     from singa_tpu_torch.ops import flash_attention as fa
 
+    make_opt = make_opt or (lambda: opt.SGD(lr=0.01, momentum=0.9))
     cfg = cfg or m.cfg
     moe = getattr(cfg, "num_experts", 0)
     rng = np.random.RandomState(0)
@@ -2421,7 +2474,7 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
         m.set_params(start)
         for gen in dropout:
             gen.manual_seed(0)
-        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        m.set_optimizer(make_opt())
         m.compile(list(x), is_train=True, use_graph=use_graph)
         losses, aux = [], []
         for i, bt in enumerate(batches):
@@ -2446,6 +2499,8 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
     del eager_end
     g = m.get_graph("train")
     fa.reset_device_launches()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     times, per_step, losses, aux = [], [], [], []
     for _ in range(TRAIN_STEPS):
         before = fa.device_launches()
@@ -2457,13 +2512,14 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
         after = fa.device_launches()
         per_step.append([after[k] - before[k] for k in fa.KERNELS])
     launches = fa.device_launches()
-    peak = torch.cuda.max_memory_allocated()
+    replay_peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, replay_peak)
     if moe:
         del m._moe_aux_loss
     step_s = sorted(times)[len(times) // 2]
     peak_rate = PEAK_FLOPS[torch.bfloat16]
     out = {
-        "B": b, "T": t, "optimizer": "SGD(lr=0.01, momentum=0.9)",
+        "B": b, "T": t, "optimizer": _opt_name(m.optimizer),
         "fused_loss": getattr(cfg, "fused_loss", None),
         "captured": g.graph is not None,
         "capture_s": g.capture_seconds, "graph_num_ops": g.num_ops,
@@ -2473,8 +2529,8 @@ def config_train(m, b, t, later, expect, flops_per_token=None,
         "median_step_ms": step_s * 1e3, "tokens_per_s": b * t / step_s,
         "samples_per_s": b / step_s,
         "hfu_graph": g.flops() / step_s / peak_rate,
-        "peak_memory_bytes": peak, "losses": losses,
-        "launches": launches, "launches_per_step": per_step,
+        "peak_memory_bytes": peak, "replay_peak_memory_bytes": replay_peak,
+        "losses": losses, "launches": launches, "launches_per_step": per_step,
         "expected_per_step": expect,
         "eager_vs_captured": {"steps": CONFIG_STEPS,
                               "eager_losses": runs[False],
@@ -3152,19 +3208,22 @@ def saved_bytes(m, x):
     return sum(sizes.values())
 
 
-def cnn_train(name, factory, shape, classes, later, full=False):
+def cnn_train(name, factory, shape, classes, later, full=False,
+              make_opt=None):
     """`factory`'s model trained at CNN_B through set_optimizer, compile
     and train_step: CNN_BITWISE steps eager (a second model from the
     same seed) and captured under deterministic cuDNN, held bitwise and
     then timed as replays; then, as the path runs, CNN_EAGER eager
     steps and a fresh capture with CNN_STEPS timed replays.  `full` adds
     the f32 check against the CPU, the eval check, a profile of one
-    replay and the activation copies of an eager step."""
+    replay and the activation copies of an eager step.  `make_opt`
+    makes the optimizer (default SGD with CNN_SGD)."""
     from singa_tpu_torch import device, opt
     from singa_tpu_torch.ops import flash_attention as fa
     from singa_tpu_torch.utils.flops import model_forward_flops
     from singa_tpu_torch.utils.metrics import peak_flops
 
+    make_opt = make_opt or (lambda: opt.SGD(**CNN_SGD))
     dev = device.create_device("cuda")
 
     def build():
@@ -3174,7 +3233,7 @@ def cnn_train(name, factory, shape, classes, later, full=False):
     start = _host_states(m)
     x, y = _images(shape, classes)
     res = {"model": name, "B": CNN_B, "input_hwc": list(shape),
-           "classes": classes, "optimizer": f"SGD({CNN_SGD})",
+           "classes": classes, "optimizer": _opt_name(make_opt()),
            "params": sum(p.numel() for p in m.get_params().values())}
     if full:
         one, two = saved_bytes(m, x[:1]), saved_bytes(m, x[:2])
@@ -3190,13 +3249,13 @@ def cnn_train(name, factory, shape, classes, later, full=False):
         later(all(torch.equal(t.cpu(), start[n])
                   for n, t in e.get_states().items()),
               f"{name}: two models from one seed differ")
-        e.set_optimizer(opt.SGD(**CNN_SGD))
+        e.set_optimizer(make_opt())
         e.compile([x], is_train=True, use_graph=False)
         eager = [e.train_step(x, y)[1].item() for _ in range(CNN_BITWISE)]
         eager_states = _host_states(e)
         del e
         _free()
-        m.set_optimizer(opt.SGD(**CNN_SGD))
+        m.set_optimizer(make_opt())
         m.compile([x], is_train=True, use_graph=True)
         cap = [m.train_step(x, y)[1].item() for _ in range(CNN_BITWISE)]
         differ = [n for n, t in _host_states(m).items()
@@ -3222,7 +3281,7 @@ def cnn_train(name, factory, shape, classes, later, full=False):
 
     # as the path runs: eager steps, then a fresh capture and its replays
     m.set_states(start)
-    m.set_optimizer(opt.SGD(**CNN_SGD))
+    m.set_optimizer(make_opt())
     m.compile([x], is_train=True, use_graph=False)
     eager_s = [_timed(lambda: m.train_step(x, y))[1] for _ in range(CNN_EAGER)]
     m.compile([x], is_train=True, use_graph=True)
@@ -3327,6 +3386,9 @@ def phase_cnn():
     after = fa.device_launches()
     launches = {k: before[k] + after[k] for k in fa.KERNELS}
     r50["published_forward_flops_per_image"] = RESNET50_GFLOP * 1e9
+    SUMMARY["cnn"] = {k: r50[k] for k in ("optimizer", "median_step_ms",
+                                          "images_per_s", "mfu",
+                                          "peak_memory_bytes")}
     emit({"phase": "cnn", "resnet50": r50, "resnet18_cifar": r18,
           "cli": cli, "flash_launches": launches,
           "phase_seconds": time.perf_counter() - t0})
@@ -3765,6 +3827,187 @@ def phase_sonnx(native_bert):
 
 
 #: kernels that convert an activation between NCHW and NHWC
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ring_residual(g, block=DIST_RING_BLOCK):
+    """g − dequant(quant(g)) at a world of 1: blocks of `block` over the
+    flattened, padded g, the scale absmax·f32(1/127), codes rounded
+    half to even and clipped to ±127, the difference rounded once."""
+    flat = g.float().reshape(-1)
+    n = flat.numel()
+    flat = torch.nn.functional.pad(flat, (0, (-n) % block))
+    absmax = flat.reshape(-1, block).abs().amax(1)
+    s = torch.where(absmax > 0, absmax * float(np.float32(1 / 127)),
+                    torch.ones_like(absmax))
+    grid = s.repeat_interleave(block)
+    q = torch.clamp(torch.round(flat / grid), -127, 127)
+    err = (flat.double() - q.double() * grid.double()).float()
+    return err[:n].reshape(g.shape)
+
+
+def dist_equals_base(m, batches):
+    """From the same weights, DIST_EQUAL_STEPS eager steps with
+    SGD(0.01, 0.9) and with DistOpt of it: losses and parameters
+    bitwise (at a world of 1 the sync is an NCCL allreduce of one rank
+    and a product with 1.0)."""
+    from singa_tpu_torch import opt
+    start = {n: p.detach().cpu() for n, p in m.get_params().items()}
+    runs = {}
+    for wrap in (False, True):
+        m.set_params(start)
+        base = opt.SGD(lr=0.01, momentum=0.9)
+        m.set_optimizer(opt.DistOpt(base) if wrap else base)
+        m.compile([batches[0]], is_train=True, use_graph=False)
+        runs[wrap] = [m.train_step(b)[1].item() for b in batches]
+        if not wrap:
+            end = {n: p.detach().cpu() for n, p in m.get_params().items()}
+    differ = [n for n, p in m.get_params().items()
+              if not torch.equal(p.detach().cpu(), end[n])]
+    m.set_params(start)
+    return {"steps": len(batches), "base_losses": runs[False],
+            "distopt_losses": runs[True],
+            "bitwise": runs[False] == runs[True] and not differ,
+            "params_differing": differ[:8]}
+
+
+def dist_eager_step(m, mode, kw, x):
+    """One eager DistOpt step (graph mode off: no executor records it)
+    from the model's weights with a ledger installed (obs.attr): its
+    grad_sync milliseconds beside the step's; under int8_ring also the
+    residual of DIST_RESIDUAL_PARAM against `ring_residual` of the
+    step's own gradient."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.obs import attr
+    out = {}
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.01, momentum=0.9), **kw))
+    m.compile([x], is_train=True, use_graph=False)
+    if mode == "int8_ring":
+        g = _loss_and_grads(m, x, names=(DIST_RESIDUAL_PARAM,))[1][
+            DIST_RESIDUAL_PARAM]
+    led = attr.install()
+    try:
+        out["train_step_ms"] = _timed(lambda: m.train_step(x))[1] * 1e3
+    finally:
+        attr.uninstall()
+    out["grad_sync_ms"] = led.snapshot()["grad_sync"]["total_s"] * 1e3
+    if mode == "int8_ring":
+        res = m.optimizer._eager_state[DIST_RESIDUAL_PARAM]["ef"][0]
+        want = ring_residual(g)
+        out["residual"] = {
+            "param": DIST_RESIDUAL_PARAM, "bitwise": torch.equal(res, want),
+            "max_abs": res.abs().max().item(),
+            "max_abs_diff": (res - want).abs().max().item(),
+            "nonzero_share": (res != 0).float().mean().item()}
+    return out
+
+
+def phase_dist():
+    """Data-parallel training on the card: an NCCL group of 1 through
+    parallel.init_distributed, the data mesh set, base()'s training cell
+    through DistOpt in three sync modes, and ResNet-50 at phase cnn's
+    cell through DistOpt and through tools/train_cnn --dist.  The group
+    is destroyed at the end."""
+    import os
+    from singa_tpu_torch import device, models, opt, parallel
+    from singa_tpu_torch.models import Llama, LlamaConfig
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.tools import train_cnn
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host
+    rank = parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        parallel.set_mesh(parallel.data_parallel_mesh())
+        group = {"rank": rank, "world": torch.distributed.get_world_size(),
+                 "backend": torch.distributed.get_backend(),
+                 "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+        later(group["backend"] == "nccl" and group["world"] == 1,
+              f"the group is not NCCL at a world of 1: {group}")
+
+        cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True)
+        m = Llama(cfg, device=device.create_device("cuda"),
+                  generator=torch.Generator("cuda").manual_seed(0))
+        init = {n: p.detach().cpu() for n, p in m.get_params().items()}
+        rng = np.random.RandomState(3)
+        batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (TB, TT))
+                                   .astype(np.int32), device="cuda")
+                   for _ in range(DIST_EQUAL_STEPS)]
+        equal = dist_equals_base(m, batches)
+        later(equal["bitwise"], f"the plain DistOpt step at a world of 1 is "
+              f"not the base optimizer's step: {equal}")
+        llama = {}
+        for mode, kw in DIST_MODES.items():
+            m.set_params(init)
+            eager = dist_eager_step(m, mode, kw, batches[0])
+            m.set_params(init)
+            run = config_train(
+                m, TB, TT, later, cfg.num_layers,
+                flops_per_token=m.flops_per_token(TT),
+                make_opt=lambda kw=kw: opt.DistOpt(
+                    opt.SGD(lr=0.01, momentum=0.9), **kw))
+            run.update(eager)
+            llama[mode] = run
+            if mode == "int8_ring":
+                later(eager["residual"]["bitwise"],
+                      f"the int8 ring's residual is not g - dequant(quant"
+                      f"(g)): {eager['residual']}")
+            m.compile([batches[0]], is_train=True, use_graph=False)
+            _free()
+        del m, init
+        _free()
+
+        fa.reset_device_launches()
+        r50 = cnn_train("resnet50_dist", models.resnet50, (224, 224, 3),
+                        1000, later, make_opt=lambda: opt.DistOpt(
+                            opt.SGD(**CNN_SGD)))
+        _free()
+        t = time.perf_counter()
+        cli = train_cnn.main(["--model", "resnet50", "--dataset", "imagenet",
+                              "--batch-size", str(CNN_B), "--epochs", "1",
+                              "--lr", "0.1", "--dist", "--log-every", "0"])
+        ep = cli["epochs"][0]
+        cli = {"world": cli["world"], "steps": cli["steps_per_epoch"],
+               "losses": ep["losses"], "images_per_s": ep["images_per_s"],
+               "test_acc": ep["test_acc"],
+               "train_captured": cli["train_captured"],
+               "eval_captured": cli["eval_captured"], "device": cli["device"],
+               "seconds": time.perf_counter() - t}
+        cnn_launches = fa.device_launches()
+        later(np.isfinite(cli["losses"]).all() and cli["world"] == 1
+              and cli["train_captured"], f"train_cnn --dist: {cli}")
+        later(not any(cnn_launches.values()), f"flash kernels ran on the "
+              f"data-parallel ResNet-50 path: {cnn_launches}")
+        _free()
+    finally:
+        parallel.finalize_distributed()
+        _free()
+    later(not torch.distributed.is_initialized()
+          and parallel.current_mesh() is None,
+          "the process group or the mesh outlived the phase")
+    emit({"phase": "dist", "group": group, "llama_base": {
+        "config": "LlamaConfig.base(), fused_loss=True", "B": TB, "T": TT,
+        "distopt_vs_base": equal, "modes": llama,
+        "beside_phase_train": SUMMARY.get("train")},
+        "resnet50": r50, "resnet50_beside_phase_cnn": SUMMARY.get("cnn"),
+        "train_cnn_dist": cli, "resnet50_flash_launches": cnn_launches,
+        "allreduce_bandwidth": "not measured: a world of 1 moves no bytes "
+                               "between cards",
+        "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return ({mode: {k: run["launches"][k] for k in fa.KERNELS}
+             for mode, run in llama.items()}, cnn_launches)
+
+
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose")
 
 
@@ -4149,6 +4392,7 @@ def main():
     transformer = timed_phase("transformer", phase_transformer)
     sonnx_launches = timed_phase("sonnx", phase_sonnx,
                                  transformer["bert"]["step"])
+    dist_llama, dist_cnn = timed_phase("dist", phase_dist)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
@@ -4207,6 +4451,12 @@ def main():
                            "steps": TRAIN_STEPS},
             "gpt2_eval": {"launches": sonnx_launches["gpt2_eval"][r["name"]],
                           "calls": sonnx_launches["gpt2_calls"]}}
+        by_path["dist"] = {
+            **{f"base_{mode}": {"launches": n[r["name"]],
+                                "steps": TRAIN_STEPS,
+                                "per_step": n[r["name"]] / TRAIN_STEPS}
+               for mode, n in dist_llama.items()},
+            "resnet50": {"launches": dist_cnn[r["name"]]}}
 
         def at(row):
             return {key: row[key] for key in (

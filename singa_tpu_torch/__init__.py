@@ -31,6 +31,7 @@ from . import obs
 from . import faults
 from . import serve
 from . import sonnx
+from . import parallel
 
 __all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
-           "models", "utils", "obs", "faults", "serve", "sonnx"]
+           "models", "utils", "obs", "faults", "serve", "sonnx", "parallel"]

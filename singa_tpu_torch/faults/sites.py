@@ -9,9 +9,11 @@ chaos tests and the code under test: a :class:`~singa_tpu_torch.faults.
 plan.FaultPlan` naming an unregistered site fails at construction
 (catching typos before a chaos run silently injects nothing).  The
 port wires ``device.execute`` (the step executor and generate()
-sessions) and the serve engine's ``serve.prefill``, ``serve.decode``
-and ``serve.block_alloc``; the other sites name seams of modules still
-to be ported.
+sessions), ``comm.collective`` (each staged collective of
+``parallel.communicator``: once per eager call and once when a step is
+captured, never on a replay) and the serve engine's ``serve.prefill``,
+``serve.decode`` and ``serve.block_alloc``; the other sites name seams
+of modules still to be ported.
 
 Every site fires host-side Python, never inside a captured CUDA graph,
 so activating a plan cannot change a captured program.

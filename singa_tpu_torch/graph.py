@@ -127,11 +127,14 @@ class CapturedGraph:
 
     # -- capture and replay ---------------------------------------------------
     def capture(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
-                generators: Tuple[torch.Generator, ...] = ()):
+                generators: Tuple[torch.Generator, ...] = (),
+                error_mode: str = "global"):
         """Capture fn() into a CUDA graph on `stream` and return what it
         returned (tensors in the graph's pool, written by each replay).
         Capture runs nothing: call `replay` for the first result.  A
-        capture that fails raises."""
+        capture that fails raises.  `error_mode` is torch's
+        ``capture_error_mode``: "thread_local" lets other threads (NCCL's
+        watchdog) make CUDA calls while this one captures."""
         dev = stream.device
         graph = torch.cuda.CUDAGraph()
         for g in generators:
@@ -141,7 +144,8 @@ class CapturedGraph:
         reserved = torch.cuda.memory_reserved(dev)
         before = kernel_launches()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode=error_mode):
             out = fn()
         recorded = _since(before)
         self.capture_seconds = time.perf_counter() - t0

@@ -10,11 +10,22 @@ executor; the optimizer's step counter advanced once per step; the
 optimizer's slots kept in its eager store.  ``Model.graph`` and
 ``get_graph`` return the executor's ``graph.CapturedGraph``;
 ``save_states``/``load_states`` go through ``utils.checkpoint``.
+
+With a ``DistOpt`` optimizer and a current ``data`` mesh, a train
+executor runs the reference's data-parallel step (its ``shard_map``
+path): every rank feeds the same global batch and the step takes rank
+r's rows [r·B/W, (r+1)·B/W); DistOpt syncs the gradients; afterwards
+float buffers (BatchNorm's running statistics) are mean-allreduced,
+scalar outputs (the loss) mean-allreduced and other outputs gathered
+back to the global batch.  The executor keeps the mesh it was made
+under, so ``set_mesh(None)`` leaves it data-parallel while new
+executors run single-process.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -26,7 +37,10 @@ from .graph import epoch as graph_epoch
 from .layer import Dropout, Layer
 from .obs import attr as obs_attr
 from .obs import events as obs_events
-from .opt import Optimizer
+from .opt import DistOpt, Optimizer
+from .parallel import communicator as comm
+from .parallel import mesh as mesh_mod
+from .parallel.distributed import local_batch
 
 __all__ = ["Model", "Module", "model_device"]
 
@@ -223,6 +237,27 @@ class _StepExecutor:
         self._static_in = None
         self._static_out = None
         self.slots: Dict = {}
+        # the data-parallel step: DistOpt under a mesh with its axis
+        mesh = mesh_mod.current_mesh()
+        self.mesh = (mesh if isinstance(self.opt, DistOpt) and mesh is not
+                     None and self.opt.data_axis in mesh.shape else None)
+        with self._mesh_scope():
+            self.axis = self.opt.data_axis if self.mesh is not None else None
+            self.dist = self.axis is not None and comm.axis_bound(self.axis)
+            self._init_slots()
+
+    @contextmanager
+    def _mesh_scope(self):
+        """The mesh this executor was made under is current while it
+        runs (None for a single-process executor)."""
+        saved = mesh_mod.current_mesh()
+        mesh_mod.set_mesh(self.mesh)
+        try:
+            yield
+        finally:
+            mesh_mod.set_mesh(saved)
+
+    def _init_slots(self) -> None:
         if self.opt is not None:
             est = self.opt._eager_state
             with torch.no_grad():
@@ -243,10 +278,24 @@ class _StepExecutor:
         saved_training = autograd.is_training()
         autograd.set_training(self.is_train)
         try:
-            with torch.set_grad_enabled(self.is_train):
-                return _detach(self.body(batch))
+            with self._mesh_scope(), torch.set_grad_enabled(self.is_train):
+                outs = _detach(self.body(batch))
+                if self.dist:
+                    outs = self._sync_after(outs)
+                return outs
         finally:
             autograd.set_training(saved_training)
+
+    @torch.no_grad()
+    def _sync_after(self, outs):
+        """Mean-allreduce the float buffers, then replicate the outputs:
+        scalars mean-allreduced, the rest gathered to the global batch."""
+        for b in self.model._get_buffers().values():
+            if b.is_floating_point():
+                b.copy_(comm.allreduce(b, self.axis, "mean"))
+        return _map_tensors(
+            lambda t: (comm.allreduce(t, self.axis, "mean") if t.ndim == 0
+                       else comm.gather_batch(t, self.axis)), outs)
 
     def __call__(self, batch):
         m, opt = self.model, self.opt
@@ -264,6 +313,8 @@ class _StepExecutor:
         if led is not None:
             _sync(self.device)
             t0 = time.perf_counter()
+        if self.dist:
+            batch = tuple(local_batch(t) for t in batch)
         with obs_events.span("graph.execute", graph=name, step=step_host):
             outs = self._dispatch(batch, name)
         if led is not None:
@@ -275,6 +326,8 @@ class _StepExecutor:
         m._step_count += 1
         if opt is not None:
             opt.step_counter = step_host + 1
+            if isinstance(opt, DistOpt):
+                opt.opt.step_counter = step_host + 1
             self.slots = dict(opt._eager_state)
         return outs
 
@@ -307,8 +360,11 @@ class _StepExecutor:
     def _capture(self, batch):
         self._static_in = tuple(t.clone() for t in batch)
         gens = _dropout_generators(self.model) if self.is_train else ()
+        # NCCL's watchdog thread queries events while the step is
+        # captured: a global capture mode would forbid that
         self._static_out = self.captured.capture(
-            lambda: self._run(self._static_in), self._stream, gens)
+            lambda: self._run(self._static_in), self._stream, gens,
+            error_mode="thread_local" if self.dist else "global")
         self.captured.replay()
         return _clone(self._static_out)
 
@@ -326,20 +382,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _detach(outs):
+def _map_tensors(fn, outs):
     if isinstance(outs, torch.Tensor):
-        return outs.detach()
+        return fn(outs)
     if isinstance(outs, (tuple, list)):
-        return type(outs)(_detach(o) for o in outs)
+        return type(outs)(_map_tensors(fn, o) for o in outs)
     return outs
+
+
+def _detach(outs):
+    return _map_tensors(torch.Tensor.detach, outs)
 
 
 def _clone(outs):
-    if isinstance(outs, torch.Tensor):
-        return outs.clone()
-    if isinstance(outs, (tuple, list)):
-        return type(outs)(_clone(o) for o in outs)
-    return outs
+    return _map_tensors(torch.Tensor.clone, outs)
 
 
 def model_device(model) -> Device:

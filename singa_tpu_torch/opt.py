@@ -25,20 +25,31 @@ Step-dependent scalars are computed in float64 and rounded to f32 where
 they enter the update (the reference computes its schedules in f32, and
 its eager bias correction in Python floats).
 
-DistOpt is not ported yet.
+``DistOpt`` wraps any of them with the data-parallel gradient sync of
+``parallel.communicator`` (plain mean, bf16, top-K, int8, and the int8
+ring with a per-rank error-feedback residual) and ZeRO-1
+(``shard_weight_update``: each rank updates its 1/W shard of every
+flattened parameter and keeps only that shard's slots).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import autograd
+from .obs import attr as obs_attr
+from .obs import events as obs_events
+from .parallel import communicator as comm
+from .parallel import mesh as mesh_mod
+from .parallel import spmd
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "RMSProp", "AdaGrad",
-           "Adafactor", "GradAccum", "Schedule", "Constant",
+           "Adafactor", "GradAccum", "DistOpt", "Schedule", "Constant",
            "ExponentialDecay", "CosineDecay", "WarmupCosine", "MultiStepLR"]
 
 
@@ -524,3 +535,345 @@ def _clone(slot):
     if isinstance(slot, dict):
         return {k: _clone(v) for k, v in slot.items()}
     return type(slot)(_clone(s) for s in slot)
+
+
+# ---------------------------------------------------------------------------
+# DistOpt — the data-parallel wrapper (the reference Communicator's
+# allreduce as explicit torch.distributed collectives over 'data')
+# ---------------------------------------------------------------------------
+
+#: DistOpt gradient-compression modes with optimizer state of their own
+#: (the error-feedback residual); `compress_dtype` keeps covering the
+#: stateless casts and quantizers
+_COMPRESSION_MODES = ("int8_ring",)
+
+
+def _elementwise(opt: Optimizer) -> bool:
+    """True when opt's update reads each element of the parameter, its
+    gradient and its slot alone, so it runs unchanged on a flat shard."""
+    if isinstance(opt, GradAccum):
+        return _elementwise(opt.opt)
+    return isinstance(opt, (SGD, Adam, RMSProp, AdaGrad))
+
+
+def _cuda_sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+class DistOpt(Optimizer):
+    """Wraps a base optimizer with the data-parallel gradient sync.
+
+    Under a current ``data`` mesh with an initialized process group
+    (``parallel.init_distributed``, ``parallel.set_mesh``), every
+    ``backward_and_update`` mean-allreduces the gradients over the
+    ranks before the wrapped optimizer updates; with no mesh or no group
+    the sync is the identity.  The model's train step (``compile(...,
+    use_graph=True)``, ``train_step``) feeds each rank its rows of the
+    global batch and, on the card, captures the step, collectives
+    included, as one CUDA graph.  Variants, as the reference's:
+
+      * ``compress_dtype=torch.bfloat16``: cast, mean, cast back
+        (`backward_and_update_half` for one step);
+      * ``topk_ratio``: the fixed-K sparsified exchange
+        (`backward_and_partial_update`);
+      * ``compress_dtype="int8"``: blockwise int8 codes summed in int32;
+      * ``compression="int8_ring"``: the int8 ring with error feedback.
+        Every slot becomes ``{"base": <inner slot>, "ef": residual}``,
+        the residual this rank's f32 quantization error, shape
+        (1, *param.shape); a checkpoint gathers every rank's into the
+        reference's (world, *param.shape) and each rank takes its row
+        back on load;
+      * ``shard_weight_update=True`` (ZeRO-1): the gradients are
+        reduce-scattered over each flattened, padded parameter, each
+        rank updates its 1/W shard and holds only that shard's slots,
+        and the parameters are all-gathered.  It needs an elementwise
+        base optimizer (SGD, Adam, AdamW, RMSProp, AdaGrad, GradAccum
+        over one of them); checkpoints carry the slots at their natural
+        shapes.
+
+    Only the ``data`` axis exists in the port; another `data_axis`
+    raises."""
+
+    def __init__(self, opt: Optimizer, nccl_id=None, local_rank: int = 0,
+                 world_size: Optional[int] = None, data_axis: str = "data",
+                 compress_dtype=None, topk_ratio: float = 0.0,
+                 shard_weight_update: bool = False,
+                 compression: Optional[str] = None,
+                 error_feedback: bool = True,
+                 compression_block: int = 256):
+        super().__init__(opt.sched)
+        if data_axis != mesh_mod.DATA_AXIS:
+            raise NotImplementedError(
+                f"DistOpt(data_axis={data_axis!r}): the port's only mesh "
+                f"axis is {mesh_mod.DATA_AXIS!r}; other axes come with the "
+                f"next distribution slice")
+        if compression is not None and compression not in _COMPRESSION_MODES:
+            raise ValueError(
+                f"unknown compression mode {compression!r} "
+                f"(known: {_COMPRESSION_MODES})")
+        if compression is not None and (compress_dtype is not None
+                                        or topk_ratio):
+            raise ValueError(
+                "compression= is exclusive with compress_dtype=/"
+                "topk_ratio= — pick one gradient-sync variant")
+        if shard_weight_update and not _elementwise(opt):
+            raise NotImplementedError(
+                f"shard_weight_update over {type(opt).__name__}: the port's "
+                f"ZeRO-1 updates flat shards, which needs an elementwise "
+                f"optimizer (SGD, Adam, AdamW, RMSProp, AdaGrad)")
+        self.opt = opt
+        self.data_axis = data_axis
+        self.compress_dtype = compress_dtype
+        self.topk_ratio = topk_ratio
+        self.local_rank = local_rank
+        self._world_size = world_size
+        self.compression = compression
+        self.error_feedback = bool(error_feedback)
+        self.compression_block = int(compression_block)
+        self.shard_weight_update = shard_weight_update
+        #: natural shapes of the parameters whose slots are ZeRO-1 shards
+        self._shapes: Dict[str, torch.Size] = {}
+        del nccl_id  # reference-API compat; the group is torch.distributed's
+
+    @property
+    def world_size(self) -> int:
+        if self._world_size is not None:
+            return self._world_size
+        m = mesh_mod.current_mesh()
+        if m is not None and self.data_axis in m.shape:
+            return m.shape[self.data_axis]
+        return 1
+
+    def _zero1(self) -> bool:
+        """ZeRO-1 runs now: eligible under the current mesh, and its axis
+        bound to a process group."""
+        return (spmd.zero1_axis_for(self, mesh_mod.current_mesh())
+                is not None and comm.axis_bound(self.data_axis))
+
+    # -- the update core --------------------------------------------------------
+    def init_slot(self, p):
+        if self._zero1():
+            self._shapes[param_name(p)] = p.shape
+            W = comm.axis_size(self.data_axis)
+            shard = p.new_empty((-(-p.numel() // W),))
+            return self.opt.init_slot(shard)
+        inner = self.opt.init_slot(p)
+        if self.compression is None:
+            return inner
+        return {"base": inner,
+                "ef": torch.zeros((1,) + tuple(p.shape), dtype=torch.float32,
+                                  device=p.device)}
+
+    def apply(self, step, name, p, g, slot):
+        if self.compression is None:
+            return self.opt.apply(step, name, p, g, slot)
+        # g arrives synced (reduce_gradients wrote the new residual into
+        # the slot); the inner update runs on the base half
+        slot["base"] = self.opt.apply(step, name, p, g, slot["base"])
+        return slot
+
+    # -- the gradient sync --------------------------------------------------------
+    def reduce_gradients(self, grads: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+        """Mean-allreduce gradients over the data axis; the identity
+        when the axis is not bound.  Under ZeRO-1 each gradient is
+        reduce-scattered instead: what comes back is this rank's mean
+        shard of the flattened, padded gradient.
+
+        Telemetry: an ``opt.grad_sync`` span, the communicator's
+        counters, and, with a ledger installed (``obs.attr``), the sync's
+        seconds under ``grad_sync``, the device synchronised around it,
+        on an eager step only (a step being captured runs nothing)."""
+        led = obs_attr.get()
+        if led is not None and _capturing():
+            led = None
+        some = next((g for g in grads.values() if g is not None), None)
+        with obs_events.span("opt.grad_sync", axis=self.data_axis,
+                             tensors=len(grads),
+                             compression=self.compression or "none"):
+            if led is not None and some is not None:
+                _cuda_sync(some)
+                t0 = time.perf_counter()
+            if self._zero1():
+                out = self._reduce_scatter(grads)
+            elif self.compression == "int8_ring":
+                out = self._reduce_int8_ring(grads)
+            else:
+                out = comm.allreduce_grads(
+                    grads, axis=self.data_axis,
+                    compress_dtype=self.compress_dtype,
+                    topk_ratio=self.topk_ratio)
+            if led is not None and some is not None:
+                _cuda_sync(some)
+                led.note("grad_sync", time.perf_counter() - t0)
+            return out
+
+    def _reduce_scatter(self, grads):
+        W = comm.axis_size(self.data_axis)
+        out = {}
+        for name, g in grads.items():
+            if g is None:
+                out[name] = None
+                continue
+            flat = g.reshape(-1)
+            flat = F.pad(flat, (0, (-flat.numel()) % W))
+            out[name] = comm.reduce_scatter(flat, self.data_axis) \
+                * comm._recip(W)
+        return out
+
+    def _reduce_int8_ring(self, grads):
+        est = self._eager_state
+        bound = comm.axis_bound(self.data_axis)
+        out = {}
+        for name, g in grads.items():
+            if g is None:
+                out[name] = None
+                continue
+            slot = est.get(name)
+            has_ef = (isinstance(slot, dict) and "ef" in slot
+                      and self.error_feedback)
+            res = (slot["ef"][0] if has_ef
+                   else torch.zeros((), dtype=torch.float32, device=g.device))
+            synced, new_res = comm.ef_quantized_allreduce(
+                g, res, axis=self.data_axis, block=self.compression_block)
+            if has_ef and bound:
+                slot["ef"][0].copy_(new_res)   # in place: a graph reads it
+            out[name] = synced
+        return out
+
+    # -- reference API surface ----------------------------------------------------
+    def __call__(self, loss: torch.Tensor) -> None:
+        """`opt(loss)` syncs gradients exactly as backward_and_update."""
+        self.backward_and_update(loss)
+
+    def backward_and_update(self, loss: torch.Tensor) -> None:
+        pg = autograd.backward(loss)
+        if self.compression is not None:
+            # the residual lives in the slot: make every slot before the
+            # sync writes into it
+            for p, _ in pg:
+                if self._eager_state.get(param_name(p)) is None:
+                    self._eager_state[param_name(p)] = self.init_slot(p)
+        zero1 = self._zero1()
+        grads = self.reduce_gradients({param_name(p): g for p, g in pg})
+        for p, _ in pg:
+            g = grads[param_name(p)]
+            if zero1:
+                self._update_shard(p, g)
+            else:
+                self.update(p, g)
+        self.step()
+
+    @torch.no_grad()
+    def _update_shard(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        """ZeRO-1: update this rank's shard of p from its gradient shard
+        g, then all-gather the shards into p."""
+        name = param_name(p)
+        W, r = comm.axis_size(self.data_axis), comm.axis_index(self.data_axis)
+        n, c = p.numel(), g.numel()
+        shard = F.pad(p.reshape(-1), (0, W * c - n))[r * c:(r + 1) * c]
+        shard = shard.clone()
+        slot = self._eager_state.get(name)
+        if slot is None:
+            slot = self.init_slot(p)
+        self._eager_state[name] = self.opt.apply(
+            self.step_tensor(p.device), name, shard, g.to(p.dtype), slot)
+        full = comm.allgather(shard, self.data_axis, tiled=True)
+        p.view(-1).copy_(full[:n])
+
+    def backward_and_update_half(self, loss: torch.Tensor) -> None:
+        """One bf16-compressed sync; the previous compress_dtype is
+        restored afterwards."""
+        saved = self.compress_dtype
+        self.compress_dtype = torch.bfloat16
+        try:
+            self.backward_and_update(loss)
+        finally:
+            self.compress_dtype = saved
+
+    def backward_and_partial_update(self, loss: torch.Tensor,
+                                    topk_ratio: float = 0.01) -> None:
+        """One top-K sparsified sync; the previous topk_ratio is
+        restored afterwards."""
+        saved = self.topk_ratio
+        self.topk_ratio = topk_ratio
+        try:
+            self.backward_and_update(loss)
+        finally:
+            self.topk_ratio = saved
+
+    def step(self) -> None:
+        super().step()
+        self.opt.step()
+
+    def set_states(self, s: Dict) -> None:
+        super().set_states(s)
+        self.opt.set_states(s)
+
+    def state_signature(self) -> str:
+        if self.compression is not None:
+            # the {"base","ef"} wrapping is slot structure of its own: a
+            # restore across compression on/off is refused
+            return f"EF({self.compression})>{self.opt.state_signature()}"
+        return self.opt.state_signature()
+
+    # -- moment persistence ---------------------------------------------------
+    def slot_arrays(self) -> Dict[str, List[torch.Tensor]]:
+        """Slot leaves at the reference's shapes: ZeRO-1 shards
+        all-gathered to their parameters' shapes, and the residual as
+        every rank's, (world, *shape), its last leaf.  Under a bound
+        axis this is a collective: every rank calls it."""
+        out = super().slot_arrays()
+        if not comm.axis_bound(self.data_axis):
+            return out
+        if self.compression is not None:
+            for leaves in out.values():
+                leaves[-1] = comm.allgather(leaves[-1], self.data_axis,
+                                            tiled=True)
+        elif self._zero1():
+            for name, leaves in out.items():
+                shape = self._shapes.get(name)
+                out[name] = [comm.allgather(t, self.data_axis, tiled=True)
+                             [:math.prod(shape)].reshape(shape)
+                             for t in leaves]
+        return out
+
+    def load_slot_arrays(self, slots: Dict[str, List]) -> None:
+        """Inverse of `slot_arrays`: each rank takes its row of a
+        residual and its shard of a ZeRO-1 slot.  A residual saved at
+        another world size is refused."""
+        W, r = comm.axis_size(self.data_axis), comm.axis_index(self.data_axis)
+        efs, rests = {}, {}
+        for name, leaves in slots.items():
+            arrs = [torch.as_tensor(t) for t in leaves]
+            if self.compression is not None:
+                if not arrs:
+                    raise ValueError(
+                        f"compressed DistOpt slot for {name!r} is empty in "
+                        f"checkpoint (missing error-feedback residual)")
+                ef = arrs.pop().float()
+                if ef.shape[0] != W:
+                    raise ValueError(
+                        f"error-feedback residual of {name!r} was saved at "
+                        f"world size {ef.shape[0]}; this run's is {W} — "
+                        f"refusing to reassign per-rank residuals")
+                efs[name] = ef[r:r + 1].clone()
+            elif self._zero1():
+                if arrs:
+                    self._shapes[name] = arrs[0].shape
+                arrs = [F.pad(t.reshape(-1), (0, (-t.numel()) % W))
+                        .reshape(W, -1)[r].clone() for t in arrs]
+            rests[name] = arrs
+        saved_inner = self.opt._eager_state
+        self.opt.load_slot_arrays(rests)
+        inner = self.opt._eager_state
+        self.opt._eager_state = saved_inner
+        if self.compression is not None:
+            inner = {n: {"base": inner.get(n), "ef": efs[n]} for n in efs}
+        self._eager_state = inner

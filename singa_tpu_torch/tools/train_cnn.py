@@ -15,6 +15,19 @@ step, and prints the loss, the accuracies and images a second.  Data is
 ``<data-dir>/<dataset>.npz`` where it exists, else a synthetic set of
 the dataset's shape made from ``--seed``.  Runs on the card unless
 ``--device cpu``.
+
+``--dist`` trains data-parallel (the reference's ``--dist``): it joins
+the process group that ``torchrun`` or the ``SINGA_*`` variables
+describe (``parallel.init_distributed``: NCCL on the card, gloo with
+``--device cpu``), sets the data mesh, wraps the optimizer in
+``DistOpt`` and gives each rank its shard of the training set
+(``DataLoader(rank=, world_size=)``) in batches of B/W.  The step feeds
+every rank the global batch and takes rank r's rows, so each rank puts
+its own batch at rows [r·B/W, (r+1)·B/W) of a B-row batch.  Without a
+launcher a world of 1 runs with no group.
+
+    torchrun --nproc_per_node=1 -m singa_tpu_torch.tools.train_cnn \
+        --model resnet50 --dataset imagenet --batch-size 256 --dist
 """
 
 from __future__ import annotations
@@ -27,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from .. import models, opt
+from .. import models, opt, parallel
 from ..utils import metrics
 from ..utils.data import DataLoader, synthetic_dataset
 
@@ -109,10 +122,18 @@ def train_classifier(model, args, x_train, y_train, x_test, y_test
     1e-4), compile once in graph mode, `train_step` a batch, evaluate
     each epoch.  Returns what it printed."""
     dev = model.device.torch_device
-    model.set_optimizer(opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-4))
+    base = opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-4)
+    model.set_optimizer(opt.DistOpt(base) if args.dist else base)
     model.compile([x_train[:args.batch_size]], is_train=True, use_graph=True)
-    loader = DataLoader(x_train, y_train, batch_size=args.batch_size,
-                        seed=args.seed, drop_last=True)
+    world = parallel.mesh.process_count() if args.dist else 1
+    rank = parallel.mesh.process_index() if args.dist else 0
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} does not split "
+                         f"over {world} ranks")
+    local = args.batch_size // world
+    loader = DataLoader(x_train, y_train, batch_size=local, seed=args.seed,
+                        drop_last=True, rank=rank, world_size=world)
+    rows = slice(rank * local, (rank + 1) * local)
     epochs = []
     for epoch in range(args.epochs):
         model.train()
@@ -120,12 +141,13 @@ def train_classifier(model, args, x_train, y_train, x_test, y_test
         tput = metrics.Throughput()
         tput.start()
         for step, (xb, yb) in enumerate(loader):
-            out, loss = model.train_step(torch.from_numpy(xb).to(dev),
-                                         torch.from_numpy(yb).to(dev))
+            out, loss = model.train_step(
+                torch.from_numpy(_at_rows(xb, rows, world)).to(dev),
+                torch.from_numpy(_at_rows(yb, rows, world)).to(dev))
             losses.append(loss.item())
             loss_m.update(losses[-1])
-            acc.update(out.cpu().numpy(), yb)
-            tput.update(len(xb))
+            acc.update(out[rows].cpu().numpy(), yb)
+            tput.update(len(xb) * world)
             if args.log_every and step % args.log_every == 0:
                 print(f"epoch {epoch} step {step:4d} loss {loss_m.value:.4f}"
                       f" acc {acc.value:.4f}", flush=True)
@@ -137,11 +159,24 @@ def train_classifier(model, args, x_train, y_train, x_test, y_test
         epochs.append({"losses": losses, "train_loss": loss_m.value,
                        "train_acc": acc.value, "test_acc": test_acc,
                        "images_per_s": imgs})
-    graph = model.get_graph("eval")
+    train_graph, graph = model.get_graph("train"), model.get_graph("eval")
     return {"model": args.model, "dataset": args.dataset,
-            "batch_size": args.batch_size, "steps_per_epoch": len(loader),
+            "batch_size": args.batch_size, "world": world, "rank": rank,
+            "steps_per_epoch": len(loader),
             "epochs": epochs, "device": str(dev),
+            "train_captured": (train_graph is not None
+                               and train_graph.graph is not None),
             "eval_captured": graph is not None and graph.graph is not None}
+
+
+def _at_rows(a: np.ndarray, rows: slice, world: int) -> np.ndarray:
+    """A batch of world·len(a) rows holding `a` at `rows` (zeros
+    elsewhere, which this rank's step never reads)."""
+    if world == 1:
+        return a
+    out = np.zeros((len(a) * world,) + a.shape[1:], a.dtype)
+    out[rows] = a
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,6 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="synthetic data, weights and shuffling")
     p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--dist", action="store_true",
+                   help="data-parallel over the processes torchrun or "
+                        "SINGA_* describe (DistOpt; NCCL on the card)")
     return p
 
 
@@ -166,7 +204,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
     xt, yt, xe, ye, classes, shape = dataset_arrays(
         args.dataset, args.data_dir, seed=args.seed)
-    dev = device_mod.create_device(args.device)
+    cpu = args.device == "cpu"
+    if args.dist:
+        parallel.init_distributed(device="cpu" if cpu else None)
+        parallel.set_mesh(parallel.data_parallel_mesh())
+    if args.dist and parallel.distributed.is_initialized() and not cpu:
+        dev = device_mod.get_default_device()    # this rank's card
+    else:
+        dev = device_mod.create_device(args.device)
     model = build_model(args.model, classes, shape, dev, args.seed)
     return train_classifier(model, args, xt, yt, xe, ye)
 

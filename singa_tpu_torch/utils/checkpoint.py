@@ -10,12 +10,19 @@ order of a {param-name, leaf-count} manifest; a json aux with
 manifest of every array with a sha256 digest over aux and manifest, so
 a torn or mixed file is refused before any state changes.
 
-Single process: the reference's multi-host gather and end-of-save
-barrier come with the distribution slice.  A load copies into the
-model's existing parameter storage (a captured step reads parameters by
-address), places the moments on the parameters' device, and drops the
-model's step executors and their captured graphs, so the next step
-re-seeds from the restored moments and captures again.
+Multi-process (a ``torch.distributed`` group): every rank collects the
+states, which gathers what ranks hold apart (DistOpt's per-rank
+error-feedback residuals into one (world, *shape) array, ZeRO-1's slot
+shards into their natural shapes), rank 0 writes the file and a
+barrier ends the save, so no rank reads a half-written checkpoint.
+Every rank restores from the same path (a shared filesystem), and
+DistOpt hands each rank its residual row or slot shard back.
+
+A load copies into the model's existing parameter storage (a captured
+step reads parameters by address), places the moments on the
+parameters' device, and drops the model's step executors and their
+captured graphs, so the next step re-seeds from the restored moments
+and captures again.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save_states", "load_states", "save_arrays", "load_arrays",
            "atomic_write", "check_opt_manifest", "CheckpointManager"]
@@ -121,10 +129,26 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _barrier() -> None:
+    if _process_count() > 1:
+        dist.barrier()
+
+
 def _collect(model, aux_states: Optional[Dict]):
     """Parameters, persistent buffers and optimizer moments as host
-    arrays, and the aux that describes them."""
-    arrays = {name: _host(t) for name, t in model.get_states().items()}
+    arrays, and the aux that describes them.  Every rank calls it (the
+    optimizer's slot gather is a collective); only rank 0, the writer,
+    copies to the host."""
+    host = _host if _process_index() == 0 else (lambda t: None)
+    arrays = {name: host(t) for name, t in model.get_states().items()}
     aux = dict(aux_states or {})
     opt = getattr(model, "optimizer", None)
     if opt is not None:
@@ -137,16 +161,20 @@ def _collect(model, aux_states: Optional[Dict]):
             leaves = slot_arrays[name]
             manifest.append([name, len(leaves)])
             for leaf in leaves:
-                arrays[f"{_OPT_PREFIX}{i}"] = _host(leaf)
+                arrays[f"{_OPT_PREFIX}{i}"] = host(leaf)
                 i += 1
         aux["opt_slots"] = manifest
     return arrays, aux
 
 
 def save_states(model, fpath: str, aux_states: Optional[Dict] = None) -> None:
-    """Reference API: model.save_states(fpath, aux_states)."""
+    """Reference API: model.save_states(fpath, aux_states).  With a
+    process group: every rank collects, rank 0 writes, a barrier ends
+    the save."""
     arrays, aux = _collect(model, aux_states)
-    save_arrays(arrays, fpath, aux)
+    if _process_index() == 0:
+        save_arrays(arrays, fpath, aux)
+    _barrier()
 
 
 def check_opt_manifest(arrays: Dict, aux: Dict) -> None:
@@ -219,7 +247,9 @@ class CheckpointManager:
         """asynchronous: save() copies the states to the host on the
         caller's thread, then writes the file and prunes old ones on a
         background thread; wait() (which save() and restore_latest()
-        call) re-raises a failed write."""
+        call) re-raises a failed write.  With more than one process the
+        save stays synchronous: its end-of-save barrier is a collective,
+        which must not interleave with a training step's."""
         self.dir = directory
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
@@ -254,12 +284,14 @@ class CheckpointManager:
         arrays, full_aux = _collect(model, a)
 
         def _write():
-            save_arrays(arrays, path, full_aux)
-            for old in self.steps()[:-self.keep]:
-                with contextlib.suppress(OSError):
-                    os.unlink(self._path(old))
+            if _process_index() == 0:
+                save_arrays(arrays, path, full_aux)
+                for old in self.steps()[:-self.keep]:
+                    with contextlib.suppress(OSError):
+                        os.unlink(self._path(old))
+            _barrier()
 
-        if self.asynchronous:
+        if self.asynchronous and _process_count() == 1:
             if self._executor is None:
                 from concurrent.futures import ThreadPoolExecutor
                 self._executor = ThreadPoolExecutor(

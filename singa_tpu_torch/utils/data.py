@@ -4,8 +4,10 @@
 
 The loader shuffles each epoch with ``np.random.RandomState(seed +
 epoch)``, as the reference's numpy pipeline does, so the two packages
-yield the same batches for the same seed and epoch.  The reference's
-native threaded loader and multi-host sharding are not ported.
+yield the same batches for the same seed and epoch.  ``rank`` and
+``world_size`` give each process of a data-parallel run its contiguous
+shard, as the reference's do.  The reference's native threaded loader
+is not ported.
 """
 
 from __future__ import annotations
@@ -31,12 +33,31 @@ class DataLoader:
 
     def __init__(self, x: np.ndarray, y: Optional[np.ndarray] = None,
                  batch_size: int = 32, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, rank: int = 0,
+                 world_size: int = 1):
+        """rank/world_size: each process loads a contiguous shard of
+        exactly floor(n / world_size) samples, so every rank sees the
+        same batch count and shapes (up to world_size - 1 trailing
+        samples are dropped)."""
         x = np.asarray(x)
-        self.x = (x.astype(np.int32, copy=False)
-                  if np.issubdtype(x.dtype, np.integer)
-                  else x.astype(np.float32, copy=False))
-        self.y = np.asarray(y, np.int32) if y is not None else None
+        x = (x.astype(np.int32, copy=False)
+             if np.issubdtype(x.dtype, np.integer)
+             else x.astype(np.float32, copy=False))
+        y = np.asarray(y, np.int32) if y is not None else None
+        if world_size < 1:
+            raise ValueError(f"world_size must be >= 1, got {world_size}")
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside world {world_size}")
+        if world_size > 1:
+            per = len(x) // world_size
+            if per == 0:
+                raise ValueError(
+                    f"dataset of {len(x)} samples shards to 0 per rank "
+                    f"at world_size={world_size}; every rank would "
+                    f"silently iterate zero batches")
+            x = x[rank * per:(rank + 1) * per]
+            y = y[rank * per:(rank + 1) * per] if y is not None else None
+        self.x, self.y = x, y
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed

@@ -1127,3 +1127,91 @@ def test_onnx_shape_lane_captures_without_a_host_sync(cuda_device):
     assert eager.shape == (2, 15)
     for o in outs:
         assert torch.equal(o, eager)
+
+
+# -- data parallel over NCCL (one card: a world of 1) -------------------------
+
+@pytest.fixture
+def nccl_world(cuda_device):
+    """An NCCL process group of 1 on a free local port, with the data
+    mesh set; destroyed after the test."""
+    import os
+    import socket
+
+    from singa_tpu_torch import parallel
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    parallel.set_mesh(parallel.data_parallel_mesh())
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield cuda_device
+    finally:
+        parallel.finalize_distributed()
+
+
+_DIST_MODES = {"plain": {}, "int8_ring": {"compression": "int8_ring"},
+               "zero1": {"shard_weight_update": True}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(_DIST_MODES))
+def test_distopt_captured_step_equals_eager_bitwise(nccl_world, mode):
+    """The tiny Llama through DistOpt over NCCL: five captured steps
+    (collectives in the graph) equal five eager ones bitwise in losses,
+    parameters and slots, each flash kernel once per layer a step, and
+    the captured body's warm-up syncs nothing with the host."""
+    batches = _batches(5)
+    runs = {}
+    for use_graph in (False, True):
+        m = _small_llama(nccl_world)
+        m.set_optimizer(topt.DistOpt(topt.SGD(lr=0.01, momentum=0.9),
+                                     **_DIST_MODES[mode]))
+        m.compile([batches[0]], is_train=True, use_graph=use_graph)
+        losses = []
+        for i, x in enumerate(batches):
+            tfa.reset_device_launches()
+            if use_graph and i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, loss = m.train_step(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses.append(loss.item())
+            assert tfa.device_launches() == dict.fromkeys(
+                tfa.KERNELS, m.cfg.num_layers)
+        slots = {n: [t.clone() for t in topt._leaves(v)]
+                 for n, v in m.optimizer._eager_state.items()}
+        runs[use_graph] = (losses, {n: p.detach().clone()
+                                    for n, p in m.get_params().items()},
+                           slots)
+    assert m.graph.graph is not None
+    (le, pe, se), (lc, pc, sc) = runs[False], runs[True]
+    assert lc == le and len(set(le)) == len(le)
+    for n in pe:
+        assert torch.equal(pc[n], pe[n]), n
+        assert all(torch.equal(a, b) for a, b in zip(sc[n], se[n])), n
+    if mode == "int8_ring":
+        assert any(s[-1].abs().sum() > 0 for s in sc.values())
+
+
+@pytest.mark.cuda
+def test_plain_distopt_at_world_one_is_the_base_step(nccl_world):
+    """At a world of 1 the plain DistOpt step (an NCCL allreduce of one
+    rank, a product with 1.0) equals the base optimizer's, bitwise,
+    eagerly and captured."""
+    batches = _batches(4)
+    runs = {}
+    for wrap in (False, True):
+        m = _small_llama(nccl_world)
+        base = topt.SGD(lr=0.01, momentum=0.9)
+        m.set_optimizer(topt.DistOpt(base) if wrap else base)
+        m.compile([batches[0]], is_train=True, use_graph=True)
+        runs[wrap] = ([m.train_step(x)[1].item() for x in batches],
+                      {n: p.detach().clone()
+                       for n, p in m.get_params().items()})
+    assert runs[True][0] == runs[False][0]
+    for n, p in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], p), n
