@@ -57,8 +57,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tenants behind 256-token system prompts, suffixes of
                256/384/512 tokens, 32 or 64 new tokens; completed, shed
                and rejected, tokens/s, TTFT p50/p99, no flash launch; the
-               serve_load record goes to runs/torch/records.jsonl
-  8. spec    — speculative decoding on the serve engine (spec_k=3), over
+               serve_load record validated in a temporary store
+  8. ops     — the serving operator's tools (singa_tpu_torch.tools:
+               loadgen, chaosd, autotune) at base() width cut to 2
+               layers: the committed best-config table
+               (singa_tpu_torch/autotune/data/best.json) validated with
+               the records it cites and resolved for the phase's models,
+               each swept knob from a cuda entry naming the card; the
+               load driver's spec, spill, disagg and mp smokes in f32
+               (streams bitwise against generate() and a single engine,
+               the mp smoke across two worker processes); a
+               --spec-compare pair (plain against spec_k=3, bf16, the
+               table's arena knobs, both serve_load records validated);
+               a load run's perf_attr payload (the attribution ledger's
+               dispatch times joined against each program's recorded
+               FLOPs and bytes) validated, its attributed_frac printed;
+               the chaos smoke (one SIGKILL and one SIGSTOP against a
+               1:1 process tier, bf16: streams bitwise, no orphan,
+               programs within (1, 1), detection and respawn seconds);
+               the table's best serve point measured afresh beside its
+               recorded tokens/s (not a gate); and its best train point
+               (DistOpt over an NCCL group of one, T=1024, 8 timed
+               replays) with its flash launches counted on the card
+  9. spec    — speculative decoding on the serve engine (spec_k=3), over
                the serve phase's first wave: self-speculation
                (draft_model = the target), a disagreeing draft
                (base() cut to 2 layers, seed 1), a serve.verify fault
@@ -68,7 +89,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (1, 0, 1, 0), (1, 1, 1, 0) after the fallback.  Accept
                rate, tokens per dispatch, verify round ms, tokens/s and
                TTFT beside the plain engine's; no flash launch
-  9. mem     — the int8 arena and the bf16 one at the serve arena's
+ 10. mem     — the int8 arena and the bf16 one at the serve arena's
                bytes over 24 slots (the 16 prompts and 8 again, no
                prefix sharing, 16 new tokens each): peak concurrency,
                tokens/s, TTFT, tick; the referee (an int8 draft arena
@@ -81,7 +102,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                restore program, the third wave's streams equal to an
                engine without the tier's, which a planted restore into
                the next block must break; no flash launch
-  10. disagg  — the disaggregated tier in one process: build_pools(1
+ 11. disagg  — the disaggregated tier in one process: build_pools(1
                prefill, 2 decode) of the serve phase's engine (8 slots,
                1024, blocks of 32, bf16, prefix sharing) behind a
                Router, from one warmed template engine's weight copy.
@@ -98,7 +119,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                TTFT beside the serve phase's; the handoff program, the
                package copy and the inject timed; bytes per package,
                pool bytes per worker, peak memory
- 11. net     — the process tier: build_proc_pools(1 prefill, 1 decode)
+ 12. net     — the process tier: build_proc_pools(1 prefill, 1 decode)
                of worker processes on the card, each building base()
                from chip_smoke:tier_model (the slice phase's weights),
                behind a ProcRouter.  The first wave: streams bitwise the
@@ -107,14 +128,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                replayed; a decode worker killed mid-flight replayed,
                then respawned and adopted.  Each worker's ready and
                warm-up tick seconds, frame bytes, wire ms, tokens/s
- 12. beam    — generate_beam on two of the slice phase's prompts (P=1024,
+ 13. beam    — generate_beam on two of the slice phase's prompts (P=1024,
                N=32, 4 beams, bf16 weights), without and with an eos id:
                the captured session (prefill graph, one beam tick
                replayed N times) against the eager search bitwise, 16
                flash launches per call counted on the card, num_beams=1
                against greedy generate(), the scores against a
                teacher-forced f32 forward; call and tick ms, pool bytes
- 13. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
+ 14. train   — LlamaConfig.base() (fused loss) with SGD(lr=0.01,
                momentum=0.9): set_optimizer, compile, train_step at B=8 x
                T=1024.  One step's loss and gradients with the kernels vs
                with their plain versions, and with planted faults in
@@ -129,11 +150,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite and falling; step ms, tokens/s, MFU, peak memory,
                capture seconds and the graph's ops and pool bytes; then
                a profile of one replay
- 14. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
+ 15. checkpoint — LlamaConfig.base() cut to 2 layers: 6 captured steps
                with a save after step 2; a fresh model loads it and runs
                steps 3-6 (eager, warm-up, capture, replay), whose losses
                must equal the uninterrupted run's within the train limit
-  15. banded — mistral-w4096 (Mistral-7B-v0.1's widths, sliding window
+ 16. banded — mistral-w4096 (Mistral-7B-v0.1's widths, sliding window
                4096, cut to 4 layers; singa_tpu_torch/tools/loadgen.py
                holds the configuration): training at B=1 x T=8192 (fused
                loss, SGD momentum), all three kernels banded, 5 eager and
@@ -148,7 +169,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                prompts of 4608-7936 tokens x 32 tokens: tokens/s, TTFT,
                tick, (1, 1) programs, no flash launch, the streams beside
                generate()'s and both held by the teacher-forced bf16 gate
-  16. moe    — mixtral-8x7b (Mixtral-8x7B-v0.1's widths, 8 experts,
+ 17. moe    — mixtral-8x7b (Mixtral-8x7B-v0.1's widths, 8 experts,
                top-2, dropless capacity factor 4.0, cut to 2 layers): the
                same at training B=4 x T=1024 (the aux loss read at every
                step, the experts' rows over the active ones),
@@ -162,7 +183,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                margins, and a probe of whether a token's expert rows
                depend on the rows beside it at each size the paths run;
                the engine in f32 held by the f32 oracle
- 17. cnn    — the vision zoo through compile/train_step: ImageNet
+ 18. cnn    — the vision zoo through compile/train_step: ImageNet
                ResNet-50 (224², 1,000 classes) and CIFAR ResNet-18 (32²),
                each at B=256, bf16 activations over f32 masters,
                SGD(0.1, momentum 0.9, weight decay 1e-4), random images
@@ -182,7 +203,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tools/train_cnn.py: one epoch of the synthetic MNIST CNN and
                CIFAR VGG-11, each evaluating through its captured eval
                step.  No flash kernel runs on the path
- 18. transformer — GPT-2 124M (GPT2Config(): published widths and 12
+ 19. transformer — GPT-2 124M (GPT2Config(): published widths and 12
                layers, dropout 0.1) and BERT-base (BERTConfig(num_labels=2)),
                random weights from seed 0, bf16 activations over f32
                masters.  GPT-2: generate() at B=4, P=512, N=32 (captured =
@@ -207,7 +228,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                padded ids; the f32 eval against the port on the CPU; no
                flash launch anywhere on BERT's path (T = 128 takes the
                plain attention, as in the reference)
- 19. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
+ 20. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
                bench.py's cell (BERTConfig(num_labels=2), seed 0, B=256 x
                T=128): exported by the port (to_onnx), serialised and
                parsed back (bytes, export / serialise / parse seconds),
@@ -228,7 +249,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                captured eval bitwise the eager one, ms a call and
                tokens/s of each.  No flash launch on either path, counted
                on the card
- 20. dist    — data-parallel training over NCCL at a world of 1 (the
+ 21. dist    — data-parallel training over NCCL at a world of 1 (the
                machine has one card): parallel.init_distributed on a
                free local port, the data mesh set, the group destroyed
                at the end.  base()'s training cell (B=8 x T=1024, fused
@@ -249,7 +270,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                images, 8 steps, the step captured); no
                flash launch there.  No allreduce bandwidth: one rank
                moves nothing between cards
- 21. timing  — each kernel, its plain version and the PyTorch call that
+ 22. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -274,8 +295,8 @@ as they run.
 Weights and inputs are random, drawn from fixed seeds.  The script needs
 the repository beside it and a CUDA card; without either it fails.
 Phase dist binds a TCP store to a free port of 127.0.0.1.  It
-writes one checkpoint under build/ and removes it, and appends the
-load runs' serve_load entries to runs/torch/records.jsonl.
+writes one checkpoint under build/ and removes it; every record it
+makes goes to a temporary store.
 """
 
 import dataclasses
@@ -397,11 +418,18 @@ BEAM_B, BEAM_K, BEAM_N = 2, 4, 32
 BEAM_SCORE_RTOL = 1e-2
 # the load phase (singa_tpu_torch.tools.loadgen): LOAD_REQUESTS Poisson
 # arrivals at LOAD_RATE_SHARE of the closed wave's request rate on the
-# same engine, 3 tenants behind 256-token system prompts, suffixes of
-# 256/384/512 tokens, 32 or 64 new tokens, from seed LOAD_SEED
+# same engine, of the load driver's chat traffic (loadgen.CHAT_WORKLOAD:
+# 3 tenants behind 256-token system prompts, suffixes of 256/384/512
+# tokens, 32 or 64 new tokens), from seed LOAD_SEED
 LOAD_REQUESTS, LOAD_RATE_SHARE, LOAD_SEED = 48, 0.8, 0
-LOAD_WORKLOAD = dict(prompt_lens=(256, 384, 512), new_tokens=(32, 64),
-                     tenants=3, shared_len=256)
+# the ops phase: the autotuner's card sweep model (tools/autotune.py
+# CARD_SWEEP: base() cut to 2 layers, seed 0; the best-config table's
+# serve/llama-d2048-L2/cuda and train/llama-d2048-L2-dp1/cuda entries),
+# under whose workload the table's best serve point is measured afresh
+# and the best train point is run; OPS_PAIR is the --spec-compare
+# pair's and the perf_attr load run's workload
+OPS_PAIR = dict(requests=16, rate=1000.0, trials=3, max_len=384,
+                prompt_lens=(64, 128), new_tokens=(32,))
 # the banded and moe phases: two published configurations
 # (singa_tpu_torch/models/llama.py PUBLISHED: mistral-w4096 from
 # Mistral-7B-v0.1's config.json, mixtral-8x7b from Mixtral-8x7B-v0.1's)
@@ -2362,29 +2390,34 @@ def load_run(eng, closed_tps, closed_tokens, what):
     from singa_tpu_torch.serve.metrics import ServeMetrics
     from singa_tpu_torch.tools import loadgen
 
+    from singa_tpu_torch.obs import record as obs_record
+
     rate = LOAD_RATE_SHARE * closed_tps / closed_tokens
     wl = loadgen.build_workload(LOAD_REQUESTS, rate, LOAD_SEED,
                                 vocab=eng.model.cfg.vocab_size,
-                                **LOAD_WORKLOAD)
+                                **loadgen.CHAT_WORKLOAD)
     eng.metrics = ServeMetrics(flight=eng.flight)
     fa.reset_device_launches()
     payload = loadgen.run_load(eng, wl)
     launches = fa.device_launches()
-    store = loadgen.append_record(payload, device="cuda",
-                                  prefix=f"load-{what}")
+    with tempfile.TemporaryDirectory() as d:
+        store = loadgen.append_record(payload, str(Path(d) / "r.jsonl"),
+                                      device="cuda", prefix=f"load-{what}")
+        record_errors = obs_record.RunRecord(store).validate()
     out = {"engine": what, "rate_rps": rate,
            "closed_wave_tokens_per_s": closed_tps,
            "closed_wave_tokens_per_request": closed_tokens,
            "workload": {"requests": LOAD_REQUESTS, "seed": LOAD_SEED,
-                        **LOAD_WORKLOAD},
+                        **loadgen.CHAT_WORKLOAD},
            "arrivals_s": [wl[0].at_s, wl[-1].at_s], "payload": payload,
-           "flash_launches": launches, "record_store": store}
+           "flash_launches": launches, "record_errors": record_errors}
     emit({"phase": "load", **out})
     p = payload
     check(p["completed"] + p["shed"] + p["rejected"] == LOAD_REQUESTS
           and p["completed"] > 0, f"the load run lost requests: {p}")
     check(launches == dict.fromkeys(fa.KERNELS, 0),
           f"the flash kernels ran {launches} times under the load run")
+    check(not record_errors, f"the serve_load record: {record_errors}")
     return out
 
 
@@ -2395,6 +2428,259 @@ def phase_load(m, ctx):
     out = load_run(eng, ctx["tokens_per_s"], SERVE_NEW, "base")
     eng.close()
     return out["flash_launches"]
+
+
+def _ops_cut():
+    """(configuration, layers) of the autotuner's card sweep: the
+    model the ops phase serves and trains."""
+    from singa_tpu_torch.tools import autotune as at_cli
+    return at_cli.CARD_SWEEP["config"], at_cli.CARD_SWEEP["layers"]
+
+
+def _ops_model():
+    """The card sweep's model on the card, seed 0 (its table keys are
+    llama-d2048-L2 and llama-d2048-L2-dp1)."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.tools import loadgen
+    return loadgen.tier_model(device.create_device("cuda"), *_ops_cut())
+
+
+def ops_table(later, m):
+    """The committed best-config table, validated with the port's store,
+    and each swept knob of the ops phase's models (`m` and its training
+    cell) resolved from its committed cuda entry: {domain: {"key",
+    "knobs", "card", ...}}."""
+    from singa_tpu_torch.autotune import table
+    from singa_tpu_torch.tools import autotune as at_cli
+
+    store = str(Path(__file__).resolve().parent / at_cli.STORE)
+    errors = at_cli.check_errors(store)
+    later(not errors, f"the committed table or its records: {errors}")
+    doc = table.load_table(required=True)
+    model_key = table.model_key(m)
+    out = {}
+    for domain, key, swept in (
+            ("serve", model_key, ("num_slots", "block_size", "spec_k")),
+            ("train", at_cli.train_model_key(*_ops_cut()),
+             ("batch", "ce_chunk", "int8_ring"))):
+        entry = doc["configs"].get(table.config_key(domain, key, "cuda"))
+        check(entry is not None, f"no committed cuda entry for "
+              f"{domain}/{key}: {sorted(doc['configs'])}")
+        resolved = table.resolve(domain, key, "cuda", {})
+        knobs = {k: resolved[k] for k in swept}
+        later(all(k in entry["knobs"] and entry["knobs"][k] == v
+                  for k, v in knobs.items()),
+              f"{domain}/{key}: resolved {knobs} not from the committed "
+              f"entry {entry['knobs']}")
+        out[domain] = {"key": table.config_key(domain, key, "cuda"),
+                       "knobs": knobs, "objective": entry["objective"],
+                       "objective_name": entry["objective_name"],
+                       "loo_rel_err": entry["loo_rel_err"],
+                       "card": entry.get("card"),
+                       "run_id": entry["run_id"]}
+        later(entry.get("card"), f"{domain}/{key}: the entry names no "
+              f"card and power limit")
+    later(not any(k.endswith("/tpu") for k in doc["configs"]),
+          "a table entry is keyed tpu")
+    return out
+
+
+def ops_smokes(later):
+    """The load driver's four smokes on the card sweep's model,
+    on the card, in f32 (their streams held bitwise to generate() and
+    to a single engine): their return codes and walls."""
+    from singa_tpu_torch.tools import loadgen
+    out = {}
+    for name in ("spec", "spill", "disagg", "mp"):
+        fn = getattr(loadgen, f"{name}_smoke")
+        t = time.perf_counter()
+        rc = fn(*_ops_cut(), "cuda")
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t}
+        _free()
+        later(rc == 0, f"{name}_smoke failed on the card (rc {rc})")
+    return out
+
+
+def ops_spec_compare(later, tmp):
+    """One --spec-compare pair through the CLI's function (bf16 weights,
+    the table's arena knobs, the CLI's other defaults), both records
+    read back and validated.  The spec side's accept rate is reported,
+    not held to 1.0: in bf16 the draft's one-token steps and the
+    target's (S, k+1) window round differently, so a near-tie can part
+    them (the smoke holds 1.0 in f32)."""
+    from singa_tpu_torch.obs import record as obs_record
+    from singa_tpu_torch.obs import schema
+    from singa_tpu_torch.tools import loadgen
+
+    store = str(tmp / "spec_pair.jsonl")
+    config, layers = _ops_cut()
+    args = loadgen._parser().parse_args([
+        "--config", config, "--layers", str(layers), "--device", "cuda",
+        "--spec-k", str(SPEC_K), "--max-len", str(OPS_PAIR["max_len"]),
+        "--requests", str(OPS_PAIR["requests"]),
+        "--rate", str(OPS_PAIR["rate"]), "--deadline", "300",
+        "--prompt-lens", ",".join(map(str, OPS_PAIR["prompt_lens"])),
+        "--new-tokens", ",".join(map(str, OPS_PAIR["new_tokens"]))])
+    t = time.perf_counter()
+    rows = loadgen.spec_compare(args, store, trials=OPS_PAIR["trials"])
+    seconds = time.perf_counter() - t
+    _free()
+    entries = obs_record.RunRecord(store).entries()
+    for e in entries:
+        schema.validate_entry(e)
+    pair = {r["spec_pair_id"] for r in rows}
+    later(len(entries) == 2 and len(pair) == 1
+          and all(e["payload"]["spec_pair_id"] in pair for e in entries)
+          and all(r["completed"] == r["requests"] for r in rows),
+          f"the spec pair's records: {entries}")
+    keep = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "completed",
+            "accept_rate", "tokens_per_dispatch", "spec_k")
+    return {"knobs": {"num_slots": args.num_slots,
+                      "block_size": args.block_size},
+            "plain": {k: rows[0][k] for k in keep if k in rows[0]},
+            "spec": {k: rows[1][k] for k in keep if k in rows[1]},
+            "workload": OPS_PAIR, "seconds": seconds}
+
+
+def ops_perf_attr(later, m, knobs):
+    """A load run through an engine at the table's serve knobs with the
+    attribution ledger installed, and its perf_attr payload built and
+    validated (obs.cost.perf_attr_payload; any error fails the
+    phase)."""
+    from singa_tpu_torch.obs import attr as obs_attr
+    from singa_tpu_torch.obs import cost as obs_cost
+    from singa_tpu_torch.obs import schema
+    from singa_tpu_torch.serve import ServeEngine
+    from singa_tpu_torch.serve.metrics import ServeMetrics
+    from singa_tpu_torch.tools import loadgen
+
+    eng = ServeEngine(m, knobs["num_slots"], OPS_PAIR["max_len"],
+                      block_size=knobs["block_size"],
+                      param_dtype=torch.bfloat16)
+    try:
+        loadgen._warm(eng, m.cfg.vocab_size, 0)
+        eng.metrics = ServeMetrics(flight=eng.flight)
+        wl = loadgen.build_workload(
+            OPS_PAIR["requests"], OPS_PAIR["rate"], 0,
+            prompt_lens=OPS_PAIR["prompt_lens"],
+            new_tokens=OPS_PAIR["new_tokens"], vocab=m.cfg.vocab_size)
+        led = obs_attr.install()
+        try:
+            load = loadgen.run_load(eng, wl)
+        finally:
+            obs_attr.uninstall()
+        payload = obs_cost.perf_attr_payload(led.snapshot(), eng,
+                                             load["detail"]["wall_s"])
+    finally:
+        eng.close()
+    schema.validate_perf_attr_payload(payload)
+    later(0.0 < payload["attributed_frac"] <= 1.0
+          and {"prefill_chunk", "decode"} <= payload["programs"].keys(),
+          f"the perf_attr payload: {payload}")
+    return {"load": {k: load[k] for k in ("completed", "tokens_per_s",
+                                          "ttft_p50_ms", "ttft_p99_ms")},
+            "perf_attr": payload}
+
+
+def ops_chaos(later, tmp):
+    """The chaos smoke on the card: 1 SIGKILL and 1 SIGSTOP on a 1:1
+    process tier of the card sweep's model (bf16 weights), every
+    stream bitwise the single engine's, no orphan, every worker's
+    programs within (1, 1); the detection and respawn seconds."""
+    from singa_tpu_torch.tools import chaosd
+    store = str(tmp / "chaos.jsonl")
+    t = time.perf_counter()
+    config, layers = _ops_cut()
+    fails, res = chaosd.run_smoke(store, config=config, layers=layers,
+                                  device="cuda")
+    out = {"payload": res["payload"], "timings": res["timings"],
+           "problems": fails, "seconds": time.perf_counter() - t,
+           "op_timeouts": chaosd.CHAOS_OP_TIMEOUTS,
+           "compile_timeout_s": chaosd.CHAOS_COMPILE_TIMEOUT_S}
+    later(not fails, f"the chaos smoke on the card: {fails}")
+    return out
+
+
+def ops_best_serve(m, serve):
+    """One fresh measurement of the table's best serve point, through
+    the autotuner's own measure under the card sweep's workload, beside
+    the recorded objective.  Not a gate."""
+    from singa_tpu_torch.tools import autotune as at_cli
+    d = at_cli.sweep_defaults("cuda", "serve")
+    measure = at_cli.serve_measure(
+        m, requests=d["requests"], rate=d["rate"], seed=0,
+        max_len=d["max_len"], deadline=300.0, trials=d["trials"],
+        workload=d["workload"])
+    t = time.perf_counter()
+    tps, feats = measure(serve["knobs"])
+    return {"knobs": serve["knobs"], "tokens_per_s": tps,
+            "recorded_tokens_per_s": serve["objective"],
+            "ratio": tps / serve["objective"], "features": feats,
+            "seconds": time.perf_counter() - t}
+
+
+def ops_train_point(later, train):
+    """The table's best train point through the autotuner's measure on
+    an NCCL group of one, at the card sweep's model, T and steps (T =
+    1024), its flash launches over the timed replays counted on the card
+    (each kernel once per layer per step)."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.tools import autotune as at_cli
+    dev = device.create_device("cuda")
+    launches = []
+    d = at_cli.sweep_defaults("cuda", "train")
+    measure = at_cli.train_measure(dev, config=d["config"],
+                                   layers=d["layers"], seq=d["seq"],
+                                   steps=d["steps"], launches=launches)
+    with at_cli._group_of_one(dev):
+        step_ms, feats = measure(train["knobs"])
+    expect = dict.fromkeys(fa.KERNELS, d["layers"] * d["steps"])
+    later(launches == [expect], f"the train point's flash launches "
+          f"{launches}, expected {expect}")
+    later(not torch.distributed.is_initialized(), "the group outlived "
+          "the train point")
+    return {"knobs": train["knobs"], "step_ms": step_ms,
+            "recorded_step_ms": train["objective"], "features": feats,
+            "launches": launches[0], "steps": d["steps"], "T": d["seq"]}
+
+
+def phase_ops():
+    """The serving operator's tools on the card: the committed
+    best-config table resolved for the card sweep's model, the load
+    driver's four smokes, a --spec-compare pair, a perf_attr payload,
+    the chaos smoke, a fresh measurement of the table's best serve
+    point, and its best train point with its flash launches."""
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        m = _ops_model()
+        table = ops_table(later, m)
+        smokes = ops_smokes(later)
+        pair = ops_spec_compare(later, tmp)
+        attr_run = ops_perf_attr(later, m, table["serve"]["knobs"])
+        _free()
+        best = ops_best_serve(m, table["serve"])
+        del m
+        _free()
+        chaos = ops_chaos(later, tmp)
+        _free()
+        train = ops_train_point(later, table["train"])
+        _free()
+    config, layers = _ops_cut()
+    emit({"phase": "ops", "config": f"LlamaConfig.{config}() cut to "
+          f"{layers} layers", "table": table, "smokes": smokes,
+          "spec_compare": pair, "perf_attr": attr_run,
+          "attributed_frac": attr_run["perf_attr"]["attributed_frac"],
+          "best_serve_point": best, "chaos_smoke": chaos,
+          "train_point": train, "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return train["launches"], train["steps"]
 
 
 def config_model(cfg):
@@ -4352,7 +4638,13 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import singa_tpu_torch  # noqa: F401  (fails without the repository)
+    try:
+        import singa_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port (singa_tpu_torch) is not importable "
+              f"here ({e}); run the script from the repository's root",
+              file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     wall = {}
 
@@ -4375,6 +4667,7 @@ def main():
     serve_launches, serve_requests, serve_ctx = timed_phase(
         "serve", phase_serve, m)
     load_launches = timed_phase("load", phase_load, m, serve_ctx)
+    ops_launches, ops_steps = timed_phase("ops", phase_ops)
     spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
                                                serve_ctx)
     mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
@@ -4420,6 +4713,9 @@ def main():
             by_path["beam"] = {"launches": beam_launches, "calls": 1,
                                "per_call": beam_launches}
         by_path["load"] = {"launches": load_launches[r["name"]]}
+        by_path["ops"] = {"train_point": {
+            "launches": ops_launches[r["name"]], "steps": ops_steps,
+            "per_step": ops_launches[r["name"]] / ops_steps}}
         for path, res in (("banded", banded), ("moe", moe)):
             tr = res["train"]
             by_path[path] = {

@@ -32,6 +32,8 @@ from . import faults
 from . import serve
 from . import sonnx
 from . import parallel
+from . import autotune
 
 __all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
-           "models", "utils", "obs", "faults", "serve", "sonnx", "parallel"]
+           "models", "utils", "obs", "faults", "serve", "sonnx", "parallel",
+           "autotune"]

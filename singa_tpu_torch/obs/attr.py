@@ -140,19 +140,22 @@ def note(program: str, dur_s: float) -> None:
         led.note(program, dur_s)
 
 
-def _achieved(row: Dict[str, float], feat: Dict[str, Any]
+def _achieved(row: Dict[str, float], feat: Dict[str, Any],
+              flops_per_s: float = NOMINAL_FLOPS_PER_S,
+              bytes_per_s: float = NOMINAL_HBM_BYTES_PER_S
               ) -> Dict[str, float]:
     """The measured-vs-modeled join for one program: achieved FLOP/s
     and HBM bytes/s from the mean dispatch time, and the
     achieved-roofline fraction — the analytic minimum time (compute or
-    memory bound, whichever dominates at the nominal box) over the
-    measured mean.  Pure arithmetic on the snapshot row and the
-    feature row, so a frozen record re-derives bit-equal."""
+    memory bound, whichever dominates at ``flops_per_s`` and
+    ``bytes_per_s``, the nominal box unless the caller names a
+    device's peaks) over the measured mean.  Pure arithmetic on the
+    snapshot row and the feature row, so a frozen record re-derives
+    bit-equal."""
     mean_s = row["total_s"] / row["count"]
     flops = float(feat.get("flops", 0) or 0)
     hbm = float(feat.get("hbm_bytes", 0) or 0)
-    modeled_min_s = max(flops / NOMINAL_FLOPS_PER_S,
-                        hbm / NOMINAL_HBM_BYTES_PER_S)
+    modeled_min_s = max(flops / flops_per_s, hbm / bytes_per_s)
     return {
         "modeled_flops": flops,
         "modeled_hbm_bytes": hbm,
@@ -165,7 +168,10 @@ def _achieved(row: Dict[str, float], feat: Dict[str, Any]
 
 def attribution_payload(snapshot: Dict[str, Dict[str, float]],
                         features: Dict[str, Dict[str, Any]],
-                        window_s: float) -> Dict[str, Any]:
+                        window_s: float, *,
+                        flops_per_s: float = NOMINAL_FLOPS_PER_S,
+                        bytes_per_s: float = NOMINAL_HBM_BYTES_PER_S
+                        ) -> Dict[str, Any]:
     """The ``perf_attr`` record payload (obs.schema): every snapshot
     program that has an analytic feature row, joined.
 
@@ -176,14 +182,17 @@ def attribution_payload(snapshot: Dict[str, Dict[str, float]],
     (:meth:`Ledger.snapshot`).  ``attributed_s`` sums the
     *included* programs' totals against the caller's enclosing
     ``window_s``, so the completeness invariant reads
-    directly off the record."""
+    directly off the record.  ``flops_per_s`` and ``bytes_per_s`` are
+    the roofline the achieved fraction is taken against (the nominal
+    box by default; a card's peaks on the card)."""
     programs: Dict[str, Dict[str, float]] = {}
     attributed = 0.0
     for name in sorted(snapshot):
         if name not in features:
             continue
         row = dict(snapshot[name])
-        row.update(_achieved(snapshot[name], features[name]))
+        row.update(_achieved(snapshot[name], features[name],
+                             flops_per_s, bytes_per_s))
         programs[name] = row
         attributed += snapshot[name]["total_s"]
     return {

@@ -44,8 +44,7 @@ ported from ``singa_tpu/serve``.
 
 from .disagg import (QuotaExceeded, Router, SLOClass, Worker,
                      build_pools)
-from .engine import (SPEC_K_FALLBACK, EngineClosed, ServeEngine,
-                     SharedPrograms)
+from .engine import EngineClosed, ServeEngine, SharedPrograms
 from .mem import SpillStore
 from .net import (ElasticPolicy, ProcHandle, ProcRouter, WorkerDied,
                   WorkerProc, build_proc_pools)
@@ -56,7 +55,7 @@ from .spec import VerifyDispatchFailed
 
 __all__ = ["ServeEngine", "BlockPool", "Scheduler", "RequestHandle",
            "QueueFull", "EngineClosed", "SharedPrograms", "SpillStore",
-           "VerifyDispatchFailed", "SPEC_K_FALLBACK",
+           "VerifyDispatchFailed",
            "Router", "SLOClass", "QuotaExceeded", "Worker",
            "build_pools",
            "ProcRouter", "ProcHandle", "WorkerProc", "WorkerDied",

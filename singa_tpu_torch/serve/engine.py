@@ -137,6 +137,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from ..autotune import table as autotune_table
 from ..model import _sync, model_device
 from ..models._generate import _bound, decode_step, resume_step
 from ..obs import attr as obs_attr
@@ -156,16 +157,10 @@ from .scheduler import (EVICTED, FAILED, FINISHED, QUEUED, RUNNING,
                         eta_first_token)
 from .slots import BlockPool
 
-__all__ = ["ServeEngine", "QueueFull", "EngineClosed", "SharedPrograms",
-           "SPEC_K_FALLBACK"]
+__all__ = ["ServeEngine", "QueueFull", "EngineClosed", "SharedPrograms"]
 
 #: distinguishes engines built in the same second+pid (run_id suffix)
 _ENGINE_SEQ = itertools.count()
-
-#: the verify window a draft gets when ``spec_k`` is None (the
-#: reference's ``autotune.table.SPEC_K_FALLBACK``; the port has no
-#: best-config table yet, so it always takes this)
-SPEC_K_FALLBACK = 3
 
 
 class EngineClosed(RuntimeError):
@@ -225,9 +220,11 @@ class ServeEngine:
     ``torch.bfloat16``) serves a copy of the weights cast once at
     construction (the draft's too); the arena takes the dtype the
     model's caches take under it.  ``draft_model``/``spec_k`` make a
-    speculative engine (``spec_k=None`` with a draft takes
-    :data:`SPEC_K_FALLBACK`); ``kv_dtype``/``draft_kv_dtype="int8"``
-    quantize the target / draft arena; ``spill_blocks`` sizes the host
+    speculative engine (``spec_k=None`` with a draft takes the
+    best-config table's window for this model and device,
+    ``autotune.table.resolve_spec_k``);
+    ``kv_dtype``/``draft_kv_dtype="int8"`` quantize the target / draft
+    arena; ``spill_blocks`` sizes the host
     spill store; ``programs`` (another engine's :meth:`programs`)
     serves from that engine's weight copy, as the workers of a
     disaggregated tier do.
@@ -259,13 +256,9 @@ class ServeEngine:
         self.model = model
         # speculative decoding (serve/spec.py): a draft turns the
         # per-tick decode into a verify-k round.  spec_k=None with a
-        # draft takes the fallback window (the reference reads its
-        # best-config table first; the port has none yet)
+        # draft asks the committed best-config table how deep
         if draft_model is not None and spec_k is None:
-            spec_k = SPEC_K_FALLBACK
-            warnings.warn(f"serve: no autotune table in the port; using "
-                          f"the fallback spec_k={SPEC_K_FALLBACK}",
-                          stacklevel=2)
+            spec_k = autotune_table.resolve_spec_k(model)
         if spec_k is None:
             spec_k = 0
         if (draft_model is None) != (spec_k == 0):

@@ -14,9 +14,10 @@ The :class:`ElasticPolicy` turns the supervisor's per-step signals into
   checks shrinks the pool that is furthest ABOVE the target share
   toward ``min_per_pool`` (capacity follows load down, not just up).
 
-Grow direction on ambiguous signals consults the target decode share
-of the worker budget (:func:`target_decode_share`) — the policy nudges
-the tier TOWARD that share rather than oscillating.
+Grow direction on ambiguous signals consults the committed autotune
+knob ``serve.pool_ratio`` (the decode share of the worker budget,
+:func:`target_decode_share`) — the policy nudges the tier TOWARD that
+share rather than oscillating.
 
 Decisions are debounced: signals must persist for ``patience``
 consecutive checks (one check every ``check_every`` steps) before a
@@ -39,20 +40,19 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-__all__ = ["ElasticPolicy", "target_decode_share", "DEFAULT_DECODE_SHARE"]
+__all__ = ["ElasticPolicy", "target_decode_share"]
 
 
-#: the decode share of the worker budget: the reference's shipped
-#: ``serve.pool_ratio`` default, which its best-config table overrides
-#: per model and platform (the port has no such table yet)
-DEFAULT_DECODE_SHARE = 0.5
-
-
-def target_decode_share(model_key: Optional[str] = None) -> float:
-    """The decode share of the worker budget for ``model_key``: the
-    shipped default, whatever the model, until the port has a tuned
-    table to read."""
-    return DEFAULT_DECODE_SHARE
+def target_decode_share(model_key: Optional[str] = None,
+                        platform: str = "cuda") -> float:
+    """The committed decode share of the worker budget for
+    ``model_key`` on ``platform`` (the workers' device type): the
+    best-config table's ``serve.pool_ratio``, else the registry's
+    default of 0.5, announced once by the table.  A table that is
+    present but invalid raises."""
+    from ...autotune import table as _table
+    knobs = _table.resolve("serve", model_key or "unknown", platform, {})
+    return float(knobs["pool_ratio"])
 
 
 class ElasticPolicy:
@@ -82,8 +82,10 @@ class ElasticPolicy:
 
     def decode_share(self, router) -> float:
         if self._share is None:
+            fabric = getattr(router, "fabric", None)
             self._share = target_decode_share(
-                getattr(router, "model_key", None))
+                getattr(router, "model_key", None),
+                getattr(fabric, "device", "cuda"))
         return self._share
 
     def decide(self, router) -> Optional[Dict[str, int]]:

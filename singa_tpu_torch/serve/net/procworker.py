@@ -49,7 +49,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-__all__ = ["main", "model_key"]
+__all__ = ["main"]
 
 
 def _load_builder(spec: str):
@@ -59,19 +59,6 @@ def _load_builder(spec: str):
         raise ValueError(
             f"model builder must be 'module:callable', got {spec!r}")
     return getattr(importlib.import_module(mod_name), fn_name)
-
-
-def model_key(model: Any) -> str:
-    """Per-architecture identity: class name plus width and depth (the
-    reference's ``autotune.table.model_key``; the port has no autotune
-    table, and the ready payload reports it)."""
-    cfg = getattr(model, "cfg", None)
-    name = type(model).__name__.lower()
-    dim = getattr(cfg, "dim", None)
-    layers = getattr(cfg, "num_layers", None)
-    if isinstance(dim, int) and isinstance(layers, int):
-        return f"{name}-d{dim}-L{layers}"
-    return name
 
 
 def _deadline_rem(req, now: float) -> Optional[float]:
@@ -394,6 +381,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     builder = _load_builder(cfg["model"]["builder"])
     model = builder(device=dev, **cfg["model"].get("kwargs", {}))
+    from ...autotune.table import model_key
     from ..engine import ServeEngine
     engine = ServeEngine(model, **_engine_kwargs(cfg, model))
     rpc.send_frame(sock, {"op": "ready", "name": args.name, "ok": True,

@@ -111,7 +111,11 @@ _POOL_SEQ = itertools.count()
 #: :meth:`WorkerProc.op_timeout`) instead of inflating every
 #: steady-state deadline.  The table is the reference's, sized for XLA
 #: compiles; a card's capture is measured against it (each worker's
-#: ``ready_ms`` and ``warm_tick_s``).
+#: ``ready_ms`` and ``warm_tick_s``).  On an H100 it holds as it is: a
+#: base() worker cut to 2 layers is respawned, built, captured and
+#: adopted about 8-9 s after a death, well inside the compile budget,
+#: and chaosd's shorter deadlines still declare a hang at their 8 s
+#: tick deadline (PERF.md, section 6).
 _OP_TIMEOUTS: Dict[str, float] = {
     "heartbeat": 5.0,
     "health": 10.0,

@@ -1215,3 +1215,67 @@ def test_plain_distopt_at_world_one_is_the_base_step(nccl_world):
     assert runs[True][0] == runs[False][0]
     for n, p in runs[False][1].items():
         assert torch.equal(runs[True][1][n], p), n
+
+
+# -- the serving operator's tools on the card --------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoke", ["spec", "spill", "disagg", "mp"])
+def test_loadgen_smokes_pass_on_the_card(cuda_device, smoke):
+    """The load driver's smokes on the card (tiny, f32): streams bitwise
+    against generate() and a single engine, the mp smoke across two
+    worker processes with their own CUDA contexts."""
+    from singa_tpu_torch.tools import loadgen
+    assert getattr(loadgen, f"{smoke}_smoke")("tiny", None, "cuda") == 0
+
+
+@pytest.mark.cuda
+def test_chaos_smoke_holds_on_the_card(cuda_device, tmp_path):
+    """One SIGKILL and one SIGSTOP against a 1:1 process tier on the
+    card: streams bitwise, both deaths timed, both respawns adopted."""
+    from singa_tpu_torch.tools import chaosd
+    fails, res = chaosd.run_smoke(str(tmp_path / "r.jsonl"),
+                                  device="cuda")
+    assert fails == []
+    assert len(res["timings"]["detect_s"]) == 2
+    assert len(res["timings"]["respawn_s"]) == 2
+
+
+@pytest.mark.cuda
+def test_autotune_train_point_runs_the_kernels(nccl_world):
+    """A train sweep point at T = 1024 (base() cut to 1 layer) launches
+    each flash kernel once per layer per timed replay, counted on the
+    card."""
+    from singa_tpu_torch.tools import autotune as at_cli
+    launches = []
+    measure = at_cli.train_measure(nccl_world, config="base", layers=1,
+                                   seq=1024, steps=3, launches=launches)
+    step_ms, feats = measure({"batch": 2, "ce_chunk": 256, "int8_ring": 1})
+    assert step_ms > 0 and feats["flops"] > 0
+    assert feats["graph_pool_bytes"] > 0 and feats["wire_bytes"] == 0
+    assert launches == [dict.fromkeys(tfa.KERNELS, 3)]
+
+
+@pytest.mark.cuda
+def test_perf_attr_payload_on_the_card(cuda_device):
+    """A load run's perf_attr payload on the card validates; the
+    achieved fraction is taken against the card's peaks."""
+    from singa_tpu_torch.obs import attr as obs_attr
+    from singa_tpu_torch.obs import cost as obs_cost
+    from singa_tpu_torch.obs import schema
+    from singa_tpu_torch.serve import ServeEngine
+    from singa_tpu_torch.tools import loadgen
+    m = tier_model(cuda_device)
+    eng = ServeEngine(m, 4, 64, block_size=8, param_dtype=torch.bfloat16)
+    loadgen._warm(eng, m.cfg.vocab_size, 0)
+    led = obs_attr.install()
+    try:
+        load = loadgen.run_load(eng, loadgen.build_workload(8, 500.0, 0))
+    finally:
+        obs_attr.uninstall()
+    payload = obs_cost.perf_attr_payload(led.snapshot(), eng,
+                                         load["detail"]["wall_s"])
+    eng.close()
+    schema.validate_perf_attr_payload(payload)
+    assert {"prefill_chunk", "decode"} <= payload["programs"].keys()
+    assert 0.0 < payload["attributed_frac"] <= 1.0

@@ -72,7 +72,11 @@ def test_graph_reports_the_steps_ops_and_flops(fused):
     # The fused loss runs the head on T - 1 positions: 0.3% at T = 64
     expect = m.flops_per_token(T) * B * T
     assert abs(g.flops() - expect) <= 0.01 * expect
-    assert g.cost_analysis() == {"flops": g.flops()}
+    assert g.cost_analysis() == {"flops": g.flops(),
+                                 "bytes accessed": g.bytes_accessed()}
+    # every f32 parameter is read by the forward at least once and its
+    # update written at least once
+    assert g.bytes_accessed() >= 2 * 4 * m.num_params()
     assert g.memory_analysis() == {"pool_bytes": 0}
     m.eval()
     m(ids)
@@ -81,6 +85,38 @@ def test_graph_reports_the_steps_ops_and_flops(fused):
     fwd = 2 * (m.num_params() - 256 * 64) * B * T \
         + 4 * m.cfg.num_layers * m.cfg.dim * T * B * T
     assert abs(ge.flops() - fwd) <= 0.01 * fwd
+
+
+def test_indexing_ops_count_the_rows_they_move():
+    """A paged arena's token write (index_put_), block write
+    (index_copy_) and gather (index_select) count the rows they touch,
+    not the arena; an embedding reads the rows it looks up; copy_ does
+    not read its destination."""
+    from singa_tpu_torch.ops import kv_cache
+    nb, bs, K, D = 64, 16, 2, 8
+    ck, cv = torch.zeros(nb, bs, K, D), torch.zeros(nb, bs, K, D)
+    arena = ck.numel() * 4
+    blocks, offsets = torch.tensor([1, 5, 9]), torch.tensor([0, 3, 15])
+    k, v = torch.randn(3, K, D), torch.randn(3, K, D)
+    _, g = tgraph.record("w", lambda: kv_cache.scatter_token_kv(
+        ck, cv, blocks, offsets, k, v))
+    # per pool: the int64 indices and the values read, 3 rows written
+    assert g.bytes_accessed() == 2 * (2 * 3 * 8 + 2 * 3 * K * D * 4)
+    assert torch.equal(ck[blocks, offsets], k)
+    _, g = tgraph.record("b", lambda: kv_cache.scatter_block_kv(
+        ck, cv, 7, torch.randn(bs, K, D), torch.randn(bs, K, D)))
+    assert g.bytes_accessed() < arena / 8
+    table = torch.tensor([[1, 2], [5, 9]], dtype=torch.int32)
+    (dk, _), g = tgraph.record("g", lambda: kv_cache.gather_block_kv(
+        ck, cv, table))
+    assert g.op_types()["aten.index_select"] == 2
+    assert g.bytes_accessed() < 2 * 3 * dk.numel() * 4 + arena / 8
+    w, ids = torch.randn(1000, 64), torch.tensor([[1, 2, 3]])
+    _, g = tgraph.record("e", lambda: torch.nn.functional.embedding(ids, w))
+    assert g.bytes_accessed() == 3 * 8 + 2 * 3 * 64 * 4
+    dst, src = torch.empty(100, 100), torch.randn(100, 100)
+    _, g = tgraph.record("c", lambda: dst.copy_(src))
+    assert g.bytes_accessed() == 2 * dst.numel() * 4
 
 
 def test_reset_graph_forces_a_new_executor():

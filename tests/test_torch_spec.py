@@ -26,7 +26,8 @@ from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import faults as tfaults
 from singa_tpu_torch.models import Llama, LlamaConfig, load_reference_params
 from singa_tpu_torch.obs import events as tevents
-from singa_tpu_torch.serve import SPEC_K_FALLBACK, ServeEngine
+from singa_tpu_torch.autotune import table as ttable
+from singa_tpu_torch.serve import ServeEngine
 from singa_tpu_torch.serve.scheduler import (Request, Scheduler,
                                              eta_first_token)
 
@@ -190,11 +191,17 @@ def test_growth_preemption_keeps_spec_streams(pair):
     assert te.spec_compiled_counts() == (1, 0, 1, 0)
 
 
-def test_draft_and_k_must_come_together(pair):
+def test_draft_and_k_must_come_together(pair, tmp_path, monkeypatch,
+                                        capsys):
+    """spec_k=None with a draft asks the best-config table; with no
+    table it takes the table's fallback, announced once on stderr, as
+    the reference engine does."""
     _, tm, _, _ = pair
-    with pytest.warns(UserWarning, match="fallback spec_k=3"):
-        eng = ServeEngine(tm, 2, 32, block_size=BS, draft_model=tm)
-    assert eng.spec_k == SPEC_K_FALLBACK == 3
+    monkeypatch.setenv(ttable.ENV_TABLE, str(tmp_path / "none.json"))
+    monkeypatch.setattr(ttable, "_WARNED", set())
+    eng = ServeEngine(tm, 2, 32, block_size=BS, draft_model=tm)
+    assert eng.spec_k == ttable.SPEC_K_FALLBACK == 3
+    assert "no best-config table" in capsys.readouterr().err
     with pytest.raises(ValueError, match="spec_k"):
         ServeEngine(tm, 2, 32, block_size=BS, draft_model=tm, spec_k=0)
     with pytest.raises(ValueError, match="draft_model"):
