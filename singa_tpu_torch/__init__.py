@@ -33,7 +33,8 @@ from . import serve
 from . import sonnx
 from . import parallel
 from . import autotune
+from . import train
 
 __all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
            "models", "utils", "obs", "faults", "serve", "sonnx", "parallel",
-           "autotune"]
+           "autotune", "train"]

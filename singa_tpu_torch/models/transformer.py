@@ -218,6 +218,20 @@ class GPT2(GenerateMixin, model.Model):
         x = self.ln_f(x)
         return torch.matmul(x, self._tied_head_w(x)), new_caches
 
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs a token, as Llama.flops_per_token counts them:
+        6·N_matmul + 12·L·dim·T, + 2·dim·V when the fused loss
+        recomputes the head.  N excludes the position table (a gather)
+        and keeps the tied vocabulary table, which is the head's
+        product."""
+        c = self.cfg
+        n = sum(p.numel() for p in self.get_params().values())
+        f = 6 * (n - c.max_position * c.dim) \
+            + 12 * c.num_layers * c.dim * seq_len
+        if c.fused_loss:
+            f += 2 * c.dim * c.vocab_size
+        return f
+
 
 # ---------------------------------------------------------------------------
 # BERT

@@ -126,7 +126,9 @@ def load_arrays(fpath: str):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    # a copy even on the CPU, where .cpu() would return the parameter
+    # itself: an asynchronous write must not see the next step's update
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def _process_index() -> int:

@@ -1,6 +1,7 @@
 """Batches from in-memory arrays, ported from ``singa_tpu/utils/data.py``
 (``DataLoader``'s numpy pipeline with its resume cursor and the
-``data.next`` fault site, and ``synthetic_dataset``).
+``data.next`` fault site, ``prefetch_to_device`` and
+``synthetic_dataset``).
 
 The loader shuffles each epoch with ``np.random.RandomState(seed +
 epoch)``, as the reference's numpy pipeline does, so the two packages
@@ -16,10 +17,11 @@ import warnings
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import faults
 
-__all__ = ["DataLoader", "synthetic_dataset"]
+__all__ = ["DataLoader", "prefetch_to_device", "synthetic_dataset"]
 
 
 class DataLoader:
@@ -112,6 +114,80 @@ class DataLoader:
         self.seed = int(state.get("seed", self.seed))
         self._epoch = int(state.get("epoch", 0))
         self._batch_idx = int(state.get("batch_idx", 0))
+
+
+def prefetch_to_device(it, size: int = 2, device=None):
+    """Overlap host->device copies with the card's compute: keep `size`
+    batches in flight on the device ahead of the consumer.
+
+    On the card each array is staged in pinned host memory and copied
+    with ``non_blocking=True`` on a side stream; before a batch is
+    yielded the consumer's current stream waits on an event recorded
+    after its copies, and each tensor is ``record_stream``-ed on the
+    consumer's stream, so its memory is not reused while the consumer's
+    work may still read it.  On the CPU the batches become plain
+    tensors.  Works on tuples/lists/dicts of numpy arrays or tensors
+    (None passes through); yields the same structure with tensors.
+    `device` is a port ``Device`` or a torch device (default: the
+    default device)."""
+    import collections
+
+    if device is None:
+        from ..device import get_default_device
+        device = get_default_device()
+    dev = torch.device(getattr(device, "torch_device", device))
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+
+    def to_dev(a):
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        if not cuda:
+            return t.to(dev)
+        if t.device.type == "cpu":
+            t = t.pin_memory()
+        with torch.cuda.stream(side):
+            return t.to(dev, non_blocking=True)
+
+    def tree(fn, b):
+        if b is None:
+            return None
+        if isinstance(b, dict):
+            return {k: tree(fn, v) for k, v in b.items()}
+        if isinstance(b, (tuple, list)):
+            return type(b)(tree(fn, v) for v in b)
+        return fn(b)
+
+    def put(batch):
+        out = tree(to_dev, batch)
+        ev = None
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(side)
+        return out, ev
+
+    def ready(item):
+        out, ev = item
+        if ev is not None:
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(ev)
+            tree(lambda t: t.record_stream(consumer), out)
+        return out
+
+    q = collections.deque()
+    it = iter(it)
+    try:
+        for _ in range(max(1, size)):
+            q.append(put(next(it)))
+    except StopIteration:
+        pass
+    while q:
+        out = q.popleft()
+        try:
+            q.append(put(next(it)))
+        except StopIteration:
+            pass
+        yield ready(out)
 
 
 def synthetic_dataset(kind: str = "blobs", n: int = 1024, classes: int = 10,

@@ -1279,3 +1279,106 @@ def test_perf_attr_payload_on_the_card(cuda_device):
     schema.validate_perf_attr_payload(payload)
     assert {"prefill_chunk", "decode"} <= payload["programs"].keys()
     assert 0.0 < payload["attributed_frac"] <= 1.0
+
+
+# -- fault-tolerant training runs (singa_tpu_torch.train) ------------------------
+
+def _run_gpt2(device, dropout=0.1):
+    """GPT-2 at tiny widths with dropout and AdamW on `device`, weights
+    from seed 0, compiled for T = 64 (the plain attention path)."""
+    from singa_tpu_torch.models import GPT2, GPT2Config
+    cfg = dataclasses.replace(GPT2Config.tiny(), dropout=dropout,
+                              fused_loss=True)
+    m = GPT2(cfg, device=device,
+             generator=torch.Generator(device.torch_device.type)
+             .manual_seed(0))
+    m.set_optimizer(topt.AdamW(lr=1e-3, weight_decay=0.1))
+    m.compile([torch.zeros(4, 64, dtype=torch.int32,
+                           device=device.torch_device)],
+              is_train=True, use_graph=True)
+    return m
+
+
+@pytest.mark.cuda
+def test_registered_generator_state_resumes_a_captured_steps_masks(
+        cuda_device):
+    """A captured step's replays advance its registered dropout
+    generator on the host as eager steps do: after five steps (two
+    eager, a capture, two replays) its state equals that of an eager
+    run's generator after five steps, and that state set into a fresh
+    model's generator, before the fresh model captures, reproduces the
+    next replays' masks (at lr 0 the parameters stay put, so the losses
+    differ only by the masks) — eagerly and through its own capture."""
+    x = torch.as_tensor(np.random.RandomState(1).randint(0, 256, (4, 64)),
+                        dtype=torch.int32, device="cuda")
+
+    def model(use_graph, lr=0.0):
+        m = _run_gpt2(tdevice.create_device("cuda"))
+        m.set_optimizer(topt.SGD(lr=lr))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        return m
+    captured, eager = model(True), model(False)
+    for _ in range(5):
+        captured.train_step(x)
+        eager.train_step(x)
+    assert captured.get_graph("train").graph is not None
+    state = captured.device.generator.get_state()
+    assert torch.equal(state, eager.device.generator.get_state())
+    fresh = model(True)
+    fresh.device.generator.set_state(state)
+    for _ in range(4):                   # eager, warm-up, capture, replay
+        a = captured.train_step(x)[1]
+        b = fresh.train_step(x)[1]
+        assert torch.equal(a, b)
+    assert fresh.get_graph("train").graph is not None
+    assert torch.equal(fresh.device.generator.get_state(),
+                       captured.device.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_train_runner_resumes_a_captured_step_bitwise(cuda_device,
+                                                      tmp_path):
+    """TrainRunner on the card: tiny GPT-2 with dropout 0.1 and AdamW,
+    8 steps straight against 5 steps (saves at 3 and, final, 5), then a
+    fresh model resumed in the same process to 8: losses, every
+    parameter, the Adam moments, the optimizer counter and the
+    generator state bitwise; the step was captured in every run, and
+    the records name the card."""
+    from singa_tpu_torch.obs.record import RunRecord
+    from singa_tpu_torch.train import AsyncCheckpointManager, TrainRunner
+    from singa_tpu_torch.utils.data import DataLoader
+    data = np.random.RandomState(2).randint(0, 256, (64, 64)).astype(
+        np.int32)
+    store = str(tmp_path / "records.jsonl")
+
+    def run(d, total):
+        m = _run_gpt2(tdevice.create_device("cuda"))
+        losses = {}
+        r = TrainRunner(m, DataLoader(data, batch_size=4, seed=1,
+                                      drop_last=True), total,
+                        ckpt=AsyncCheckpointManager(str(tmp_path / d),
+                                                    save_every=3),
+                        record_store=store,
+                        on_step=lambda s, o: losses.__setitem__(s, o[1]))
+        res = r.run()
+        r.__exit__()
+        assert m.get_graph("train").graph is not None
+        return m, {s: float(v) for s, v in losses.items()}, res
+
+    straight, want, _ = run("a", 8)
+    _, first, _ = run("b", 5)
+    resumed, rest, res = run("b", 8)
+    assert res.resumed_from == 5 and res.steps == 8
+    assert {**first, **rest} == want
+    for n, t in straight.get_states().items():
+        assert torch.equal(resumed.get_states()[n], t), n
+    for n, leaves in straight.optimizer.slot_arrays().items():
+        for a, b in zip(leaves, resumed.optimizer.slot_arrays()[n]):
+            assert torch.equal(a, b), n
+    assert resumed.optimizer.step_counter == straight.optimizer.step_counter
+    assert torch.equal(resumed.device.generator.get_state(),
+                       straight.device.generator.get_state())
+    entries = RunRecord(store).entries()
+    assert {e["platform"] for e in entries} == {"cuda"}
+    assert entries[-1]["device"] == torch.cuda.get_device_name(0)
+    assert RunRecord(store).validate() == []

@@ -199,20 +199,27 @@ def _forbidden_imports(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """The package (serve/disagg, serve/net, autotune and tools
+    """The package (serve/disagg, serve/net, autotune, train and tools
     included), chip_smoke.py and the module whose builder the process
     tier's workers import: no jax, no JAX package and not its
     ``tools``."""
     files = sorted((REPO / "singa_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
     assert {"disagg", "net", "tools", "sonnx", "parallel",
-            "autotune"} <= {f.parent.name for f in files}
+            "autotune", "train"} <= {f.parent.name for f in files}
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"singa_tpu_torch/tools/loadgen.py",
             "singa_tpu_torch/tools/chaosd.py",
             "singa_tpu_torch/tools/autotune.py",
+            "singa_tpu_torch/tools/ckpt_fsck.py",
             "singa_tpu_torch/autotune/table.py",
-            "singa_tpu_torch/obs/cost.py"} <= names
+            "singa_tpu_torch/obs/cost.py",
+            "singa_tpu_torch/train/state.py",
+            "singa_tpu_torch/train/ckpt.py",
+            "singa_tpu_torch/train/loop.py",
+            "singa_tpu_torch/train/preempt.py",
+            "singa_tpu_torch/utils/timing.py",
+            "singa_tpu_torch/utils/profiler.py"} <= names
     assert len(files) > 10
     found = {str(f.relative_to(REPO)): _forbidden_imports(f) for f in files}
     assert not {f: b for f, b in found.items() if b}

@@ -128,6 +128,22 @@ def test_gpt2_names_shapes_and_presets_are_the_reference(gpt2):
     assert n_rest + 12 * n_block == 124_439_808
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_gpt2_flops_per_token_counts_the_tied_head(gpt2, fused):
+    """6 N + 12 L dim T over the reference's parameters less the position
+    table (a gather), + 2 dim V where the fused loss recomputes the tied
+    head: Llama's accounting."""
+    _, arrays = gpt2
+    tm = _tgpt2(arrays, fused_loss=fused)
+    c = tm.cfg
+    n = sum(a.size for name, a in arrays.items() if name != "wpe.table")
+    assert arrays["wpe.table"].shape == (c.max_position, c.dim)
+    for t in (16, 64):
+        want = 6 * n + 12 * c.num_layers * c.dim * t \
+            + (2 * c.dim * c.vocab_size if fused else 0)
+        assert tm.flops_per_token(t) == want
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "padding"])
 def test_gpt2_logits_match(gpt2, masked):
     jm, arrays = gpt2
