@@ -219,7 +219,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                replays with 12 launches of each kernel a step, the graph's
                own FLOPs as hfu_graph, and MFU from them less the fused
                loss's recomputed head plus the flash kernels' causal
-               FLOPs, a profile of one replay.  BERT
+               FLOPs, a profile of one replay; then GPT-2 with
+               remat=True beside it, its parameters loaded by name: one
+               eager step's loss and gradients and 4 steps (two
+               captured) bitwise the plain model's, with the dropout
+               generator's state; 24 forward, 12 dQ and 12 dK/dV
+               launches a remat step counted on the card; step ms of
+               10 alternating replays, the eager step's peak memory and
+               the graph pools of both.  BERT
                at bench.py's cell, B=256 x T=128, SGD 0.01 / momentum 0.9:
                5 eager and 5 captured steps bitwise in losses and
                parameters, 10 timed replays (samples/s, MFU from
@@ -276,7 +283,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
                captured eval bitwise the eager one, ms a call and
                tokens/s of each.  No flash launch on either path, counted
                on the card
- 22. dist    — data-parallel training over NCCL at a world of 1 (the
+ 22. rnn     — the char-rnn (tools/train_rnn.CharRNN: two LSTMs of 128
+               over an embedding of 64, the reference example's
+               widths), B=64 x T=64 characters, Adam 3e-3, bf16
+               activations: 40 eager and 40 captured steps bitwise in
+               losses and parameters, the loss falling, chars/s of the
+               replays; exported (two LSTM nodes), parsed back and
+               imported on the card, eval logits against the native
+               model's in bf16 and f32; then tools/train_rnn at its
+               defaults (150 steps, a sample).  No flash launch
+ 23. dist    — data-parallel training over NCCL at a world of 1 (the
                machine has one card): parallel.init_distributed on a
                free local port, the data mesh set, the group destroyed
                at the end.  base()'s training cell (B=8 x T=1024, fused
@@ -297,7 +313,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                images, 8 steps, the step captured); no
                flash launch there.  No allreduce bandwidth: one rank
                moves nothing between cards
- 23. timing  — each kernel, its plain version and the PyTorch call that
+ 24. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -330,6 +346,7 @@ store.
 
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -338,7 +355,7 @@ import sys
 import tempfile
 import time
 import warnings
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -527,6 +544,11 @@ GPT2_PROMPTS, GPT2_SEED = (128, 640), 11
 GPT2_TRAIN = (8, 1024)
 GPT2_GRAD_NAMES = ("wte.table", "blocks.0.attn.q_proj.W",
                    "blocks.11.mlp.c_proj.W", "ln_f.gamma")
+# GPT-2 with remat=True beside the plain model at GPT2_TRAIN: one eager
+# step's loss and every gradient, then REMAT_STEPS steps through
+# train_step (two eager, the rest captured) held bitwise, then
+# REMAT_TIMED replays of each, alternating
+REMAT_STEPS, REMAT_TIMED = 4, 10
 BERT_TRAIN = (256, 128)
 BERT_EVAL_B, BERT_PAD = 64, 40
 BERT_CHECK_B, BERT_F32_LOGIT = 4, 1e-4
@@ -3857,6 +3879,151 @@ def bert_eval(m, later):
     return res
 
 
+def _all_grads(m, x):
+    """One eager step's loss and every parameter's gradient, by name
+    (the path of train_one_batch up to the optimizer)."""
+    from singa_tpu_torch import autograd
+    params = m.get_params()
+    ids_of = {id(p): n for n, p in params.items()}
+    with autograd.train_mode():
+        loss = _gpt2_loss(m, x)
+        grads = {ids_of[id(p)]: g for p, g in autograd.backward(loss)}
+    for p in params.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def gpt2_remat(m, later):
+    """GPT-2 with remat=True beside the plain model `m` (fused loss,
+    dropout 0.1, SGD(0.01, momentum 0.9)) at GPT2_TRAIN: the remat
+    model's parameters loaded from `m`'s by name; from the same weights
+    and dropout seed, one eager step's loss and every gradient, then
+    REMAT_STEPS steps through train_step (two eager, then captured) in
+    losses, parameters and the generator's state, all held bitwise;
+    then REMAT_TIMED replays of each, alternating: step ms, each
+    kernel's launches a step counted on the card (24/12/12 under remat),
+    the graph pool, and the peak memory an eager step allocates above
+    what is resident before it."""
+    from singa_tpu_torch import kernel_check, opt
+    from singa_tpu_torch.model import _dropout_generators
+    from singa_tpu_torch.ops import flash_attention as fa
+    cfg = m.cfg
+    L = cfg.num_layers
+    r = gpt2_model(dataclasses.replace(cfg, remat=True))
+    names_equal = list(r.get_params()) == list(m.get_params())
+    r.set_params(m.get_params())
+    start = {n: p.detach().clone() for n, p in m.get_params().items()}
+    b, t = GPT2_TRAIN
+    rng = np.random.RandomState(7)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, t))
+                               .astype(np.int32), device="cuda")
+               for _ in range(REMAT_STEPS)]
+    models = {"plain": m, "remat": r}
+    gens = {k: _dropout_generators(mm) for k, mm in models.items()}
+    out = {k: {} for k in models}
+    grads = {}
+    for k, mm in models.items():
+        mm.set_params(start)
+        for g in gens[k]:
+            g.manual_seed(0)
+        loss, grads[k] = _all_grads(mm, batches[0])
+        out[k]["eager_loss"] = loss.item()
+        out[k]["generator_after_grads"] = [g.get_state() for g in gens[k]]
+    grads_differ = [n for n in grads["plain"]
+                    if not torch.equal(grads["plain"][n], grads["remat"][n])]
+    missing = sorted(set(grads["plain"]) ^ set(grads["remat"]))
+    del grads
+    _free()
+    ends = {}
+    for k, mm in models.items():
+        mm.set_params(start)
+        for g in gens[k]:
+            g.manual_seed(0)
+        mm.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        mm.compile([batches[0]], is_train=True, use_graph=True)
+        losses, per_step = [], []
+        for i, x in enumerate(batches):
+            if i == 0:
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            fa.reset_device_launches()
+            losses.append(mm.train_step(x)[1].item())
+            per_step.append(fa.device_launches())
+            if i == 0:
+                out[k]["eager_step_peak_bytes"] = \
+                    torch.cuda.max_memory_allocated() - resident
+        g = mm.get_graph("train")
+        out[k].update({"losses": losses, "launches_per_step": per_step,
+                       "captured": g.graph is not None,
+                       "graph_launches": g.launches,
+                       "graph_pool_bytes": g.pool_bytes,
+                       "generator_after": [x.get_state() for x in gens[k]]})
+        ends[k] = {n: p.detach().clone() for n, p in mm.get_params().items()}
+    params_differ = [n for n in ends["plain"]
+                     if not torch.equal(ends["plain"][n], ends["remat"][n])]
+    del ends, start
+    _free()
+    x = batches[0]
+    times = {k: [] for k in models}
+    for _ in range(REMAT_TIMED):
+        for k, mm in models.items():
+            times[k].append(_timed(lambda: mm.train_step(x))[1] * 1e3)
+    for k in models:
+        o = out[k]
+        o["step_ms"] = times[k]
+        o["median_step_ms"] = sorted(times[k])[len(times[k]) // 2]
+        o["tokens_per_s"] = b * t / (o["median_step_ms"] / 1e3)
+    expect = {"plain": dict.fromkeys(fa.KERNELS, L),
+              "remat": kernel_check.remat_launches(L)}
+    gen_equal = all(torch.equal(a, c) for a, c in zip(
+        out["plain"].pop("generator_after"),
+        out["remat"].pop("generator_after")))
+    gen_equal_grads = all(torch.equal(a, c) for a, c in zip(
+        out["plain"].pop("generator_after_grads"),
+        out["remat"].pop("generator_after_grads")))
+    res = {"B": b, "T": t, "config": "GPT2Config(remat=True, fused_loss="
+           "True) (GPT-2 124M), dropout 0.1",
+           "param_names_equal": names_equal, **out,
+           "eager_step": {"loss_equal": out["plain"]["eager_loss"]
+                          == out["remat"]["eager_loss"],
+                          "grads_differing": grads_differ[:8],
+                          "grad_names_differing": missing[:8],
+                          "generator_equal": gen_equal_grads},
+           "steps": {"losses_equal": out["plain"]["losses"]
+                     == out["remat"]["losses"],
+                     "params_differing": params_differ[:8],
+                     "generator_equal": gen_equal},
+           "expected_per_step": expect,
+           "step_ms_ratio": out["remat"]["median_step_ms"]
+           / out["plain"]["median_step_ms"],
+           "eager_peak_ratio": out["remat"]["eager_step_peak_bytes"]
+           / out["plain"]["eager_step_peak_bytes"],
+           "pool_ratio": out["remat"]["graph_pool_bytes"]
+           / out["plain"]["graph_pool_bytes"]}
+    del r, models
+    _free()
+    later(names_equal, "GPT-2's remat parameter names differ from plain")
+    later(res["eager_step"]["loss_equal"] and not grads_differ
+          and not missing and gen_equal_grads,
+          f"GPT-2's eager remat step differs from plain: {res['eager_step']}")
+    later(res["steps"]["losses_equal"] and not params_differ and gen_equal,
+          f"GPT-2's remat steps differ from plain: {res['steps']}, "
+          f"losses {out['plain']['losses']} vs {out['remat']['losses']}")
+    later(all(np.isfinite(out["remat"]["losses"])),
+          f"GPT-2's remat losses: {out['remat']['losses']}")
+    for k in ("plain", "remat"):
+        o = out[k]
+        later(o["captured"] and o["graph_launches"] == expect[k]
+              and all(n == expect[k] for n in o["launches_per_step"]),
+              f"GPT-2's {k} step launches {o['launches_per_step']} (graph "
+              f"{o['graph_launches']}), expected {expect[k]} a step")
+    later(res["eager_peak_ratio"] < 1 and res["pool_ratio"] < 1,
+          f"GPT-2's remat step holds no less memory: eager peak ratio "
+          f"{res['eager_peak_ratio']}, pool ratio {res['pool_ratio']}")
+    return res
+
+
 def phase_transformer():
     """GPT-2 124M: generate(), the paged engine and training; then
     BERT-base training at bench.py's cell, and its eval.  Published
@@ -3922,7 +4089,9 @@ def phase_transformer():
     train["profile"] = phase_profile(
         lambda: m.train_step(x), f"one replayed GPT-2 train step, B={b} "
         f"T={t}", dict.fromkeys(fa.KERNELS, cfg.num_layers))
-    del m, x
+    del x
+    remat = gpt2_remat(m, later)
+    del m
     _free()
 
     bcfg = BERTConfig(num_labels=2)
@@ -3943,7 +4112,8 @@ def phase_transformer():
     _free()
     emit({"phase": "transformer", "card": smi_line(),
           "gpt2": {"config": "GPT2Config() (GPT-2 124M)", "params": params,
-                   "generate": gen, "serve": serve, "train": train},
+                   "generate": gen, "serve": serve, "train": train,
+                   "remat": remat},
           "bert": {"config": "BERTConfig(num_labels=2) (BERT-base)",
                    "params": bparams, "train": bert_train, "eval": evals,
                    "eval_flash_launches": bert_launches},
@@ -3955,7 +4125,10 @@ def phase_transformer():
     for cond, msg in checks:
         check(cond, msg)
     return {"gpt2": {"train": train["launches"], "generate": gen["launches"],
-                     "serve": serve["flash_launches"]},
+                     "serve": serve["flash_launches"],
+                     "remat": {k: sum(n[k] for n in
+                                      remat["remat"]["launches_per_step"])
+                               for k in fa.KERNELS}},
             "bert": {"train": bert_train["launches"],
                      "step": {k: bert_train[k] for k in (
                          "median_step_ms", "samples_per_s", "mfu")}}}
@@ -4666,9 +4839,11 @@ def _rel_err(got, want):
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def _round_trip(native, inputs, later, what):
+def _round_trip(native, inputs, later, what,
+                expect=("LayerNormalization", "Gelu")):
     """`native` exported by the port at `inputs`, serialised, parsed back
-    and checked: the parsed proto and the codec's figures."""
+    and checked, each op of `expect` a node of its own: the parsed proto
+    and the codec's figures."""
     from singa_tpu_torch import sonnx
     t = time.perf_counter()
     p = sonnx.to_onnx(native, inputs)
@@ -4684,9 +4859,8 @@ def _round_trip(native, inputs, later, what):
     ops = {}
     for n in parsed.graph.node:
         ops[n.op_type] = ops.get(n.op_type, 0) + 1
-    later(ops.get("LayerNormalization") and ops.get("Gelu"),
-          f"{what}'s export lacks single LayerNormalization / Gelu nodes: "
-          f"{ops}")
+    later(all(ops.get(op) for op in expect),
+          f"{what}'s export lacks single {' / '.join(expect)} nodes: {ops}")
     return parsed, {"bytes": len(data), "export_s": t_export,
                     "serialize_s": t_ser, "parse_s": t_parse,
                     "nodes": len(parsed.graph.node),
@@ -4874,6 +5048,116 @@ def phase_sonnx(native_bert):
     return {"bert_train": train["launches"],
             "gpt2_eval": gpt2["flash_launches"],
             "gpt2_calls": gpt2["calls_counted"]}
+
+
+# -- phase rnn: the char-rnn ------------------------------------------------------
+
+def phase_rnn():
+    """The char-rnn (singa_tpu_torch.tools.train_rnn.CharRNN) at the
+    reference example's widths (kernel_check.CHAR_RNN: two LSTMs of 128
+    over an embedding of 64, batches of 64 x 64 characters, Adam 3e-3),
+    weights from seed 0, bf16 activations over f32 masters:
+    CHAR_RNN_STEPS steps eagerly and the same steps captured (a CUDA
+    graph from the third), held bitwise in losses and parameters, the
+    captured run's loss falling; chars/s of the replays; the trained
+    model exported (two LSTM nodes), parsed back, imported on the card
+    and its eval logits held to the native model's in bf16 and f32; then
+    the trainer's command line at its defaults.  No flash launch on the
+    path: the reference's lax.scan is plain torch here."""
+    from singa_tpu_torch import device, kernel_check, opt, sonnx
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.tools import train_rnn
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    dev = device.create_device("cuda")
+    b, t = kernel_check.CHAR_RNN_BATCH
+    n, w = kernel_check.CHAR_RNN_STEPS, kernel_check.CHAR_RNN_WINDOW
+    chars = sorted(set(train_rnn.CORPUS))
+    data = np.asarray([chars.index(c) for c in train_rnn.CORPUS], np.int32)
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.as_tensor(a, device="cuda")
+                     for a in train_rnn.batches(data, b, t, rng))
+               for _ in range(n)]
+    fa.reset_device_launches()
+    runs = {}
+    for use_graph in (False, True):
+        m = train_rnn.CharRNN(len(chars), device=dev,
+                              generator=torch.Generator("cuda").manual_seed(0),
+                              **kernel_check.CHAR_RNN)
+        m.set_optimizer(opt.Adam(lr=kernel_check.CHAR_RNN_LR))
+        m.compile([batches[0][0]], is_train=True, use_graph=use_graph)
+        losses, times = [], []
+        for x, y in batches:
+            (_, loss), dt = _timed(lambda: m.train_step(x, y))
+            losses.append(loss.item())
+            times.append(dt)
+        runs[use_graph] = (losses, times, {
+            k: p.detach().clone() for k, p in m.get_params().items()})
+    launches = fa.device_launches()
+    losses, times, end = runs[True]
+    differ = [k for k, p in runs[False][2].items()
+              if not torch.equal(p, end[k])]
+    g = m.get_graph("train")
+    replay_ms = sorted(times[3:])[len(times[3:]) // 2] * 1e3
+    params = sum(p.numel() for p in m.get_params().values())
+    train = {"B": b, "T": t, "vocab": len(chars), "params": params,
+             "optimizer": "Adam(lr=3e-3)", "steps": n,
+             "captured": g.graph is not None, "graph_num_ops": g.num_ops,
+             "graph_pool_bytes": g.pool_bytes, "losses": losses,
+             "eager_losses": runs[False][0],
+             "eager_step_ms_median": sorted(runs[False][1])[n // 2] * 1e3,
+             "bitwise": runs[False][0] == losses and not differ,
+             "params_differing": differ[:8],
+             "loss_first": float(np.mean(losses[:w])),
+             "loss_last": float(np.mean(losses[-w:])),
+             "replay_step_ms": [x * 1e3 for x in times[3:]],
+             "median_step_ms": replay_ms,
+             "chars_per_s": b * t / (replay_ms / 1e3),
+             "flash_launches": launches}
+    del runs
+    later(train["captured"] and train["bitwise"],
+          f"the char-rnn's captured steps differ from eager: "
+          f"{differ[:8]}, losses {losses} vs {train['eager_losses']}")
+    later(all(np.isfinite(losses))
+          and train["loss_last"] < train["loss_first"],
+          f"the char-rnn's loss did not fall: {losses}")
+    later(not any(launches.values()), f"flash kernels ran on the "
+          f"char-rnn's path: {launches}")
+    m.graph_mode = False
+    x = batches[0][0]
+    parsed, codec = _round_trip(m, [x], later, "char-rnn", expect=("LSTM",))
+    later(codec["ops"].get("LSTM") == kernel_check.CHAR_RNN["num_layers"],
+          f"the char-rnn's export holds {codec['ops'].get('LSTM')} LSTM "
+          f"nodes")
+    rep = sonnx.prepare(parsed, device=dev)
+    logits = _logit_checks(m, rep, [x], later, "the char-rnn")
+    del m, rep, parsed, batches
+    _free()
+    fa.reset_device_launches()
+    printed = io.StringIO()
+    with redirect_stdout(printed):
+        cli = train_rnn.main([])
+    cli_launches = fa.device_launches()
+    cli = {k: v for k, v in cli.items() if k != "losses"} | {
+        "loss_first": cli["losses"][0], "loss_last": cli["losses"][-1],
+        "flash_launches": cli_launches,
+        "printed": printed.getvalue().splitlines()[-14:]}
+    later(cli["train_captured"] and cli["loss_last"] < cli["loss_first"]
+          and not any(cli_launches.values()),
+          f"tools/train_rnn on the card: {cli}")
+    _free()
+    emit({"phase": "rnn", "card": smi_line(),
+          "config": "CharRNN(hidden=128, embed=64, num_layers=2), "
+                    "examples/rnn/train.py's defaults",
+          "train": train, "onnx": {"codec": codec, "logits": logits},
+          "cli": cli, "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return {k: launches[k] + cli_launches[k] for k in fa.KERNELS}
 
 
 #: kernels that convert an activation between NCHW and NHWC
@@ -5529,6 +5813,7 @@ def main():
     train_run_launches = timed_phase("train_run", phase_train_run)
     sonnx_launches = timed_phase("sonnx", phase_sonnx,
                                  transformer["bert"]["step"])
+    rnn_launches = timed_phase("rnn", phase_rnn)
     dist_llama, dist_cnn = timed_phase("dist", phase_dist)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
@@ -5582,6 +5867,10 @@ def main():
             "generate": {"launches": gp["generate"][r["name"]],
                          "calls": 1},
             "serve": {"launches": gp["serve"][r["name"]]}}
+        by_path["gpt2_remat"] = {
+            "launches": gp["remat"][r["name"]], "steps": REMAT_STEPS,
+            "per_step": gp["remat"][r["name"]] / REMAT_STEPS}
+        by_path["rnn"] = {"launches": rnn_launches[r["name"]]}
         by_path["train_run"] = {
             "launches": train_run_launches[r["name"]],
             "steps": RUN_STEPS,

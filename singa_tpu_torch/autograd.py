@@ -3,9 +3,13 @@ Linear, Embedding, Cast, SiLU and RMSNorm (the Llama path); of ReLU,
 Tanh, Sigmoid, Dropout, Flatten, ReduceMean, Conv2d, MaxPool2d,
 AvgPool2d and BatchNorm (the CNN path); of LayerNorm, Gelu, Softmax and
 LogSoftmax (the GPT-2 and BERT path); the train/eval flag,
-``backward``, and the losses (``softmax_cross_entropy``,
-``fused_linear_cross_entropy``, ``mse_loss``).  Functions with a
-one-node ONNX form are marked ``@unit`` for the exporter (``_unit``).
+``backward``, the losses (``softmax_cross_entropy``,
+``fused_linear_cross_entropy``, ``mse_loss``), and the rest of the
+reference's public functions (tensor math, shapes and indexing,
+activations, ``where`` and reductions, the other losses,
+trigonometric, rounding, comparison and logic, ``grad_of``).  Functions
+with a one-node ONNX form are marked ``@unit`` for the exporter
+(``_unit``).
 
 Plain functions on ``torch.Tensor`` with the reference's dtype rules.
 torch autograd is the tape: the reference's ``Operator``/``backward``
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -426,3 +431,653 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target,
             "softmax_cross_entropy(linear(h, w), target) for "
             "one-hot/probability targets")
     return _FusedLinearCE.apply(h, w, target, int(chunk_rows))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's surface: tensor math, shapes and indexing,
+# activations, where and reductions, losses, trigonometric, rounding,
+# comparison and logic.  Each computes what ``singa_tpu.autograd``
+# computes and takes the gradient it gives (its hand-written backwards,
+# or jax.vjp of its forward); a scalar operand takes the dtype of the
+# tensor beside it, as the reference's ``_as_t`` does.  Integer and
+# boolean results (comparisons, logic, ``mod``, ``onehot``,
+# ``shape_of``) take no gradient, as the reference's non-differentiable
+# ops.  Each is a unit ``autograd.<name>`` for the exporter.
+# ---------------------------------------------------------------------------
+
+def _as_t(v, like: torch.Tensor) -> torch.Tensor:
+    """`v` as a tensor on `like`'s device; a non-tensor in `like`'s
+    dtype (the reference's ``_as_t``).  A scalar is written by a fill,
+    not copied from the host, so a CUDA-graph capture may take it."""
+    if isinstance(v, torch.Tensor):
+        return v
+    if isinstance(v, (int, float, np.number, np.bool_)):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(np.asarray(v), device=like.device).to(like.dtype)
+
+
+def _jclip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), whose gradient is halved where
+    x sits on a bound (a tie of max or min), unlike ``clamp``'s."""
+    lo, hi = _as_t(lo, x), _as_t(hi, x)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+@unit("autograd.add")
+def add(a, b):
+    return a + _as_t(b, a)
+
+
+@unit("autograd.sub")
+def sub(a, b):
+    return a - _as_t(b, a)
+
+
+@unit("autograd.mul")
+def mul(a, b):
+    return a * _as_t(b, a)
+
+
+@unit("autograd.div")
+def div(a, b):
+    return a / _as_t(b, a)
+
+
+@unit("autograd.neg")
+def neg(a):
+    return -a
+
+
+@unit("autograd.pow")
+def pow(a, p):
+    """a ** p for a scalar p; the gradient is p·a^(p−1)."""
+    return torch.pow(a, p)
+
+
+@unit("autograd.abs")
+def abs(a):
+    """|a|; the gradient is sign(a) (0 at 0)."""
+    return torch.abs(a)
+
+
+@unit("autograd.exp")
+def exp(a):
+    return torch.exp(a)
+
+
+@unit("autograd.log")
+def log(a):
+    return torch.log(a)
+
+
+@unit("autograd.sqrt")
+def sqrt(a):
+    return torch.sqrt(a)
+
+
+@unit("autograd.rsqrt")
+def rsqrt(a):
+    return torch.rsqrt(a)
+
+
+@unit("autograd.clip")
+def clip(a, lo, hi):
+    """a clipped to [lo, hi]; the gradient passes where lo <= a <= hi,
+    both bounds included (the reference's Clip mask)."""
+    return torch.clamp(a, lo, hi)
+
+
+@unit("autograd.erf")
+def erf(a):
+    return torch.erf(a)
+
+
+@unit("autograd.matmul")
+def matmul(a, b):
+    return torch.matmul(a, b)
+
+
+@unit("autograd.einsum")
+def einsum(subscripts: str, *ts):
+    return torch.einsum(subscripts, *ts)
+
+
+@unit("autograd.tensordot")
+def tensordot(a, b, axes=2):
+    b = _as_t(b, a)
+    if not isinstance(axes, int):
+        axes = [list(np.atleast_1d(ax)) for ax in axes]
+    return torch.tensordot(a, b, dims=axes)
+
+
+@unit("autograd.add_bias")
+def add_bias(x, b, axis: int = 1):
+    """x + b with the vector b laid along `axis`."""
+    shape = [1] * x.dim()
+    shape[axis] = b.shape[0]
+    return x + b.reshape(shape)
+
+
+# -- shapes and indexing ------------------------------------------------------
+
+def _axes(axis, nd: int) -> Tuple[int, ...]:
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    return tuple(a % nd for a in axis)
+
+
+@unit("autograd.reshape")
+def reshape(a, shape):
+    return a.reshape(tuple(shape))
+
+
+@unit("autograd.transpose")
+def transpose(a, axes=None):
+    """The axes permuted; None reverses them (``a.T``)."""
+    if axes is None:
+        axes = tuple(reversed(range(a.dim())))
+    return a.permute(*axes)
+
+
+@unit("autograd.squeeze")
+def squeeze(a, axis=None):
+    """Drop size-1 axes (all of them, or `axis`, which must be size 1,
+    as ``jnp.squeeze`` requires)."""
+    if axis is None:
+        return a.reshape([s for s in a.shape if s != 1])
+    axes = _axes(axis, a.dim())
+    if any(a.shape[i] != 1 for i in axes):
+        raise ValueError(f"cannot squeeze axes {axis} of shape "
+                         f"{tuple(a.shape)}: not of size one")
+    return a.reshape([s for i, s in enumerate(a.shape) if i not in axes])
+
+
+@unit("autograd.unsqueeze")
+def unsqueeze(a, axis):
+    """New size-1 axes at `axis` (an int or a list, inserted in sorted
+    order)."""
+    for ax in sorted(axis if isinstance(axis, (list, tuple)) else [axis]):
+        a = a.unsqueeze(ax)
+    return a
+
+
+@unit("autograd.cat")
+def cat(ts, axis: int = 0):
+    return torch.cat(list(ts), dim=axis)
+
+
+@unit("autograd.stack")
+def stack(ts, axis: int = 0):
+    return torch.stack(list(ts), dim=axis)
+
+
+@unit("autograd.split")
+def split(a, parts, axis: int = 0):
+    """An int: that many equal sections (``jnp.split``; a length that
+    does not divide raises).  A list: sections of those sizes, cut at
+    their running sums, the last section taking whatever remains (the
+    reference cuts at ``cumsum(parts)[:-1]``).  Returns a tuple."""
+    if isinstance(parts, int):
+        n = a.shape[axis]
+        if n % parts:
+            raise ValueError(f"array split does not result in an equal "
+                             f"division: {n} into {parts}")
+        return tuple(torch.tensor_split(a, parts, dim=axis))
+    cuts = np.cumsum(parts)[:-1].tolist()
+    return tuple(torch.tensor_split(a, cuts, dim=axis))
+
+
+def _wrap(i: torch.Tensor, n: int):
+    """(index wrapped from the end, whether it lies in [0, n))."""
+    w = torch.where(i < 0, i + n, i)
+    return w, (w >= 0) & (w < n)
+
+
+def _as_index(s, device: torch.device) -> torch.Tensor:
+    """An integer or boolean index as a tensor on `device`.  A Python or
+    numpy integer is written by a fill, not copied from the host, so a
+    CUDA-graph capture may take it."""
+    if isinstance(s, torch.Tensor):
+        return s.to(device)
+    if isinstance(s, (int, np.integer)) and not isinstance(s, (bool, np.bool_)):
+        return torch.full((), int(s), dtype=torch.long, device=device)
+    return torch.as_tensor(np.asarray(s), device=device)
+
+
+@unit("autograd.index")
+def index(a, idx):
+    """a[idx] (ints, slices, None, Ellipsis and integer or boolean
+    arrays, as numpy indexing).  An integer index past either end reads
+    the edge, as jax's indexing clamps; its gradient is dropped, as the
+    reference's ``.at[idx].add`` drops it.  Nothing is read back to the
+    host, so a captured step may call it."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if any(s is Ellipsis for s in idx):
+        i = next(k for k, s in enumerate(idx) if s is Ellipsis)
+        used = sum(1 if s is not None else 0 for s in idx) - 1
+        for s in idx:
+            if isinstance(s, (np.ndarray, torch.Tensor)) and \
+                    s.dtype in (np.bool_, torch.bool):
+                used += s.ndim - 1
+        idx = idx[:i] + (slice(None),) * (a.dim() - used) + idx[i + 1:]
+    parts = [s if s is None or isinstance(s, slice)
+             else _as_index(s, a.device) for s in idx]
+    arrays = [k for k, t in enumerate(parts) if isinstance(t, torch.Tensor)]
+    # torch reads a 0-dim integer index back to the host (it selects), so
+    # a scalar goes in as a 1-element array: beside an array index that
+    # is numpy's reading of it too; with scalars only, the one axis they
+    # add is squeezed where numpy's basic indexing would have dropped it
+    squeeze = None
+    if arrays and all(parts[k].dim() == 0 and parts[k].dtype != torch.bool
+                      for k in arrays):
+        apart = any(not isinstance(t, torch.Tensor)
+                    for t in parts[arrays[0]:arrays[-1] + 1])
+        squeeze = 0 if apart else arrays[0]
+
+    def take(x, index):
+        x = x[tuple(index)]
+        return x if squeeze is None else x.squeeze(squeeze)
+
+    # `valid` is read from a grid of 2 per integer-indexed axis (slot 1:
+    # out of range), a's size per boolean-indexed axis and 1 elsewhere
+    # (broadcast over y), True only at slot 0 of every integer axis
+    clamped, sentinel, grid, at_zero = [], [], [], []
+    dim = 0
+    for t in parts:
+        if t is None or isinstance(t, slice):
+            clamped.append(t)
+            sentinel.append(None if t is None else slice(None))
+            if t is not None:
+                grid.append(1)
+                at_zero.append(slice(None))
+                dim += 1
+            continue
+        if t.dtype == torch.bool:
+            clamped.append(t)
+            sentinel.append(t)
+            grid.extend(a.shape[dim:dim + t.dim()])
+            at_zero.extend([slice(None)] * t.dim())
+            dim += t.dim()
+            continue
+        n = a.shape[dim]
+        w, ok = _wrap(t.long().reshape(t.shape or (1,)), n)
+        clamped.append(w.clamp(0, n - 1))
+        sentinel.append((~ok).long())
+        grid.append(2)
+        at_zero.append(0)
+        dim += 1
+    y = take(a, clamped)
+    if 0 not in at_zero:
+        return y
+    grid = torch.zeros(grid + [1] * (a.dim() - dim), dtype=torch.bool,
+                       device=a.device)
+    grid[tuple(at_zero)] = True
+    return torch.where(take(grid, sentinel), y, y.detach())
+
+
+def _fill_value(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min
+
+
+@unit("autograd.gather")
+def gather(a, axis: int, indices):
+    """``jnp.take(a, indices, axis)``: negative indices count from the
+    end; one outside [-n, n) reads the fill value (NaN for floats) and
+    takes no gradient.  Not ``torch.gather``."""
+    axis = axis % a.dim()
+    n = a.shape[axis]
+    i = _as_index(indices, a.device).long()
+    w, ok = _wrap(i, n)
+    y = torch.index_select(a, axis, w.clamp(0, n - 1).reshape(-1))
+    shape = tuple(a.shape[:axis]) + tuple(i.shape) + tuple(a.shape[axis + 1:])
+    y = y.reshape(shape)
+    mask = ok.reshape((1,) * axis + tuple(i.shape)
+                      + (1,) * (a.dim() - axis - 1))
+    return torch.where(mask, y, torch.full((), _fill_value(a.dtype),
+                                           dtype=a.dtype, device=a.device))
+
+
+@unit("autograd.pad")
+def pad(a, pad_width, value=0.0):
+    """``jnp.pad`` in constant mode: `pad_width` an int, one (low, high)
+    pair for every axis, or a pair per axis."""
+    pw = np.broadcast_to(np.asarray(pad_width, np.int64), (a.dim(), 2))
+    flat = [int(v) for lo, hi in reversed(pw.tolist()) for v in (lo, hi)]
+    return F.pad(a, flat, value=value)
+
+
+@unit("autograd.tile")
+def tile(a, reps):
+    reps = tuple(reps) if hasattr(reps, "__len__") else (reps,)
+    return torch.tile(a, reps)
+
+
+@unit("autograd.repeat")
+def repeat(a, repeats, axis=None):
+    """``jnp.repeat``: each element `repeats` times along `axis` (the
+    flattened array when None)."""
+    return torch.repeat_interleave(a, repeats, dim=axis)
+
+
+@unit("autograd.expand")
+def expand(a, shape):
+    return torch.broadcast_to(a, tuple(shape))
+
+
+@unit("autograd.onehot")
+def onehot(ids, depth: int, axis: int = -1):
+    """f32 one-hot rows of `ids` along a new axis `axis`; an id outside
+    [0, depth) gives a row of zeros (``jax.nn.one_hot``; ``F.one_hot``
+    would raise)."""
+    ids = torch.as_tensor(ids)
+    nd = ids.dim() + 1
+    axis = axis % nd
+    shape = [1] * nd
+    shape[axis] = depth
+    classes = torch.arange(depth, device=ids.device).reshape(shape)
+    return (ids.unsqueeze(axis) == classes).to(torch.float32)
+
+
+@unit("autograd.cumsum")
+def cumsum(a, axis: int = 0):
+    return torch.cumsum(a, dim=axis)
+
+
+@unit("autograd.shape_of")
+def shape_of(a):
+    """The shape as an int32 vector."""
+    return torch.tensor(list(a.shape), dtype=torch.int32, device=a.device)
+
+
+# -- activations --------------------------------------------------------------
+
+@unit("autograd.softplus")
+def softplus(a):
+    """log(1 + e^a) as ``jax.nn.softplus`` (logaddexp(a, 0)), with no
+    linear threshold as ``F.softplus`` has."""
+    return torch.logaddexp(a, torch.zeros((), dtype=a.dtype,
+                                          device=a.device))
+
+
+@unit("autograd.leakyrelu")
+def leakyrelu(a, slope: float = 0.01):
+    return torch.where(a > 0, a, slope * a)
+
+
+@unit("autograd.elu")
+def elu(a, alpha: float = 1.0):
+    return F.elu(a, alpha)
+
+
+@unit("autograd.prelu")
+def prelu(a, slope):
+    """Parametric ReLU: `slope` is a learned tensor (or a scalar)."""
+    return torch.where(a > 0, a, _as_t(slope, a) * a)
+
+
+@unit("autograd.selu")
+def selu(a):
+    return F.selu(a)
+
+
+@unit("autograd.hardsigmoid")
+def hardsigmoid(a, alpha: float = 0.2, beta: float = 0.5):
+    return _jclip(alpha * a + beta, 0.0, 1.0)
+
+
+@unit("autograd.hardswish")
+def hardswish(a):
+    return a * _jclip(a / 6.0 + 0.5, 0.0, 1.0)
+
+
+@unit("autograd.mish")
+def mish(a):
+    return a * torch.tanh(softplus(a))
+
+
+# -- where and reductions -----------------------------------------------------
+
+@unit("autograd.where")
+def where(cond, a, b):
+    """a where `cond`, else b (a scalar b takes a's dtype); `cond` takes
+    no gradient."""
+    cond = torch.as_tensor(np.asarray(cond) if not isinstance(
+        cond, torch.Tensor) else cond, device=a.device).bool()
+    return torch.where(cond, a, _as_t(b, a))
+
+
+def _reduce(fn, a, axis, keepdims):
+    if axis is None:
+        axis = tuple(range(a.dim()))
+    return fn(a, dim=_axes(axis, a.dim()), keepdim=keepdims)
+
+
+@unit("autograd.reduce_sum")
+def reduce_sum(a, axis=None, keepdims: bool = False):
+    return _reduce(torch.sum, a, axis, keepdims)
+
+
+@unit("autograd.reduce_max")
+def reduce_max(a, axis=None, keepdims: bool = False):
+    """Max over `axis`; tied maxima share the gradient evenly (jax's
+    VJP; ``amax``, not ``max(dim)``)."""
+    return _reduce(torch.amax, a, axis, keepdims)
+
+
+@unit("autograd.reduce_min")
+def reduce_min(a, axis=None, keepdims: bool = False):
+    return _reduce(torch.amin, a, axis, keepdims)
+
+
+@unit("autograd.reduce_prod")
+def reduce_prod(a, axis=None, keepdims: bool = False):
+    if axis is None:
+        axis = tuple(range(a.dim()))
+    for ax in sorted(_axes(axis, a.dim()), reverse=True):
+        a = torch.prod(a, dim=ax, keepdim=keepdims)
+    return a
+
+
+# -- losses -------------------------------------------------------------------
+
+@unit("autograd.binary_cross_entropy")
+def binary_cross_entropy(p, t):
+    """-mean(t·log p + (1 − t)·log(1 − p)) with p clipped to
+    [1e-7, 1 − 1e-7] first (not ``F.binary_cross_entropy``'s clamp of
+    the log)."""
+    t = _as_t(t, p)
+    eps = 1e-7
+    p = _jclip(p, eps, 1 - eps)
+    return -torch.mean(t * torch.log(p) + (1 - t) * torch.log(1 - p))
+
+
+@unit("autograd.nll_loss")
+def nll_loss(logp, target):
+    """-sum(onehot(target) · logp) / target.numel(): integer targets
+    over the last axis of log-probabilities; an id out of range adds
+    nothing and still counts."""
+    target = torch.as_tensor(np.asarray(target) if not isinstance(
+        target, torch.Tensor) else target, device=logp.device)
+    hot = onehot(target, logp.shape[-1]).to(logp.dtype)
+    return -(hot * logp).sum() / float(target.numel())
+
+
+@unit("autograd.cossim")
+def cossim(a, b):
+    """Cosine similarity over the last axis, num / (‖a‖·‖b‖ + 1e-8) (not
+    ``F.cosine_similarity``'s clamped denominator)."""
+    num = (a * b).sum(dim=-1)
+    den = torch.sqrt((a * a).sum(dim=-1)) * torch.sqrt((b * b).sum(dim=-1))
+    return num / (den + 1e-8)
+
+
+# -- trigonometric, hyperbolic, rounding --------------------------------------
+
+@unit("autograd.sin")
+def sin(a):
+    return torch.sin(a)
+
+
+@unit("autograd.cos")
+def cos(a):
+    return torch.cos(a)
+
+
+@unit("autograd.tan")
+def tan(a):
+    return torch.tan(a)
+
+
+@unit("autograd.asin")
+def asin(a):
+    return torch.asin(a)
+
+
+@unit("autograd.acos")
+def acos(a):
+    return torch.acos(a)
+
+
+@unit("autograd.atan")
+def atan(a):
+    return torch.atan(a)
+
+
+@unit("autograd.sinh")
+def sinh(a):
+    return torch.sinh(a)
+
+
+@unit("autograd.cosh")
+def cosh(a):
+    return torch.cosh(a)
+
+
+@unit("autograd.asinh")
+def asinh(a):
+    return torch.asinh(a)
+
+
+@unit("autograd.acosh")
+def acosh(a):
+    return torch.acosh(a)
+
+
+@unit("autograd.atanh")
+def atanh(a):
+    return torch.atanh(a)
+
+
+@unit("autograd.ceil")
+def ceil(a):
+    return torch.ceil(a)
+
+
+@unit("autograd.floor")
+def floor(a):
+    return torch.floor(a)
+
+
+@unit("autograd.round")
+def round(a):                   # noqa: A001 - reference op name
+    """Round half to even; the gradient is 0."""
+    return torch.round(a)
+
+
+@unit("autograd.sign")
+def sign(a):
+    return torch.sign(a)
+
+
+@unit("autograd.reciprocal")
+def reciprocal(a):
+    return 1.0 / a
+
+
+# -- comparison and logic -----------------------------------------------------
+
+@unit("autograd.minimum")
+def minimum(a, b):
+    """Elementwise min; a tie sends half the gradient to each side."""
+    return torch.minimum(a, _as_t(b, a))
+
+
+@unit("autograd.maximum")
+def maximum(a, b):
+    """Elementwise max; a tie sends half the gradient to each side."""
+    return torch.maximum(a, _as_t(b, a))
+
+
+@unit("autograd.mod")
+def mod(a, b):
+    """Floor-mod (``jnp.mod``, the sign of b: ``remainder``, not
+    ``fmod``); no gradient, as the reference's."""
+    return torch.remainder(a, _as_t(b, a)).detach()
+
+@unit("autograd.equal")
+def equal(a, b):
+    return torch.eq(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.greater")
+def greater(a, b):
+    return torch.gt(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.greater_equal")
+def greater_equal(a, b):
+    return torch.ge(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.less")
+def less(a, b):
+    return torch.lt(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.less_equal")
+def less_equal(a, b):
+    return torch.le(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.logical_and")
+def logical_and(a, b):
+    return torch.logical_and(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.logical_or")
+def logical_or(a, b):
+    return torch.logical_or(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.logical_xor")
+def logical_xor(a, b):
+    return torch.logical_xor(a, _as_t(b, a)).detach()
+
+
+@unit("autograd.logical_not")
+def logical_not(a):
+    return torch.logical_not(a).detach()
+
+
+def grad_of(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """The gradient `backward` stored on `t` (None before one)."""
+    return t.grad
+
+
+__all__ += [
+    "add", "sub", "mul", "div", "neg", "pow", "abs", "exp", "log", "sqrt",
+    "rsqrt", "clip", "erf", "matmul", "einsum", "tensordot", "add_bias",
+    "reshape", "transpose", "squeeze", "unsqueeze", "cat", "stack",
+    "split", "index", "gather", "pad", "tile", "repeat", "expand",
+    "onehot", "cumsum", "shape_of", "softplus", "leakyrelu", "elu",
+    "prelu", "selu", "hardsigmoid", "hardswish", "mish", "where",
+    "reduce_sum", "reduce_max", "reduce_min", "reduce_prod",
+    "binary_cross_entropy", "nll_loss", "cossim", "sin", "cos", "tan",
+    "asin", "acos", "atan", "sinh", "cosh", "asinh", "acosh", "atanh",
+    "ceil", "floor", "round", "sign", "reciprocal", "minimum", "maximum",
+    "mod", "equal", "greater", "greater_equal", "less", "less_equal",
+    "logical_and", "logical_or", "logical_xor", "logical_not", "grad_of",
+]

@@ -5,6 +5,8 @@ and ``tests/test_torch_cuda.py``.  Beside them, planted faults: one-line
 changes to a kernel's source, each of the kind a wrong kernel could
 carry unseen.  Built from a copy of the source, each must fail the
 limits on its case; that shows the limits are tight enough to catch it.
+Last, what the paths of layer.Remat and the char-rnn are held to on
+the card.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
            "flash_kernel", "FLASH_BWD_FAULTS", "GRAD_ROW_RTOL", "ROW_FLOOR",
            "flash_bwd_errors", "bwd_inputs", "check_flash_bwd",
            "flash_bwd_fault_source", "flash_bwd_kernel",
-           "bwd_repeats_bitwise"]
+           "bwd_repeats_bitwise", "REMAT_LAUNCHES_PER_BLOCK",
+           "remat_launches", "CHAR_RNN", "CHAR_RNN_BATCH", "CHAR_RNN_LR",
+           "CHAR_RNN_STEPS", "CHAR_RNN_WINDOW"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
@@ -281,3 +285,29 @@ def flash_bwd_kernel(lib):
         yield
     finally:
         fa._dq_fn, fa._dkv_fn = saved
+
+
+# -- the paths of the model API's last slice -------------------------------------
+# layer.Remat: a checkpointed block launches the forward kernel twice a
+# step (its forward and its recompute in the backward) and each backward
+# kernel once; its step equals the plain step bitwise (the recompute
+# applies the forward's dropout masks), so the limit there is equality.
+REMAT_LAUNCHES_PER_BLOCK = {"flash_fwd": 2, "flash_bwd_dq": 1,
+                            "flash_bwd_dkv": 1}
+
+
+def remat_launches(num_layers: int):
+    """Each kernel's launches in one training step of a model whose
+    `num_layers` blocks all run under layer.Remat."""
+    return {k: n * num_layers for k, n in REMAT_LAUNCHES_PER_BLOCK.items()}
+
+
+# the char-rnn (singa_tpu_torch.tools.train_rnn) at the reference
+# example's defaults; CHAR_RNN_STEPS steps as a captured graph (the
+# captured steps equal eager ones bitwise), its loss falling from the
+# first CHAR_RNN_WINDOW steps' mean to the last ones'
+CHAR_RNN = dict(hidden=128, embed=64, num_layers=2)
+CHAR_RNN_BATCH = (64, 64)                 # (batch, seqlen)
+CHAR_RNN_LR = 3e-3
+CHAR_RNN_STEPS = 40
+CHAR_RNN_WINDOW = 5

@@ -1,10 +1,12 @@
 """Layers, ported from ``singa_tpu/layer.py``: ``Layer``, ``Linear``,
 ``Embedding``, ``RMSNorm``, ``MoE``, the transformer layers
-``LayerNorm``, ``Gelu``, ``Softmax`` and ``MultiHeadAttention``, and the
-vision layers ``Conv2d``,
+``LayerNorm``, ``Gelu``, ``Softmax`` and ``MultiHeadAttention``, the
+recurrent layers ``RNN`` and ``LSTM``, activation checkpointing
+(``Remat``), the vision layers ``Conv2d``, ``SeparableConv2d``,
 ``BatchNorm2d``, ``MaxPool2d``, ``AvgPool2d``, ``GlobalAvgPool2d``,
-``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``Dropout``,
-``Sequential`` and the loss layers ``CrossEntropyLoss``, ``MSELoss``.
+``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``SiLU``, ``LeakyReLU``,
+``Dropout``, ``Sequential`` and the loss layers ``CrossEntropyLoss``,
+``MSELoss``.  ``PipelineStack`` comes with the distribution slice.
 
 Layers are ``nn.Module``s whose parameters are created at construction
 (the reference initializes lazily from the first input; here the caller
@@ -22,22 +24,26 @@ Vision layers keep the reference's layouts: NHWC activations
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import autograd
 from .device import Device, get_default_device
 from .ops import kv_cache as kv_ops
+from .ops import rnn as rnn_ops
 from .ops.attention import attention
 from .ops.moe import moe_forward
 
 __all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "LayerNorm", "Gelu",
-           "Softmax", "MultiHeadAttention", "MoE", "Conv2d",
-           "BatchNorm2d", "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d",
-           "Flatten", "ReLU", "Tanh", "Sigmoid", "Dropout", "Sequential",
+           "Softmax", "MultiHeadAttention", "MoE", "RNN", "LSTM", "Remat",
+           "Conv2d", "SeparableConv2d", "BatchNorm2d", "MaxPool2d",
+           "AvgPool2d", "GlobalAvgPool2d", "Flatten", "ReLU", "Tanh",
+           "Sigmoid", "SiLU", "LeakyReLU", "Dropout", "Sequential",
            "CrossEntropyLoss", "MSELoss"]
 
 
@@ -88,6 +94,12 @@ class Layer(nn.Module):
         return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                         device=self.device.torch_device))
 
+    @property
+    def remat_safe(self) -> bool:
+        """Whether `Remat` can recompute this layer in the backward: no
+        layer with a side channel inside it and no buffers."""
+        return _remat_blocker(self) is None
+
 
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict) -> None:
     names = [n for n in dst if n in src]
@@ -106,6 +118,13 @@ def _generator(dev: Device, generator: Optional[torch.Generator]):
     return generator if generator is not None else dev.generator
 
 
+def _xavier_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
+                     generator: torch.Generator) -> None:
+    a = math.sqrt(6.0 / max(1, fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-a, a, generator=generator)
+
+
 class Linear(Layer):
     """y = x @ W (+ b) with W of shape (in, out), Xavier-uniform init."""
 
@@ -114,10 +133,9 @@ class Linear(Layer):
                  generator: Optional[torch.Generator] = None):
         super().__init__(device)
         self.out_features, self.in_features = out_features, in_features
-        a = math.sqrt(6.0 / max(1, in_features + out_features))
         self.W = self._new_param((in_features, out_features))
-        with torch.no_grad():
-            self.W.uniform_(-a, a, generator=_generator(self.device, generator))
+        _xavier_uniform_(self.W, in_features, out_features,
+                         _generator(self.device, generator))
         self.b = None
         if bias:
             self.b = self._new_param((out_features,))
@@ -313,6 +331,181 @@ class MoE(Layer):
 
 
 # ---------------------------------------------------------------------------
+# recurrent layers: the reference's lax.scan is ops.rnn's loop
+# ---------------------------------------------------------------------------
+
+class _Recurrent(Layer):
+    """A cell over inputs (B, T, `input_size`) with ``Wx`` (D, G·H),
+    ``Wh`` (H, G·H) and ``b`` (G·H,), as the reference's: Xavier-uniform
+    weights, zero bias, a zero first state; returns the hidden states
+    (B, T, H)."""
+
+    KIND, GATES = "", 1
+
+    def __init__(self, hidden_size: int, input_size: int,
+                 device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.hidden_size, self.input_size = hidden_size, input_size
+        d, gh = input_size, self.GATES * hidden_size
+        gen = _generator(self.device, generator)
+        self.Wx = self._new_param((d, gh))
+        self.Wh = self._new_param((hidden_size, gh))
+        self.b = self._new_param((gh,))
+        _xavier_uniform_(self.Wx, d, gh, gen)
+        _xavier_uniform_(self.Wh, hidden_size, gh, gen)
+        with torch.no_grad():
+            self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rnn_ops.scan(x, _maybe_cast(self.Wx, x),
+                            _maybe_cast(self.Wh, x), _maybe_cast(self.b, x),
+                            self.KIND)
+
+
+class RNN(_Recurrent):
+    """Vanilla tanh RNN: h = tanh(x_t Wx + h Wh + b)."""
+
+    KIND, GATES = "RNN", 1
+
+
+class LSTM(_Recurrent):
+    """LSTM with gate blocks i, f, g, o (the reference's order) in
+    ``Wx``, ``Wh`` and ``b``."""
+
+    KIND, GATES = "LSTM", 4
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _remat_blocker(layer: nn.Module) -> Optional[str]:
+    """Why `layer`'s forward cannot be replayed in the backward (None
+    when it can): a layer with a side channel (``REMAT_SAFE = False``,
+    such as MoE's aux losses) or buffers (BatchNorm's running
+    statistics), which a second forward would write again."""
+    unsafe = [type(m).__name__ for m in layer.modules()
+              if not getattr(type(m), "REMAT_SAFE", True)]
+    if unsafe:
+        return f"side-channel layers ({', '.join(unsafe)})"
+    if isinstance(layer, Layer) and layer._get_buffers():
+        return "non-trainable buffers"
+    return None
+
+
+class Remat(Layer):
+    """Activation checkpointing: `Remat(block)` runs the block under
+    ``torch.utils.checkpoint`` (non-reentrant) in training, so the
+    backward recomputes its internals from the block's input instead of
+    keeping them: one more forward for O(block) less activation memory.
+
+    The wrapper is transparent: it shares the block's tables of
+    parameters, buffers and sublayers, so ``get_params()``,
+    ``get_states()``, ``state_dict()`` and `set_params` name everything
+    as the bare block does (a checkpoint loads either way), and its
+    sublayers are its attributes (``Remat(blk).attn``).
+
+    In eval, or with gradients off, the block runs as it is.  A block
+    that cannot be replayed (`_remat_blocker`) runs plain with the
+    reference's warning, as does a call whose extra arguments are not
+    None or tensors without gradients (a KV cache, an int position).
+    The recompute draws the forward's dropout masks again
+    (`_RngReplay`): loss, gradients and each generator's state equal
+    those of the bare block bit for bit."""
+
+    def __init__(self, inner: nn.Module):
+        nn.Module.__init__(self)
+        d = self.__dict__
+        d["inner"] = inner                 # not a child: no path segment
+        d["_parameters"] = inner._parameters
+        d["_buffers"] = inner._buffers
+        d["_non_persistent_buffers_set"] = inner._non_persistent_buffers_set
+        d["_modules"] = inner._modules
+        self.device = getattr(inner, "device", None)
+
+    @property
+    def remat_safe(self) -> bool:
+        return _remat_blocker(self.inner) is None
+
+    def forward(self, x: torch.Tensor, *rest):
+        inner = self.inner
+        if not (autograd.is_training() and torch.is_grad_enabled()):
+            return inner(x, *rest)          # nothing to save
+        name = type(inner).__name__
+        why = _remat_blocker(inner)
+        if why:
+            warnings.warn(
+                f"Remat({name}) skipped: wrapped layer has {why} (the "
+                f"forward replayed in backward must be side-effect free)",
+                stacklevel=2)
+            return inner(x, *rest)
+        for r in rest:
+            if not (r is None or (isinstance(r, torch.Tensor)
+                                  and not r.requires_grad)):
+                warnings.warn(
+                    f"Remat({name}) bypassed for a call with unsupported "
+                    f"extra arg {type(r).__name__}", stacklevel=2)
+                return inner(x, *rest)
+        rng = _RngReplay(inner, x)
+        return checkpoint(inner, x, *rest, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=rng.contexts)
+
+
+class _RngReplay:
+    """The random state of one call that `Remat` checkpoints: the state
+    of every generator the block may draw from (each layer's
+    ``generator``, such as Dropout's, and the default generator of x's
+    device), taken as the forward starts.  The recompute sets them back
+    to it, runs with the forward's train flag, then restores the states
+    it found, so it draws the forward's masks again and each generator
+    ends the step where it would without remat.
+    ``torch.utils.checkpoint``'s ``preserve_rng_state`` keeps the
+    default generators only.  ``get_state`` / ``set_state`` are also
+    right inside a CUDA-graph capture: there they read and move the
+    captured offset (a card test,
+    ``test_generator_state_rewinds_inside_a_capture``).  Both contexts
+    may be entered again (a second backward) and nest."""
+
+    def __init__(self, inner: nn.Module, x: torch.Tensor):
+        gens = {id(m.generator): m.generator for m in inner.modules()
+                if isinstance(getattr(m, "generator", None), torch.Generator)}
+        default = (torch.cuda.default_generators[x.device.index]
+                   if x.is_cuda else torch.default_generator)
+        gens.setdefault(id(default), default)
+        self.gens = list(gens.values())
+        self.training = autograd.is_training()
+        self.states: List[torch.Tensor] = []
+        self._stack: List = []
+
+    def contexts(self):
+        return _RngContext(self, replay=False), _RngContext(self, replay=True)
+
+
+class _RngContext:
+    def __init__(self, rng: _RngReplay, replay: bool):
+        self.rng, self.replay = rng, replay
+
+    def __enter__(self):
+        r = self.rng
+        if not self.replay:
+            r.states = [g.get_state() for g in r.gens]
+            return
+        r._stack.append(([g.get_state() for g in r.gens],
+                         autograd.is_training()))
+        for g, st in zip(r.gens, r.states):
+            g.set_state(st)
+        autograd.set_training(r.training)
+
+    def __exit__(self, *exc):
+        if self.replay:
+            states, flag = self.rng._stack.pop()
+            for g, st in zip(self.rng.gens, states):
+                g.set_state(st)
+            autograd.set_training(flag)
+
+
+# ---------------------------------------------------------------------------
 # vision layers
 # ---------------------------------------------------------------------------
 
@@ -362,6 +555,40 @@ class Conv2d(Layer):
         y = autograd.conv2d(x, _maybe_cast(self.W, x), b, self.stride,
                             self.padding, self.groups, self.dilation)
         return _from_nhwc(y, self.data_format)
+
+
+class SeparableConv2d(Layer):
+    """A depthwise conv (`kernel_size`, one filter a channel: groups =
+    in_channels) then a pointwise 1×1 conv to `out_channels`, each a
+    `Conv2d` with ``bias`` (default none), at ``depthwise.W`` and
+    ``pointwise.W``.  Without `in_channels` both are built at the first
+    call from its channels, as the reference's ``initialize``."""
+
+    def __init__(self, out_channels: int, kernel_size,
+                 in_channels: Optional[int] = None, stride=1, padding=0,
+                 bias: bool = False, data_format: str = "NHWC",
+                 device: Optional[Device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.out_channels, self.kernel_size = out_channels, kernel_size
+        self.stride, self.padding, self.bias = stride, padding, bias
+        self.data_format = data_format
+        self.generator = generator
+        self.depthwise = self.pointwise = None
+        if in_channels is not None:
+            self._build(in_channels)
+
+    def _build(self, c: int) -> None:
+        kw = dict(bias=self.bias, data_format=self.data_format,
+                  device=self.device, generator=self.generator)
+        self.depthwise = Conv2d(c, self.kernel_size, c, stride=self.stride,
+                                padding=self.padding, groups=c, **kw)
+        self.pointwise = Conv2d(self.out_channels, 1, c, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.depthwise is None:
+            self._build(x.shape[1 if self.data_format == "NCHW" else -1])
+        return self.pointwise(self.depthwise(x))
 
 
 class BatchNorm2d(Layer):
@@ -498,6 +725,20 @@ class Softmax(_Deviceless):
 class Sigmoid(_Deviceless):
     def forward(self, x):
         return autograd.sigmoid(x)
+
+
+class SiLU(_Deviceless):
+    def forward(self, x):
+        return autograd.silu(x)
+
+
+class LeakyReLU(_Deviceless):
+    def __init__(self, slope: float = 0.01):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return autograd.leakyrelu(x, self.slope)
 
 
 class Dropout(Layer):

@@ -6,7 +6,7 @@ SwiGLU FFN, untied LM head; with Mistral-style sliding-window attention
 
 Ported: ``forward``, ``forward_cached`` and ``generate`` (serving), and
 ``train_one_batch`` with the fused or plain loss, the MoE balance loss
-and optional remat (training).  Pipeline stages come with the
+and optional remat (``layer.Remat`` blocks, as GPT-2's) (training).  Pipeline stages come with the
 distribution slice and raise here rather than being ignored.
 """
 
@@ -17,7 +17,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .. import autograd, layer, model
 from ..device import Device, get_default_device
@@ -202,11 +201,6 @@ class _LlamaBlock(layer.Layer):
                                  generator=generator)
         else:
             self.ffn = _SwiGLU(cfg, device, generator)
-        # activation checkpointing recomputes the forward in the
-        # backward: a block with a side channel (MoE aux losses) would
-        # record twice, so it runs plain (the reference's layer.Remat)
-        self.remat_safe = all(getattr(type(m), "REMAT_SAFE", True)
-                              for m in self.modules())
 
     def forward(self, x, cache=None, pos=0):
         if cache is not None:
@@ -235,27 +229,23 @@ class Llama(GenerateMixin, model.Model):
         gen = generator if generator is not None else device.generator
         self.tok_emb = layer.Embedding(c.vocab_size, c.dim, device=device,
                                        generator=gen)
-        self.blocks = nn.ModuleList(
-            [_LlamaBlock(c, device, gen) for _ in range(c.num_layers)])
+        blocks = [_LlamaBlock(c, device, gen) for _ in range(c.num_layers)]
+        if c.remat:
+            blocks = [layer.Remat(b) for b in blocks]
+        self.blocks = nn.ModuleList(blocks)
         self.norm_f = layer.RMSNorm(c.dim, eps=c.eps, device=device)
         self.lm_head = layer.Linear(c.vocab_size, c.dim, bias=False,
                                     device=device, generator=gen)
 
     def features(self, ids: torch.Tensor) -> torch.Tensor:
         """Final hidden states (B, T, dim) — everything but the lm head.
-        With ``cfg.remat``, while training, each block runs under
-        activation checkpointing: its internals are recomputed in the
-        backward instead of saved (the reference's ``layer.Remat``),
-        except blocks with a side channel (MoE), which run plain.
-        Parameter paths are unchanged: no wrapper module is added."""
+        With ``cfg.remat`` each block is a ``layer.Remat``: while
+        training, its internals are recomputed in the backward instead
+        of saved, except in blocks with a side channel (MoE), which run
+        plain.  Parameter paths are unchanged."""
         x = self.tok_emb(ids)
-        remat = (self.cfg.remat and autograd.is_training()
-                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            if remat and blk.remat_safe:
-                x = checkpoint(blk, x, use_reentrant=False)
-            else:
-                x = blk(x)
+            x = blk(x)
         return self.norm_f(x)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

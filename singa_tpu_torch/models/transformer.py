@@ -9,8 +9,10 @@ Attention goes through ``ops.attention.attention``, as in the reference:
 the Hopper flash kernels on the card for sequences of 512 and more
 without an explicit mask, the plain path otherwise (BERT at T = 128, any
 padding mask).  Widths are given at construction; parameter names and
-shapes equal the reference's ``get_params()``.  Tensor-parallel shard
-rules, ``remat`` and pipeline stages are not ported.
+shapes equal the reference's ``get_params()``.  ``GPT2Config.remat``
+wraps each block in ``layer.Remat``, as the reference does, with the
+same parameter names.  Tensor-parallel shard rules and pipeline stages
+are not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ class _MLP(layer.Layer):
 
 @dataclass
 class GPT2Config:
+    """GPT-2's widths and options, as the reference's: the defaults are
+    GPT-2 124M.  Supported options: ``dropout``, ``fused_loss`` and
+    ``remat`` (blocks under ``layer.Remat``); ``pipeline_stages`` raises."""
     vocab_size: int = 50257
     max_position: int = 1024
     dim: int = 768
@@ -83,8 +88,11 @@ class GPT2Config:
     # chunked fused tied-head + CE loss (no (B*T, V) logits;
     # train_one_batch then returns (loss, loss) instead of (logits, loss))
     fused_loss: bool = False
-    # not ported: each raises at construction rather than being ignored
+    # activation checkpointing: each block runs under layer.Remat in
+    # training (its internals recomputed in the backward; masked calls
+    # remat too)
     remat: bool = False
+    # not ported: raises at construction rather than being ignored
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
 
@@ -95,10 +103,6 @@ class GPT2Config:
 
 
 def _check_supported(c: GPT2Config) -> None:
-    if c.remat:
-        raise NotImplementedError(
-            "GPT2Config.remat=True is not ported yet: it needs "
-            "layer.Remat (ROADMAP.md queue 1, the rest of the model API)")
     if c.pipeline_stages:
         raise NotImplementedError(
             f"GPT2Config.pipeline_stages={c.pipeline_stages!r} is not "
@@ -132,7 +136,8 @@ class _GPT2Block(layer.Layer):
 class GPT2(GenerateMixin, model.Model):
     """GPT-2 causal LM with tied embeddings on one port ``Device`` (the
     card unless the caller passes ``device=create_device("cpu")``), with
-    f32 master weights drawn from `generator` (default: the device's)."""
+    f32 master weights drawn from `generator` (default: the device's).
+    With ``cfg.remat`` every block is a ``layer.Remat`` of itself."""
 
     def __init__(self, cfg: Optional[GPT2Config] = None,
                  device: Optional[Device] = None,
@@ -148,8 +153,10 @@ class GPT2(GenerateMixin, model.Model):
         self.wpe = layer.Embedding(c.max_position, c.dim, device=device,
                                    generator=gen)
         self.drop = layer.Dropout(c.dropout, device=device)
-        self.blocks = nn.ModuleList(
-            [_GPT2Block(c, device, gen) for _ in range(c.num_layers)])
+        blocks = [_GPT2Block(c, device, gen) for _ in range(c.num_layers)]
+        if c.remat:
+            blocks = [layer.Remat(b) for b in blocks]
+        self.blocks = nn.ModuleList(blocks)
         self.ln_f = layer.LayerNorm(c.dim, device=device)
 
     def features(self, ids: torch.Tensor,

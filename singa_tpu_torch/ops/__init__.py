@@ -1,11 +1,11 @@
-"""singa_tpu_torch.ops — attention (full and banded), RoPE, the KV cache
-and the mixture-of-experts FFN.  Plain torch where the JAX package left fusion to XLA; the Hopper
+"""singa_tpu_torch.ops — attention (full and banded), RoPE, the KV cache,
+the mixture-of-experts FFN and the recurrences of the RNN layers.  Plain torch where the JAX package left fusion to XLA; the Hopper
 flash kernel where it wrote a Pallas kernel."""
 
-from . import attention, flash_attention, kv_cache, moe, rope
+from . import attention, flash_attention, kv_cache, moe, rnn, rope
 from .attention import attention as fused_attention
 from .rope import apply_rope, llama31_rope_scaling, rope_frequencies
 
-__all__ = ["attention", "flash_attention", "kv_cache", "moe", "rope",
+__all__ = ["attention", "flash_attention", "kv_cache", "moe", "rnn", "rope",
            "fused_attention", "apply_rope", "rope_frequencies",
            "llama31_rope_scaling"]

@@ -56,6 +56,7 @@ from .. import autograd
 from .. import layer
 from .. import model as model_mod
 from ..device import create_device
+from ..ops import rnn as rnn_ops
 from . import proto
 from .proto import (ModelProto, NodeProto, TensorProto, attribute_value,
                     to_array)
@@ -692,7 +693,8 @@ def _h_trilu(ctx, node, attrs, ins):
 # Y (T, D, B, H), Y_h/Y_c (D, B, H).  The time loop is a Python loop
 # over T (a capture unrolls it) with the input projection hoisted out:
 # one (T*B, I)x(I, G*H) matmul, then only the (B, H)x(H, G*H)
-# recurrence runs step by step; torch autograd keeps it trainable.
+# recurrence runs step by step; torch autograd keeps it trainable.  The
+# LSTM and RNN loops are ops.rnn's, which layer.LSTM and layer.RNN run.
 
 _RNN_ACT = {"Sigmoid": torch.sigmoid, "Tanh": torch.tanh,
             "Relu": torch.relu, "Affine": None}
@@ -762,20 +764,14 @@ def _rnn_scan(op_type, x, w, r, b, h0, c0, H, D, direction, acts, clip,
         def cl(v):
             return torch.clamp(v, -clip, clip) if clip is not None else v
 
-        ys = []
         if op_type == "LSTM":
             pre = xd @ wd.t() + wb + rb           # (T, Bs, 4H)
-            for t in range(T):
-                g = cl(pre[t] + h @ rd.t())
-                i = f_act(g[..., 0:H])
-                o = f_act(g[..., H:2 * H])
-                f = f_act(g[..., 2 * H:3 * H])
-                cand = g_act(g[..., 3 * H:4 * H])
-                c = f * c + i * cand
-                h = o * h_act(c)
-                ys.append(h)
+            ys, h, c = rnn_ops.lstm_steps(pre, h, c, rd.t(),
+                                          rnn_ops.ONNX_GATES, f_act, g_act,
+                                          h_act, clip)
             cs.append(c)
         elif op_type == "GRU":
+            ys = []
             pre = xd @ wd.t() + wb                # (T, Bs, 3H)
             rb_h, rd_h = rb[2 * H:3 * H], rd[2 * H:3 * H]
             rd_zr, rb_zr = rd[0:2 * H], rb[0:2 * H]
@@ -796,12 +792,10 @@ def _rnn_scan(op_type, x, w, r, b, h0, c0, H, D, direction, acts, clip,
                                   + rb_h))
                 h = (1 - z) * hh + z * h
                 ys.append(h)
+            ys = torch.stack(ys)
         else:  # RNN
             pre = xd @ wd.t() + wb + rb           # (T, Bs, H)
-            for t in range(T):
-                h = f_act(cl(pre[t] + h @ rd.t()))
-                ys.append(h)
-        ys = torch.stack(ys)
+            ys, h = rnn_ops.rnn_steps(pre, h, rd.t(), f_act, clip)
         outs.append(ys.flip(0) if rev else ys)
         hs.append(h)
     Y = torch.stack(outs, dim=1)                  # (T, D, Bs, H)

@@ -8,12 +8,13 @@ reference's tape of ``Operator`` calls does; then map each recorded call
 to ONNX node(s).  Functions marked ``@unit`` (``singa_tpu_torch._unit``:
 ``autograd.linear``, ``embedding``, ``cast``, ``layernorm``,
 ``rmsnorm``, ``gelu``, ``softmax``, ``log_softmax``, ``conv2d``, the
-pools, ``batchnorm`` and ``ops.attention.attention``) are recorded as
-one call each, and the torch calls inside them are not.  Raw torch
-calls have rules for what the port's models call (arithmetic,
-comparisons, ``matmul``, reshapes, transposes, basic indexing, ``cat``,
-``chunk``, ``sum``/``mean``, ``relu``/``tanh``/``sigmoid``/``silu``,
-casts); any other traced call raises.  Dropout exports as nothing: the
+pools, ``batchnorm``, ``ops.attention.attention``, ``ops.rnn.scan`` and
+the ``autograd.<name>`` functions) are recorded as one call each, and
+the torch calls inside them are not.  Raw torch calls have rules for
+what the port's models call (arithmetic, comparisons, ``matmul``,
+reshapes, transposes, basic indexing, ``cat``, ``chunk``,
+``sum``/``mean``, ``relu``/``tanh``/``sigmoid``/``silu``, casts); any
+other traced call raises.  Dropout exports as nothing: the
 trace runs in eval, where it returns its input.
 
 Only calls that read a tracked tensor are recorded: the graph inputs,
@@ -32,8 +33,14 @@ kernels, as the reference's; ONNX's are NCHW, so they export wrapped in
 Transpose pairs, with the kernel transposed HWIO→OIHW in the graph.
 Attention exports as the reference's decomposition (MatMul / Mul(scale)
 / Where(mask) / Softmax / MatMul, GQA by tiling kv heads), its scale
-and masking constants in the traced activation dtype.  The ONNX
-LSTM/RNN rule waits for ``layer.LSTM`` in the port.
+and masking constants in the traced activation dtype.  ``layer.LSTM``
+and ``layer.RNN`` (``ops.rnn.scan``, one unit) export as real ONNX
+``LSTM`` / ``RNN`` nodes, their weights converted to ONNX's layout and
+gate order in the graph.  The rest of ``autograd``'s functions are
+units ``autograd.<name>`` with the reference's ONNX forms (one node, or
+a fixed decomposition such as float ``mod``'s); those the reference
+cannot export (``repeat``, ``tensordot``, ``onehot``, ``reduce_prod``,
+``shape_of``, the losses) raise here too.
 """
 
 from __future__ import annotations
@@ -613,6 +620,338 @@ def _e_attention(ex, op):
     ctx = ex.fresh("ctx")
     ex.emit("MatMul", [probs, vh], [ctx])                    # B,H,Tq,D
     ex.emit("Transpose", [ctx], ex.outn(op), perm=[0, 2, 1, 3])
+
+
+@_exports("rnn_scan")
+def _e_rnn_scan(ex, op):
+    """layer.RNN / layer.LSTM (``ops.rnn.scan``) → a real ONNX RNN or
+    LSTM node, the layout converted in the graph (Transpose / Split /
+    Concat of the weight initializers, which runtimes fold).  Ours: x
+    (B, T, D), Wx (D, G·H), Wh (H, G·H), b (G·H,), LSTM gates i, f, g,
+    o.  ONNX: X (T, B, D), W (1, G·H, D), R (1, G·H, H), B (1, 2·G·H)
+    with a zero recurrence bias, LSTM gates i, o, f, c."""
+    a = op.bound
+    kind, H = a["kind"], a["wh"].shape[0]
+    G = 4 if kind == "LSTM" else 1
+    ax0 = ex.ints([0], "ax0")
+    # explicit split sizes: valid in opset 13 through 18+
+    gate_splits = ex.ints([H] * 4, "gsplit") if kind == "LSTM" else None
+
+    def iofc(name, hint):
+        if kind != "LSTM":
+            return name
+        parts = [ex.fresh(f"{hint}_g{i}") for i in range(4)]
+        ex.emit("Split", [name, gate_splits], parts, axis=0)
+        out = ex.fresh(f"{hint}_iofc")
+        ex.emit("Concat", [parts[0], parts[3], parts[1], parts[2]], [out],
+                axis=0)
+        return out
+
+    def weight(t, hint):
+        tr = ex.fresh(hint)
+        ex.emit("Transpose", [ex.name_of(t)], [tr], perm=[1, 0])
+        u = ex.fresh(f"{hint}_d")
+        ex.emit("Unsqueeze", [iofc(tr, hint), ax0], [u])   # (1, G·H, in)
+        return u
+
+    w, r = weight(a["wx"], "rnn_w"), weight(a["wh"], "rnn_r")
+    # the recurrence bias: zeros in the traced dtype
+    zeros = ex.add_init(torch.zeros(G * H, dtype=op.outs[0].dtype), "rb0")
+    bias = ex.fresh("rnn_b")
+    ex.emit("Concat", [iofc(ex.name_of(a["b"]), "rnn_b"), zeros], [bias],
+            axis=0)
+    bu = ex.fresh("rnn_b_d")
+    ex.emit("Unsqueeze", [bias, ax0], [bu])                 # (1, 2·G·H)
+    xt = ex.fresh("x_tbd")
+    ex.emit("Transpose", [ex.name_of(a["x"])], [xt], perm=[1, 0, 2])
+    y = ex.fresh("rnn_y")                                   # (T, 1, B, H)
+    ex.emit(kind, [xt, w, r, bu], [y], hidden_size=int(H))
+    sq = ex.fresh("rnn_y_sq")
+    ex.emit("Squeeze", [y, ex.ints([1], "ax1")], [sq])      # (T, B, H)
+    ex.emit("Transpose", [sq], ex.outn(op), perm=[1, 0, 2])
+
+
+# -- the rest of autograd's surface: units "autograd.<name>", in the
+# reference's ONNX forms ------------------------------------------------------
+
+def _ag(*names):
+    return _exports(*(f"autograd.{n}" for n in names))
+
+
+def _name(op: _Op) -> str:
+    return op.kind.split(".", 1)[1]
+
+
+def _a(op: _Op) -> torch.Tensor:
+    """The first tensor operand of an autograd unit."""
+    return next(iter(op.bound.values()))
+
+
+# one node over the operands in order; a scalar operand becomes an
+# initializer in the first operand's dtype
+_AG_SIMPLE = {
+    "add": "Add", "sub": "Sub", "mul": "Mul", "div": "Div", "neg": "Neg",
+    "abs": "Abs", "exp": "Exp", "log": "Log", "sqrt": "Sqrt", "erf": "Erf",
+    "matmul": "MatMul", "softplus": "Softplus", "sin": "Sin", "cos": "Cos",
+    "tan": "Tan", "asin": "Asin", "acos": "Acos", "atan": "Atan",
+    "sinh": "Sinh", "cosh": "Cosh", "asinh": "Asinh", "acosh": "Acosh",
+    "atanh": "Atanh", "ceil": "Ceil", "floor": "Floor", "round": "Round",
+    "sign": "Sign", "reciprocal": "Reciprocal", "minimum": "Min",
+    "maximum": "Max", "equal": "Equal", "greater": "Greater",
+    "greater_equal": "GreaterOrEqual", "less": "Less",
+    "less_equal": "LessOrEqual", "selu": "Selu", "prelu": "PRelu",
+    "mish": "Mish", "hardswish": "HardSwish",
+}
+# ONNX's logic ops take booleans: other operands are cast first
+_AG_LOGIC = {"logical_and": "And", "logical_or": "Or",
+             "logical_xor": "Xor", "logical_not": "Not"}
+
+
+@_ag(*_AG_SIMPLE)
+def _e_ag_simple(ex, op):
+    vals = list(op.bound.values())
+    dt = vals[0].dtype
+    ex.emit(_AG_SIMPLE[_name(op)], [ex.operand(v, dt) for v in vals],
+            ex.outn(op))
+
+
+@_ag(*_AG_LOGIC)
+def _e_ag_logic(ex, op):
+    ex.emit(_AG_LOGIC[_name(op)],
+            [ex.operand(v, torch.bool) for v in op.bound.values()],
+            ex.outn(op))
+
+
+@_ag("pow")
+def _e_ag_pow(ex, op):
+    a = op.bound["a"]
+    ex.emit("Pow", [ex.name_of(a), ex.operand(float(op.bound["p"]), a.dtype)],
+            ex.outn(op))
+
+
+@_ag("rsqrt")
+def _e_ag_rsqrt(ex, op):
+    mid = ex.fresh("sqrt")
+    ex.emit("Sqrt", [ex.name_of(_a(op))], [mid])
+    ex.emit("Reciprocal", [mid], ex.outn(op))
+
+
+@_ag("clip")
+def _e_ag_clip(ex, op):
+    a = op.bound["a"]
+    ex.emit("Clip", [ex.name_of(a), ex.operand(op.bound["lo"], a.dtype),
+                     ex.operand(op.bound["hi"], a.dtype)], ex.outn(op))
+
+
+@_ag("mod")
+def _e_ag_mod(ex, op):
+    a, b = op.bound["a"], op.bound["b"]
+    an, bn = ex.name_of(a), ex.operand(b, a.dtype)
+    if not a.dtype.is_floating_point:
+        # ONNX integer Mod with fmod=0 is floor-mod, as jnp.mod
+        ex.emit("Mod", [an, bn], ex.outn(op), fmod=0)
+        return
+    # float Mod is C's fmod only: a - floor(a / b)·b keeps the floor
+    q, fl, prod = ex.fresh("mod_div"), ex.fresh("mod_floor"), \
+        ex.fresh("mod_prod")
+    ex.emit("Div", [an, bn], [q])
+    ex.emit("Floor", [q], [fl])
+    ex.emit("Mul", [fl, bn], [prod])
+    ex.emit("Sub", [an, prod], ex.outn(op))
+
+
+@_ag("hardsigmoid")
+def _e_ag_hardsigmoid(ex, op):
+    ex.emit("HardSigmoid", [ex.name_of(_a(op))], ex.outn(op),
+            alpha=float(op.bound["alpha"]), beta=float(op.bound["beta"]))
+
+
+@_ag("leakyrelu")
+def _e_ag_leaky(ex, op):
+    ex.emit("LeakyRelu", [ex.name_of(_a(op))], ex.outn(op),
+            alpha=float(op.bound["slope"]))
+
+
+@_ag("elu")
+def _e_ag_elu(ex, op):
+    ex.emit("Elu", [ex.name_of(_a(op))], ex.outn(op),
+            alpha=float(op.bound["alpha"]))
+
+
+@_ag("tile")
+def _e_ag_tile(ex, op):
+    # ONNX Tile takes one repeat a dimension: short reps are padded with
+    # ones in front, as jnp.tile does; longer reps raise
+    a, reps = op.bound["a"], op.bound["reps"]
+    reps = list(reps) if hasattr(reps, "__len__") else [reps]
+    if len(reps) > a.dim():
+        raise ValueError("sonnx export: Tile with more reps than input "
+                         "rank has no ONNX equivalent; reshape the input "
+                         "first")
+    reps = [1] * (a.dim() - len(reps)) + reps
+    ex.emit("Tile", [ex.name_of(a), ex.ints(reps, "repeats")], ex.outn(op))
+
+
+@_ag("expand")
+def _e_ag_expand(ex, op):
+    ex.emit("Expand", [ex.name_of(_a(op)),
+                       ex.ints(list(op.bound["shape"]), "shape")],
+            ex.outn(op))
+
+
+@_ag("cumsum")
+def _e_ag_cumsum(ex, op):
+    ax = ex.add_init(np.asarray(op.bound["axis"], np.int64), "axis")
+    ex.emit("CumSum", [ex.name_of(_a(op)), ax], ex.outn(op))
+
+
+@_ag("einsum")
+def _e_ag_einsum(ex, op):
+    ts = op.bound["ts"]
+    dt = op.outs[0].dtype
+    ex.emit("Einsum", [ex.operand(t, dt) for t in ts], ex.outn(op),
+            equation=op.bound["subscripts"])
+
+
+@_ag("add_bias")
+def _e_ag_add_bias(ex, op):
+    x, b = op.bound["x"], op.bound["b"]
+    shape = [1] * x.dim()
+    shape[op.bound["axis"]] = -1
+    mid = ex.fresh("b_rs")
+    ex.emit("Reshape", [ex.name_of(b), ex.ints(shape, "shape")], [mid])
+    ex.emit("Add", [ex.name_of(x), mid], ex.outn(op))
+
+
+@_ag("reshape", "squeeze", "unsqueeze")
+def _e_ag_reshape(ex, op):
+    ex.emit("Reshape", [ex.name_of(_a(op)),
+                        ex.ints(list(op.outs[0].shape), "shape")],
+            ex.outn(op))
+
+
+@_ag("transpose")
+def _e_ag_transpose(ex, op):
+    a, axes = op.bound["a"], op.bound["axes"]
+    perm = list(reversed(range(a.dim()))) if axes is None else \
+        [int(x) % a.dim() for x in axes]
+    ex.emit("Transpose", [ex.name_of(a)], ex.outn(op), perm=perm)
+
+
+@_ag("cat")
+def _e_ag_cat(ex, op):
+    dt = op.outs[0].dtype
+    ex.emit("Concat", [ex.operand(t, dt) for t in op.bound["ts"]],
+            ex.outn(op), axis=int(op.bound["axis"]))
+
+
+@_ag("stack")
+def _e_ag_stack(ex, op):
+    axis = int(op.bound["axis"])
+    ax = ex.ints([axis], "axes")
+    mids = []
+    for t in op.bound["ts"]:
+        m = ex.fresh("unsq")
+        ex.emit("Unsqueeze", [ex.name_of(t), ax], [m])
+        mids.append(m)
+    ex.emit("Concat", mids, ex.outn(op), axis=axis)
+
+
+@_ag("split")
+def _e_ag_split(ex, op):
+    a = op.bound["a"]
+    axis = int(op.bound["axis"]) % a.dim()
+    parts = [o.shape[axis] for o in op.outs]
+    ex.emit("Split", [ex.name_of(a), ex.ints(parts, "split")], ex.outn(op),
+            axis=axis)
+
+
+@_ag("gather")
+def _e_ag_gather(ex, op):
+    a = op.bound["a"]
+    idx = np.asarray(torch.as_tensor(op.bound["indices"]).cpu(), np.int64)
+    ex.emit("Gather", [ex.name_of(a), ex.add_init(idx, "indices")],
+            ex.outn(op), axis=int(op.bound["axis"]) % a.dim())
+
+
+@_ag("index")
+def _e_ag_index(ex, op):
+    """Basic indexing (ints and slices) as Slice, then Squeeze of the
+    int axes."""
+    a, idx = op.bound["a"], op.bound["idx"]
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if not all(isinstance(s, (slice, int)) for s in idx):
+        raise NotImplementedError(
+            "ONNX export of advanced (array) indexing is unsupported")
+    i64 = np.iinfo(np.int64)
+    starts, ends, axes, steps, squeeze = [], [], [], [], []
+    for ax, s in enumerate(idx):
+        if isinstance(s, int):
+            starts.append(s)
+            ends.append(s + 1 if s != -1 else i64.max)
+            axes.append(ax)
+            steps.append(1)
+            squeeze.append(ax)
+        elif s != slice(None):
+            step = 1 if s.step is None else s.step
+            # open bounds flip sentinels under a negative step
+            starts.append((i64.max if step < 0 else 0)
+                          if s.start is None else s.start)
+            ends.append((i64.min if step < 0 else i64.max)
+                        if s.stop is None else s.stop)
+            axes.append(ax)
+            steps.append(step)
+    outn = ex.outn(op)
+    target = outn[0] if not squeeze else ex.fresh("sliced")
+    if starts:
+        ex.emit("Slice", [ex.name_of(a), ex.ints(starts, "starts"),
+                          ex.ints(ends, "ends"), ex.ints(axes, "axes"),
+                          ex.ints(steps, "steps")], [target])
+    else:
+        ex.emit("Identity", [ex.name_of(a)], [target])
+    if squeeze:
+        ex.emit("Squeeze", [target, ex.ints(squeeze, "axes")], outn)
+
+
+@_ag("pad")
+def _e_ag_pad(ex, op):
+    a = op.bound["a"]
+    pw = np.broadcast_to(np.asarray(op.bound["pad_width"], np.int64),
+                         (a.dim(), 2))
+    pads = [int(p) for p in pw[:, 0]] + [int(p) for p in pw[:, 1]]
+    ex.emit("Pad", [ex.name_of(a), ex.ints(pads, "pads"),
+                    ex.operand(op.bound["value"], a.dtype)], ex.outn(op))
+
+
+@_ag("where")
+def _e_ag_where(ex, op):
+    cond, a, b = op.bound["cond"], op.bound["a"], op.bound["b"]
+    if isinstance(cond, torch.Tensor) and id(cond) in ex.names:
+        cn = ex.operand(cond, torch.bool)      # traced: a graph value
+    else:
+        warnings.warn(
+            "sonnx export: the Where condition evaluated at trace time is "
+            "frozen into the graph as a constant; input-dependent masks "
+            "will not vary in the exported model.", stacklevel=2)
+        cn = ex.add_init(np.asarray(torch.as_tensor(cond).cpu(), np.bool_),
+                         "cond")
+    ex.emit("Where", [cn, ex.name_of(a), ex.operand(b, a.dtype)],
+            ex.outn(op))
+
+
+_AG_REDUCE = {"reduce_sum": "ReduceSum", "reduce_max": "ReduceMax",
+              "reduce_min": "ReduceMin"}
+
+
+@_ag(*_AG_REDUCE)
+def _e_ag_reduce(ex, op):
+    a, axis = op.bound["a"], op.bound["axis"]
+    ins = [ex.name_of(a)]
+    if axis is not None:
+        ins.append(ex.ints([axis] if isinstance(axis, int) else list(axis),
+                           "axes"))
+    ex.emit(_AG_REDUCE[_name(op)], ins, ex.outn(op),
+            keepdims=int(bool(op.bound["keepdims"])))
 
 
 # ---------------------------------------------------------------------------

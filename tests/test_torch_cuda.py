@@ -1382,3 +1382,196 @@ def test_train_runner_resumes_a_captured_step_bitwise(cuda_device,
     assert {e["platform"] for e in entries} == {"cuda"}
     assert entries[-1]["device"] == torch.cuda.get_device_name(0)
     assert RunRecord(store).validate() == []
+
+
+def _gpt2_remat_runs(cfg, batches, steps_each):
+    """Plain and remat GPT-2 at `cfg` from the same weights (loaded by
+    name) and dropout seed, each trained on `batches` through
+    compile(use_graph=True): (losses, parameters after, generator state
+    after, device launches a step, the train graph's recorded launches)
+    by remat flag."""
+    from singa_tpu_torch.model import _dropout_generators
+    from singa_tpu_torch.models import GPT2
+    runs, start = {}, None
+    for remat in (False, True):
+        dev = tdevice.create_device("cuda")
+        m = GPT2(dataclasses.replace(cfg, remat=remat), device=dev,
+                 generator=torch.Generator("cuda").manual_seed(0))
+        if start is None:
+            start = {n: p.detach().clone() for n, p in m.get_params().items()}
+        m.set_params(start)
+        (gen,) = _dropout_generators(m)
+        gen.manual_seed(3)
+        m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+        m.compile([batches[0]], is_train=True, use_graph=True)
+        losses, per_step = [], []
+        for x in batches[:steps_each]:
+            tfa.reset_device_launches()
+            losses.append(m.train_step(x)[1].item())
+            per_step.append(tfa.device_launches())
+        runs[remat] = (losses, {n: t.detach().clone()
+                                for n, t in m.get_params().items()},
+                       gen.get_state(), per_step,
+                       m.get_graph("train").launches)
+        del m
+    return runs
+
+
+@pytest.mark.cuda
+def test_gpt2_remat_captured_step_equals_plain_bitwise(cuda_device):
+    """GPT-2 at its width cut to 2 layers, T = 512 (the flash route),
+    dropout 0.1, fused loss: with every block under layer.Remat, two
+    eager and two captured steps equal the plain model's bit for bit in
+    losses, parameters and the dropout generator's state; a remat step
+    launches the forward kernel twice a block (the recompute) and each
+    backward kernel once."""
+    from singa_tpu_torch.models import GPT2Config
+    cfg = GPT2Config(num_layers=2, fused_loss=True)
+    rng = np.random.RandomState(4)
+    batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 512)),
+                               device="cuda") for _ in range(4)]
+    runs = _gpt2_remat_runs(cfg, batches, 4)
+    (l0, p0, s0, n0, g0), (l1, p1, s1, n1, g1) = runs[False], runs[True]
+    assert l1 == l0 and np.isfinite(l0).all()
+    for n, t in p0.items():
+        assert torch.equal(p1[n], t), n
+    assert torch.equal(s1, s0)
+    assert all(n == dict.fromkeys(tfa.KERNELS, 2) for n in n0)
+    assert all(n == kernel_check.remat_launches(2) for n in n1)
+    assert g1 == kernel_check.remat_launches(2)
+    assert g0 == dict.fromkeys(tfa.KERNELS, 2)
+
+
+@pytest.mark.cuda
+def test_lstm_captured_train_step_equals_eager_bitwise(cuda_device):
+    """The char-rnn at the example's widths (two LSTMs of 128 over an
+    embedding of 64): captured steps equal eager ones from the same
+    weights and batches bit for bit, in losses and parameters."""
+    from singa_tpu_torch.tools import train_rnn
+    b, t = kernel_check.CHAR_RNN_BATCH
+    chars = sorted(set(train_rnn.CORPUS))
+    data = np.asarray([chars.index(c) for c in train_rnn.CORPUS], np.int32)
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.as_tensor(a, device="cuda")
+                     for a in train_rnn.batches(data, b, t, rng))
+               for _ in range(5)]
+    runs = {}
+    for use_graph in (False, True):
+        m = train_rnn.CharRNN(len(chars), device=cuda_device,
+                              generator=torch.Generator("cuda").manual_seed(0),
+                              **kernel_check.CHAR_RNN)
+        m.set_optimizer(topt.Adam(lr=kernel_check.CHAR_RNN_LR))
+        m.compile([batches[0][0]], is_train=True, use_graph=use_graph)
+        losses = [m.train_step(x, y)[1].item() for x, y in batches]
+        runs[use_graph] = (losses, {n: p.detach().clone()
+                                    for n, p in m.get_params().items()})
+    assert m.get_graph("train").graph is not None
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][0][-1] < runs[True][0][0]
+    for n, p in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], p), n
+
+
+@pytest.mark.cuda
+def test_generator_state_rewinds_inside_a_capture(cuda_device):
+    """What layer.Remat's recompute relies on: inside a CUDA-graph
+    capture, a registered generator's get_state / set_state read and
+    move the captured offset.  A draw after set_state(the state before
+    the first draw) repeats the first at every replay, and restoring
+    the state found after it leaves the generator, replay after replay,
+    where a capture of the first draw alone leaves it."""
+    def capture(redraw):
+        g = torch.Generator("cuda").manual_seed(0)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(g)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=s):
+            st = g.get_state()
+            a = torch.empty(4096, device="cuda").bernoulli_(0.5, generator=g)
+            b = None
+            if redraw:
+                after = g.get_state()
+                g.set_state(st)
+                b = torch.empty(4096, device="cuda").bernoulli_(
+                    0.5, generator=g)
+                g.set_state(after)
+        out = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            out.append((a.clone(), None if b is None else b.clone(),
+                        g.get_state()))
+        return out
+    once, redrawn = capture(False), capture(True)
+    for (a0, _, s0), (a1, b1, s1) in zip(once, redrawn):
+        assert torch.equal(a1, b1) and torch.equal(a0, a1)
+        assert torch.equal(s0, s1)
+    assert not torch.equal(once[0][0], once[1][0])     # replays draw anew
+
+
+def _picker(device):
+    """Rows of an (11, 8) table picked by ids through autograd.gather
+    (``jnp.take``: an out-of-range id reads NaN, zeroed here), a Linear
+    to 5 classes, then two positions of the (B, T, 5) logits through
+    autograd.index: position 1 by a Python int and one by a 0-dim id
+    tensor, which may lie past the end (it then reads the last position
+    and passes no gradient)."""
+    from singa_tpu_torch import autograd, layer, model
+
+    class Picker(model.Model):
+        def __init__(self):
+            super().__init__(device)
+            g = torch.Generator(device.torch_device).manual_seed(0)
+            self.table = self._new_param((11, 8))
+            with torch.no_grad():
+                self.table.normal_(generator=g)
+            self.head = layer.Linear(5, 8, device=device, generator=g)
+
+        def forward(self, ids, pos):
+            rows = autograd.gather(self.table, 0, ids)
+            rows = autograd.where(autograd.equal(rows, rows), rows, 0.0)
+            logits = self.head(rows)
+            return autograd.add(autograd.index(logits, (slice(None), 1)),
+                                autograd.index(logits, (slice(None), pos)))
+
+        def train_one_batch(self, ids, pos, y):
+            out = self.forward(ids, pos)
+            loss = self.loss(out, y)
+            self.optimizer.backward_and_update(loss)
+            return out, loss
+
+    return Picker()
+
+
+@pytest.mark.cuda
+def test_index_and_gather_capture_with_out_of_range_ids(cuda_device):
+    """autograd.index and autograd.gather read nothing back to the host,
+    so a train step calling them with out-of-range ids is captured as a
+    CUDA graph; its replays equal the eager steps bit for bit, and the
+    rows read only through an out-of-range id (row 10, by the clamped
+    ids 11 and 15 at position 1; row 9, at the position the past-the-end
+    id clamps to) take no gradient."""
+    b, t = 4, 6
+    ids = np.random.RandomState(0).randint(0, 9, (b, t))
+    ids[:2, 1] = [11, 15]
+    ids[:, t - 1] = 9
+    ids = torch.as_tensor(ids, device="cuda")
+    pos = torch.tensor(t + 3, device="cuda")
+    y = torch.as_tensor([0, 3, 1, 4], device="cuda")
+    runs = {}
+    for use_graph in (False, True):
+        m = _picker(cuda_device)
+        start = m.table.detach().clone()
+        m.set_optimizer(topt.SGD(lr=0.1))
+        m.compile([ids, pos], is_train=True, use_graph=use_graph)
+        losses = [m.train_step(ids, pos, y)[1].item() for _ in range(5)]
+        runs[use_graph] = (losses, m.table.detach().clone())
+    assert m.get_graph("train").graph is not None
+    assert runs[True][0] == runs[False][0]
+    assert all(np.isfinite(runs[True][0]))
+    assert torch.equal(runs[True][1], runs[False][1])
+    table = runs[True][1]
+    assert torch.equal(table[9:], start[9:])
+    assert not torch.equal(table[int(ids[2, 1])], start[int(ids[2, 1])])

@@ -166,14 +166,14 @@ def test_remat_gives_the_same_loss_gradients_and_param_keys(ref_arrays, ids):
 
 
 def test_remat_runs_each_block_under_checkpoint(ref_arrays, ids, monkeypatch):
-    from singa_tpu_torch.models import llama as tllama
+    from singa_tpu_torch import layer as tlayer
     calls = []
-    real = tllama.checkpoint
+    real = tlayer.checkpoint
 
     def spy(fn, *a, **kw):
         calls.append(kw.get("use_reentrant"))
         return real(fn, *a, **kw)
-    monkeypatch.setattr(tllama, "checkpoint", spy)
+    monkeypatch.setattr(tlayer, "checkpoint", spy)
     tm = _tmodel(ref_arrays, remat=True)
     x = torch.from_numpy(ids)
     tm.features(x)                       # eval: no checkpointing

@@ -251,7 +251,13 @@ def test_mlp_activations_match_reference(act):
 @pytest.mark.parametrize("field,value,what", [
     ("remat", True, "Remat"), ("pipeline_stages", 2, "PipelineStack")])
 def test_gpt2_unported_options_raise(field, value, what):
+    """No option is ignored: one not ported raises, naming the layer it
+    needs; remat, ported since, builds that layer around every block."""
     cfg = dataclasses.replace(GPT2Config.tiny(), **{field: value})
+    if field == "remat":
+        m = GPT2(cfg, device=CPU)
+        assert all(type(b).__name__ == what for b in m.blocks)
+        return
     with pytest.raises(NotImplementedError, match=what):
         GPT2(cfg, device=CPU)
 
