@@ -57,7 +57,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tenants behind 256-token system prompts, suffixes of
                256/384/512 tokens, 32 or 64 new tokens; completed, shed
                and rejected, tokens/s, TTFT p50/p99, no flash launch; the
-               serve_load record validated in a temporary store
+               serve_load record validated in a temporary store, the
+               run's events in a JSONL sink beside it, and the port's
+               obsq over both: slo --check exits 0 on the record and 1
+               on a planted copy with ttft_p99_ms raised by 10 %, trace
+               of one request shows its submission, prefill span and
+               tokens in order, diff serve_load gives a row per record
   8. ops     — the serving operator's tools (singa_tpu_torch.tools:
                loadgen, chaosd, autotune) at base() width cut to 2
                layers: the committed best-config table
@@ -235,7 +240,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
                padded ids; the f32 eval against the port on the CPU; no
                flash launch anywhere on BERT's path (T = 128 takes the
                plain attention, as in the reference)
- 20. train_run — fault-tolerant training runs through singa_tpu_torch.train:
+ 20. hf      — the Llama family through the HuggingFace layout and back on
+               the card, without transformers: the slice phase's base()
+               (parked on the host since the beam phase), mistral-w4096
+               cut to 2 layers and mixtral-8x7b cut to 1, each exported
+               by models.hf_layout (the Mixtral layout written here:
+               w1 gate, w3 up, w2 down, gate.weight the router) and
+               imported by from_hf_llama / from_hf_mistral /
+               from_hf_mixtral: parameters and configuration equal,
+               logits on one seeded (1, 1024) batch bitwise, greedy
+               generate() at B=1, P=1024, N=16 (bf16) equal streams,
+               the flash forward once a layer a call counted on the
+               card; the imported mistral and its source 3 eager steps
+               each at B=1 x T=8192 (SGD 0.01 / momentum 0.9, all three
+               kernels banded) bitwise in losses and parameters; the
+               export's and the import's host seconds, the process's
+               peak RSS and the card's peak memory
+ 21. tensor  — every function of singa_tpu_torch.tensor once on
+               create_device("auto") at (4096, 2048) f32 against numpy,
+               with the count that agreed
+ 22. train_run — fault-tolerant training runs through singa_tpu_torch.train:
                GPT-2 124M (GPT2Config() uncut, fused loss, dropout 0.1,
                seed 0) with AdamW(3e-4, weight decay 0.1) at B=8 x
                T=1024, a DataLoader over 512 synthetic sequences, 24
@@ -262,7 +286,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                the emergency checkpoint's pre-draw cursor, an "aborted"
                record, TrainAborted, and a resume).  Every resume
                bitwise U's in losses and final sha256
- 21. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
+ 23. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
                bench.py's cell (BERTConfig(num_labels=2), seed 0, B=256 x
                T=128): exported by the port (to_onnx), serialised and
                parsed back (bytes, export / serialise / parse seconds),
@@ -283,7 +307,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                captured eval bitwise the eager one, ms a call and
                tokens/s of each.  No flash launch on either path, counted
                on the card
- 22. rnn     — the char-rnn (tools/train_rnn.CharRNN: two LSTMs of 128
+ 24. rnn     — the char-rnn (tools/train_rnn.CharRNN: two LSTMs of 128
                over an embedding of 64, the reference example's
                widths), B=64 x T=64 characters, Adam 3e-3, bf16
                activations: 40 eager and 40 captured steps bitwise in
@@ -292,7 +316,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                imported on the card, eval logits against the native
                model's in bf16 and f32; then tools/train_rnn at its
                defaults (150 steps, a sample).  No flash launch
- 23. dist    — data-parallel training over NCCL at a world of 1 (the
+ 25. dist    — data-parallel training over NCCL at a world of 1 (the
                machine has one card): parallel.init_distributed on a
                free local port, the data mesh set, the group destroyed
                at the end.  base()'s training cell (B=8 x T=1024, fused
@@ -313,7 +337,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                images, 8 steps, the step captured); no
                flash launch there.  No allreduce bandwidth: one rank
                moves nothing between cards
- 24. timing  — each kernel, its plain version and the PyTorch call that
+ 26. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -350,12 +374,14 @@ import io
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
-from contextlib import contextmanager, nullcontext, redirect_stdout
+from contextlib import (contextmanager, nullcontext, redirect_stderr,
+                        redirect_stdout)
 from pathlib import Path
 
 import numpy as np
@@ -469,6 +495,9 @@ BEAM_SCORE_RTOL = 1e-2
 # 3 tenants behind 256-token system prompts, suffixes of 256/384/512
 # tokens, 32 or 64 new tokens), from seed LOAD_SEED
 LOAD_REQUESTS, LOAD_RATE_SHARE, LOAD_SEED = 48, 0.8, 0
+# the planted copy of the load record that obsq slo --check must refuse:
+# its ttft_p99_ms raised by this share (obsq's tolerance is 1 %)
+LOAD_PLANT = 0.10
 # the ops phase: the autotuner's card sweep model (tools/autotune.py
 # CARD_SWEEP: base() cut to 2 layers, seed 0; the best-config table's
 # serve/llama-d2048-L2/cuda and train/llama-d2048-L2-dp1/cuda entries),
@@ -495,6 +524,25 @@ BANDED_SERVE = (4, 8192, 32, 8, 32)
 BANDED_PROMPTS, BANDED_SEED = (4608, 7936), 6
 # the timing phase's long window: mistral-w4096's attention at its shape
 WINDOW_T, WINDOW_W = 8192, 4096
+# the hf phase: each model exported through the transformers-free half of
+# to_hf (models.hf_layout; the Mixtral layout is written here, as to_hf
+# exports no MoE) and imported by its family's importer on the card: the
+# slice phase's base() at full depth, and the published configurations
+# cut to HF_LAYERS.  Logits on one (B, P) batch and greedy generate() at
+# HF_GEN (B, P, N) from both models, prompts from seed HF_SEED; the
+# imported mistral-w4096 and its source each take HF_STEPS eager steps
+# at HF_TRAIN (B, T), SGD(0.01, momentum 0.9), all three kernels banded
+HF_GEN, HF_SEED = (1, 1024, 16), 7
+HF_LAYERS = {"mistral-w4096": 2, "mixtral-8x7b": 1}
+HF_TRAIN, HF_STEPS = (1, 8192), 3
+# the tensor phase: every function of singa_tpu_torch.tensor once on the
+# card at base()'s widths, f32, against numpy: layout, creation and
+# comparison functions exactly; elementwise math within TENSOR_RTOL of
+# the largest magnitude (numpy in f64), reductions and products within
+# TENSOR_SUM_RTOL (their summation order differs); the random draws by
+# their mean and spread within TENSOR_STAT_TOL
+TENSOR_SHAPE = (4096, 2048)
+TENSOR_RTOL, TENSOR_SUM_RTOL, TENSOR_STAT_TOL = 1e-6, 1e-5, 0.01
 # the cnn phase: ImageNet ResNet-50 at 224² and CIFAR ResNet-18 at 32²,
 # each at B = CNN_B (bench.py's ResNet-50 cell), bf16 activations over
 # f32 masters, SGD(lr 0.1, momentum 0.9, weight decay 1e-4), images and
@@ -604,11 +652,16 @@ RUN_HANG, RUN_HANG_STEP = (2.0, 8.0), 5
 RUN_CHILD_TIMEOUT_S = 300
 RUN_WINDOW_TOL = 0.05
 RUN_BESIDE = 12
-# profile_drops: how many times it profiles one replayed GPT-2 step
-# with each pause.  PROFILE_SETTLE_S: the card idles that long under the
-# profiler before a profiled call starts
-PROFILE_REPEATS = 100
-PROFILE_SETTLE_S = 0.05
+# torch.profiler loses the first device records of a session, more of
+# them the longer the process has run (on an NVIDIA H100 80GB HBM3 at
+# 700 W: none at first, ~20 after 5.5 minutes and 80 sessions, the
+# same count whatever the idle before the call); so a profiled call follows
+# PROFILE_WARMUP spin kernels, which take that loss; how many of their
+# records a profile kept is in its line.
+# profile_drops: how long it profiles one replayed GPT-2 step, with and
+# without the warm-up, and the unprofiled replays between two rounds
+PROFILE_WARMUP = 512
+PROFILE_PROBE_S, PROFILE_GAP_S = 330.0, 8.0
 
 
 #: what later phases put beside their own numbers, by phase
@@ -2467,30 +2520,41 @@ def phase_checkpoint():
 # -- the load, banded and moe phases -----------------------------------------
 
 
-def load_run(eng, closed_tps, closed_tokens, what):
+def load_run(eng, closed_tps, closed_tokens, what, obsq=False):
     """The open-loop load generator (singa_tpu_torch.tools.loadgen) through
     `eng`: LOAD_REQUESTS Poisson arrivals at LOAD_RATE_SHARE of the closed
     wave's request rate (its tokens/s over its tokens per request), the
     engine's counters and the card's launch counters zeroed first.  The
-    payload goes to the port's record store as a serve_load entry."""
+    payload goes to the port's record store as a serve_load entry.  With
+    `obsq`, the run's events go to a JSONL sink (SINGA_OBS's) beside
+    that store, and the port's obsq is held to the record
+    (`load_obsq`)."""
+    from singa_tpu_torch.obs import events as obs_events
+    from singa_tpu_torch.obs import record as obs_record
     from singa_tpu_torch.ops import flash_attention as fa
     from singa_tpu_torch.serve.metrics import ServeMetrics
     from singa_tpu_torch.tools import loadgen
-
-    from singa_tpu_torch.obs import record as obs_record
 
     rate = LOAD_RATE_SHARE * closed_tps / closed_tokens
     wl = loadgen.build_workload(LOAD_REQUESTS, rate, LOAD_SEED,
                                 vocab=eng.model.cfg.vocab_size,
                                 **loadgen.CHAT_WORKLOAD)
     eng.metrics = ServeMetrics(flight=eng.flight)
-    fa.reset_device_launches()
-    payload = loadgen.run_load(eng, wl)
-    launches = fa.device_launches()
     with tempfile.TemporaryDirectory() as d:
+        events = str(Path(d) / "ev.jsonl")
+        if obsq:
+            obs_events.configure(path=events)
+        fa.reset_device_launches()
+        try:
+            payload = loadgen.run_load(eng, wl)
+        finally:
+            launches = fa.device_launches()
+            if obsq:
+                obs_events.configure()
         store = loadgen.append_record(payload, str(Path(d) / "r.jsonl"),
                                       device="cuda", prefix=f"load-{what}")
         record_errors = obs_record.RunRecord(store).validate()
+        queried = load_obsq(store, events, d) if obsq else None
     out = {"engine": what, "rate_rps": rate,
            "closed_wave_tokens_per_s": closed_tps,
            "closed_wave_tokens_per_request": closed_tokens,
@@ -2505,14 +2569,91 @@ def load_run(eng, closed_tps, closed_tokens, what):
     check(launches == dict.fromkeys(fa.KERNELS, 0),
           f"the flash kernels ran {launches} times under the load run")
     check(not record_errors, f"the serve_load record: {record_errors}")
+    if queried is not None:
+        emit({"phase": "load", "obsq": queried})
+        for cond, msg in queried.pop("checks"):
+            check(cond, msg)
+    return out
+
+
+def _obsq(argv):
+    """(exit code, stdout, stderr) of the port's obsq on `argv`, run in
+    this process as `python -m singa_tpu_torch.tools.obsq` runs it."""
+    from singa_tpu_torch.tools import obsq
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = obsq.main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def load_obsq(store, events, tmp):
+    """The port's obsq over a load run's serve_load record and the events
+    it emitted: `slo --check` must exit 0; a store holding the record and
+    a planted copy of it with ttft_p99_ms raised by LOAD_PLANT (the
+    newest, so the one checked) must exit 1; `trace` of one request
+    must show its submission, its prefill span, then its tokens in
+    order; `diff serve_load` over the planted store must give a row per
+    record and the change between them."""
+    from singa_tpu_torch.obs import record as obs_record
+    from singa_tpu_torch.tools import obsq
+
+    t0 = time.perf_counter()
+    slo = _obsq(["slo", "--check", "--records", store, "--events", events])
+    entry = obs_record.RunRecord(store).entries()[-1]
+    planted = json.loads(json.dumps(entry))
+    planted["run_id"] += "-planted"
+    planted["payload"]["ttft_p99_ms"] = round(
+        entry["payload"]["ttft_p99_ms"] * (1 + LOAD_PLANT), 3)
+    planted_store = str(Path(tmp) / "planted.jsonl")
+    rr = obs_record.RunRecord(planted_store)
+    rr.append(entry)
+    rr.append(planted)
+    slo_planted = _obsq(["slo", "--check", "--records", planted_store,
+                         "--events", events])
+    evs = obsq.load_events(events)
+    tids = sorted({e["trace"] for e in evs
+                   if e.get("name") == "serve.ttft_ms"})
+    mine = obsq.trace_events(evs, tids[0])
+    trace = _obsq(["trace", tids[0], "--events", events])
+    diff = _obsq(["diff", "serve_load", "--records", planted_store,
+                  "--fields", "tokens_per_s,ttft_p50_ms,ttft_p99_ms"])
+    _, rows = obsq.diff_rows(planted_store, "serve_load")
+    names = [e["name"] for e in mine]
+    tokens = [e["n"] for e in mine if e["name"] == "serve.token"]
+    out = {"events": len(evs), "traces_with_first_token": len(tids),
+           "slo_check": {"rc": slo[0], "stdout": slo[1].splitlines(),
+                         "stderr": slo[2].splitlines()},
+           "planted": {"raise": LOAD_PLANT, "rc": slo_planted[0],
+                       "stderr": slo_planted[2].splitlines()},
+           "trace": {"id": tids[0], "rc": trace[0],
+                     "lines": trace[1].splitlines()},
+           "diff": {"rc": diff[0], "lines": diff[1].splitlines()},
+           "seconds": time.perf_counter() - t0}
+    out["checks"] = [
+        (slo[0] == 0, f"obsq slo --check exits {slo[0]} on the load "
+                      f"record: {slo[2]}"),
+        (slo_planted[0] == 1 and "ttft_p99_ms" in slo_planted[2],
+         f"obsq slo --check exits {slo_planted[0]} on the planted "
+         f"record: {slo_planted[2]}"),
+        (len(tids) == entry["payload"]["completed"],
+         f"{len(tids)} traces carry a first token, "
+         f"{entry['payload']['completed']} requests completed"),
+        (trace[0] == 0 and names[0] == "serve.submitted"
+         and "serve.prefill" in names and "serve.token" in names
+         and names.index("serve.prefill") < names.index("serve.token")
+         and tokens == list(range(1, len(tokens) + 1)),
+         f"obsq trace {tids[0]}: {names}"),
+        (diff[0] == 0 and len(rows) == 3 and rows[-1][0].startswith("Δ"),
+         f"obsq diff serve_load: {diff}")]
     return out
 
 
 def phase_load(m, ctx):
     """The load generator through the serve phase's engine configuration
-    over base(), at 0.8 x the serve phase's closed-wave request rate."""
+    over base(), at 0.8 x the serve phase's closed-wave request rate,
+    its record and events queried through the port's obsq."""
     eng, _ = serve_engine(m)
-    out = load_run(eng, ctx["tokens_per_s"], SERVE_NEW, "base")
+    out = load_run(eng, ctx["tokens_per_s"], SERVE_NEW, "base", obsq=True)
     eng.close()
     return out["flash_launches"]
 
@@ -4136,6 +4277,434 @@ def phase_transformer():
 
 # -- phase train_run: fault-tolerant training runs ------------------------------
 
+def _peak_rss():
+    """The process's peak resident set so far, bytes."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def mixtral_layout(m):
+    """A port MoE Llama in MixtralForCausalLM's layout, written here (to_hf
+    exports no MoE): HF's Linear stores (out, in); each expert's w1 is the
+    gate, w3 the up and w2 the down projection; gate.weight the router."""
+    from singa_tpu_torch.models import HFLayout
+
+    c = m.cfg
+    p = {n: t.detach() for n, t in m.get_params().items()}
+
+    def host(t):
+        return t.contiguous().to("cpu", torch.float32)
+    sd = {"model.embed_tokens.weight": host(p["tok_emb.table"]),
+          "model.norm.weight": host(p["norm_f.gamma"]),
+          "lm_head.weight": host(p["lm_head.W"].T)}
+    for i in range(c.num_layers):
+        our, hfp = f"blocks.{i}.", f"model.layers.{i}."
+        sd[hfp + "input_layernorm.weight"] = host(p[our + "attn_norm.gamma"])
+        sd[hfp + "post_attention_layernorm.weight"] = host(
+            p[our + "ffn_norm.gamma"])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[f"{hfp}self_attn.{proj}.weight"] = host(
+                p[f"{our}attn.{proj}.W"].T)
+        moe = hfp + "block_sparse_moe."
+        sd[moe + "gate.weight"] = host(p[our + "ffn.router"].T)
+        for theirs, ours in (("w1", "w_gate"), ("w3", "w_in"),
+                             ("w2", "w_out")):
+            for e in range(c.num_experts):
+                sd[f"{moe}experts.{e}.{theirs}.weight"] = host(
+                    p[f"{our}ffn.{ours}"][e].T)
+    fields = dict(
+        vocab_size=c.vocab_size, hidden_size=c.dim,
+        intermediate_size=c.ffn_dim, num_hidden_layers=c.num_layers,
+        num_attention_heads=c.num_heads, num_key_value_heads=c.num_kv_heads,
+        max_position_embeddings=c.max_position, rope_theta=c.rope_theta,
+        rms_norm_eps=c.eps, num_local_experts=c.num_experts,
+        num_experts_per_tok=c.moe_top_k,
+        sliding_window=c.sliding_window or None,
+        router_aux_loss_coef=c.moe_aux_weight)
+    return HFLayout("MixtralForCausalLM", fields, sd)
+
+
+def hf_round_trip(src, what, later, export=None, gen=HF_GEN):
+    """`src` exported to the HF layout (`export`, default models.hf_layout)
+    and imported on its device by its architecture's importer
+    (from_hf_llama, from_hf_mistral or from_hf_mixtral, through from_hf's
+    dispatch on the layout's architecture): the
+    parameters and the configuration must equal the source's, the logits
+    on one seeded batch and the greedy generate() stream at `gen` must be
+    bitwise the source's, and each generate() call must launch the flash
+    forward once a layer, counted on the card.  (result, the import)."""
+    from singa_tpu_torch.models import convert
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    layout, export_s = _timed(lambda: (export or convert.hf_layout)(src))
+    sd_bytes = sum(t.numel() * t.element_size()
+                   for t in layout.state_dict().values())
+    arch = layout.architecture
+    dst, import_s = _timed(lambda: convert.from_hf(layout,
+                                                   device=src.device))
+    del layout
+    gc.collect()
+    sp, dp = src.get_params(), dst.get_params()
+    differ = [n for n in sp if n not in dp or not torch.equal(sp[n], dp[n])]
+    cs, cd = dataclasses.asdict(src.cfg), dataclasses.asdict(dst.cfg)
+    if not cs["rope_scaling"] and not cd["rope_scaling"]:
+        # unread without scaling: the importer sets it to the checkpoint's
+        # max_position_embeddings, as the reference's does
+        cs.pop("rope_scaling_original_max_position")
+        cd.pop("rope_scaling_original_max_position")
+    cfg_differs = sorted(k for k in cs if cs[k] != cd[k])
+    b, p, n = gen
+    prompts = np.random.RandomState(HF_SEED).randint(
+        0, src.cfg.vocab_size, (b, p))
+    ids = torch.as_tensor(prompts, dtype=torch.int32,
+                          device=src.device.torch_device)
+    src.eval()
+    dst.eval()
+    with torch.no_grad():
+        lg_src, lg_dst = src(ids), dst(ids)
+    logits_bitwise = bool(torch.equal(lg_src, lg_dst))
+    finite = bool(torch.isfinite(lg_src).all())
+    del lg_src, lg_dst
+    kw = dict(max_new_tokens=n, param_dtype=torch.bfloat16)
+    launches, streams = {}, {}
+    for which, m in (("source", src), ("imported", dst)):
+        fa.reset_device_launches()
+        streams[which] = m.generate(prompts, **kw)
+        launches[which] = fa.device_launches()
+    expect = {"flash_fwd": src.cfg.num_layers, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    res = {"model": what, "architecture": arch, "params": src.num_params(),
+           "layers": src.cfg.num_layers, "state_dict_bytes": sd_bytes,
+           "export_s": export_s, "import_s": import_s,
+           "params_bitwise": not differ and list(sp) == list(dp),
+           "config_differs": cfg_differs,
+           "logits": {"B": b, "T": p, "bitwise": logits_bitwise,
+                      "finite": finite},
+           "generate": {"B": b, "P": p, "N": n, "param_dtype": "bfloat16",
+                        "tokens_equal": bool(np.array_equal(
+                            streams["source"], streams["imported"])),
+                        "launches": launches, "expected_launches": expect},
+           "peak_rss_bytes": _peak_rss(),
+           "card_peak_bytes": torch.cuda.max_memory_allocated()}
+    later(res["params_bitwise"], f"{what}: imported parameters differ "
+          f"from the source's: {differ[:8]}")
+    later(not cfg_differs, f"{what}: the imported config differs from the "
+          f"source's in {cfg_differs}: {dst.cfg}")
+    later(logits_bitwise and finite, f"{what}: imported logits are not "
+          f"bitwise the source's (finite: {finite})")
+    later(res["generate"]["tokens_equal"], f"{what}: the imported model's "
+          f"greedy stream differs from the source's")
+    later(all(v == expect for v in launches.values()), f"{what}: "
+          f"generate() launched {launches}, expected {expect} a call")
+    later(streams["source"].shape == (b, p + n)
+          and (streams["source"][:, :p] == prompts).all(),
+          f"{what}: generate returned a wrong shape or prompt")
+    return res, dst
+
+
+def hf_train(src, dst, later):
+    """HF_STEPS eager steps of `src` and of its import `dst` from the same
+    weights on the same batches (HF_TRAIN, SGD 0.01 / momentum 0.9):
+    losses and parameters after them bitwise; each flash kernel once a
+    layer a step, counted on the card."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(HF_SEED + 1)
+    b, t = HF_TRAIN
+    batches = [_token_batch(rng, src.cfg.vocab_size, b, t)
+               for _ in range(HF_STEPS)]
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for which, m in (("source", src), ("imported", dst)):
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+        m.compile(list(batches[0]), is_train=True, use_graph=False)
+        fa.reset_device_launches()
+        losses, dt = _timed(lambda: [m.train_step(*bt)[1].item()
+                                     for bt in batches])
+        runs[which] = {"losses": losses, "launches": fa.device_launches(),
+                       "seconds": dt}
+    sp, dp = src.get_params(), dst.get_params()
+    differ = [n for n in sp if not torch.equal(sp[n], dp[n])]
+    expect = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                           src.cfg.num_layers * HF_STEPS)
+    out = {"B": b, "T": t, "steps": HF_STEPS,
+           "window": src.cfg.sliding_window,
+           "optimizer": _opt_name(src.optimizer), "runs": runs,
+           "losses_bitwise": (runs["source"]["losses"]
+                              == runs["imported"]["losses"]),
+           "params_bitwise": not differ, "expected_launches": expect,
+           "card_peak_bytes": torch.cuda.max_memory_allocated()}
+    later(out["losses_bitwise"], f"the imported mistral's losses "
+          f"{runs['imported']['losses']} differ from the source's "
+          f"{runs['source']['losses']}")
+    later(not differ, f"parameters after the steps differ: {differ[:8]}")
+    later(all(r["launches"] == expect for r in runs.values()),
+          f"the steps launched {[r['launches'] for r in runs.values()]}, "
+          f"expected {expect}")
+    later(np.isfinite(runs["source"]["losses"]).all(),
+          f"non-finite loss: {runs['source']['losses']}")
+    return out
+
+
+def park(m):
+    """Keep `m` for a later phase off the card: its generate() sessions
+    and their weight copy dropped, its parameters moved to the host."""
+    m._gen_sessions.clear()
+    m._gen_params.clear()
+    m.to("cpu")
+
+
+def phase_hf(m):
+    """Each model through the HF layout and back on the card: the slice
+    phase's base() (`m`, parked on the host since the beam phase),
+    mistral-w4096 and mixtral-8x7b cut in depth; the imported mistral
+    also trains."""
+    from singa_tpu_torch.models.llama import PUBLISHED
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    m.to("cuda")
+    res, dst = hf_round_trip(m, "base", later)
+    res["source"] = "LlamaConfig.base(), the slice phase's model"
+    emit({"phase": "hf", **res})
+    results = {"base": res}
+    del dst
+    park(m)
+    _free()
+    for name, layers in HF_LAYERS.items():
+        cfg = dataclasses.replace(PUBLISHED[name], num_layers=layers)
+        src = config_model(cfg)
+        res, dst = hf_round_trip(
+            src, name, later,
+            export=mixtral_layout if cfg.num_experts else None)
+        published = ("Mixtral-8x7B-v0.1" if cfg.num_experts
+                     else "Mistral-7B-v0.1")
+        res["source"] = f"{published} config.json, 32 -> {layers} layers"
+        if name == "mistral-w4096":
+            res["train"] = hf_train(src, dst, later)
+        emit({"phase": "hf", **res})
+        results[name] = res
+        del src, dst
+        _free()
+    emit({"phase": "hf", "models": list(results),
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return results
+
+
+def tensor_checks(dev, shape=TENSOR_SHAPE):
+    """Every function of singa_tpu_torch.tensor once on `dev` at `shape`
+    (f32) against numpy: [{name, kind, ok, err}] (kind: exact, elem,
+    sum, stat or value, held to the tensor phase's limits)."""
+    from singa_tpu_torch import tensor as T
+
+    r, c = shape
+    rng = np.random.RandomState(3)
+    f32 = np.float32
+    A, B = rng.randn(r, c).astype(f32), rng.randn(r, c).astype(f32)
+    P = (np.abs(rng.randn(r, c)) + 0.5).astype(f32)
+    R = (rng.randn(r, c) * 3).astype(f32)
+    M = rng.randn(c, 256).astype(f32)
+    Vr, Vc = rng.randn(r).astype(f32), rng.randn(c).astype(f32)
+    Q = rng.randn(8, r // 8, c // 8).astype(f32)
+    K = rng.randn(8, c // 8, 64).astype(f32)
+    I = rng.randint(0, 3, (r, c)).astype(f32)
+    J = rng.randint(0, 3, (r, c)).astype(f32)
+    d = {k: v.astype(np.float64) for k, v in
+         dict(A=A, B=B, P=P, M=M, Q=Q, K=K).items()}
+
+    def x(a):
+        return T.from_numpy(a, dev)
+
+    def copied():
+        dst = T.zeros(shape, dev, torch.float32)
+        T.copy_data_to_from(dst, x(A.ravel()))
+        return dst
+
+    def seeded():
+        draws = []
+        for _ in range(2):
+            T.set_seed(5)
+            draws.append(T.gaussian((1024,), dev=dev, dtype=torch.float32))
+        return bool(torch.equal(*draws))
+
+    def softmax64(a):
+        e = np.exp(a - a.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    def mask(a):
+        return a.astype(f32)
+
+    cases = {
+        "from_numpy": ("exact", lambda: x(A), lambda: A),
+        "to_numpy": ("exact", lambda: T.to_numpy(x(A)), lambda: A),
+        "from_raw": ("exact", lambda: T.from_raw(torch.from_numpy(A), dev),
+                     lambda: A),
+        "zeros": ("exact", lambda: T.zeros(shape, dev, torch.float32),
+                  lambda: np.zeros(shape, f32)),
+        "ones": ("exact", lambda: T.ones(shape, dev, torch.float32),
+                 lambda: np.ones(shape, f32)),
+        "full": ("exact", lambda: T.full(shape, 2.5, dev, torch.float32),
+                 lambda: np.full(shape, 2.5, f32)),
+        "zeros_like": ("exact", lambda: T.zeros_like(x(A)),
+                       lambda: np.zeros_like(A)),
+        "ones_like": ("exact", lambda: T.ones_like(x(A)),
+                      lambda: np.ones_like(A)),
+        "arange": ("exact", lambda: T.arange(0, r * c, 7, dev),
+                   lambda: np.arange(0, r * c, 7, dtype=np.int32)),
+        "eye": ("exact", lambda: T.eye(c, dev, torch.float32),
+                lambda: np.eye(c, dtype=f32)),
+        "copy_data_to_from": ("exact", copied, lambda: A),
+        "set_seed": ("value", seeded, lambda: True),
+        "default_float": ("value", lambda: T.default_float(dev),
+                          lambda: dev.default_dtype),
+        "reshape": ("exact", lambda: T.reshape(x(A), (c, r)),
+                    lambda: A.reshape(c, r)),
+        "transpose": ("exact", lambda: T.transpose(x(A)), lambda: A.T),
+        "flatten": ("exact", lambda: T.flatten(x(Q), 1),
+                    lambda: Q.reshape(8, -1)),
+        "squeeze": ("exact", lambda: T.squeeze(x(A[None, :, None])),
+                    lambda: A),
+        "unsqueeze": ("exact", lambda: T.unsqueeze(x(A), 1),
+                      lambda: A[:, None]),
+        "concatenate": ("exact", lambda: T.concatenate([x(A), x(B)], 1),
+                        lambda: np.concatenate([A, B], 1)),
+        "stack": ("exact", lambda: T.stack([x(A), x(B)], 0),
+                  lambda: np.stack([A, B], 0)),
+        "split": ("exact", lambda: T.split(x(A), 4, 1),
+                  lambda: np.split(A, 4, 1)),
+        "repeat": ("exact", lambda: T.repeat(x(A), 2, 1),
+                   lambda: np.repeat(A, 2, 1)),
+        "abs": ("exact", lambda: T.abs(x(A)), lambda: np.abs(A)),
+        "sign": ("exact", lambda: T.sign(x(A)), lambda: np.sign(A)),
+        "relu": ("exact", lambda: T.relu(x(A)), lambda: np.maximum(A, 0)),
+        "ceil": ("exact", lambda: T.ceil(x(R)), lambda: np.ceil(R)),
+        "floor": ("exact", lambda: T.floor(x(R)), lambda: np.floor(R)),
+        "round": ("exact", lambda: T.round(x(R)), lambda: np.round(R)),
+        "max": ("exact", lambda: T.max(x(A), 1), lambda: A.max(1)),
+        "min": ("exact", lambda: T.min(x(A)), lambda: A.min()),
+        "argmax": ("exact", lambda: T.argmax(x(A), 1),
+                   lambda: A.argmax(1).astype(np.int32)),
+        "argmin": ("exact", lambda: T.argmin(x(A), 0),
+                   lambda: A.argmin(0).astype(np.int32)),
+        "clip": ("exact", lambda: T.clip(x(A), -0.5, 0.5),
+                 lambda: np.clip(A, -0.5, 0.5)),
+        "lt": ("exact", lambda: T.lt(x(A), x(B)), lambda: mask(A < B)),
+        "le": ("exact", lambda: T.le(x(A), 0.0), lambda: mask(A <= 0)),
+        "gt": ("exact", lambda: T.gt(x(I), x(J)), lambda: mask(I > J)),
+        "ge": ("exact", lambda: T.ge(x(I), x(J)), lambda: mask(I >= J)),
+        "eq": ("exact", lambda: T.eq(x(I), x(J)), lambda: mask(I == J)),
+        "add": ("elem", lambda: T.add(x(A), x(B)), lambda: d["A"] + d["B"]),
+        "sub": ("elem", lambda: T.sub(x(A), x(B)), lambda: d["A"] - d["B"]),
+        "mul": ("elem", lambda: T.mul(x(A), x(B)), lambda: d["A"] * d["B"]),
+        "div": ("elem", lambda: T.div(x(A), x(P)), lambda: d["A"] / d["P"]),
+        "eltwise_mult": ("elem", lambda: T.eltwise_mult(x(A), x(B)),
+                         lambda: d["A"] * d["B"]),
+        "axpy": ("elem", lambda: T.axpy(2.5, x(A), x(B)),
+                 lambda: d["B"] + 2.5 * d["A"]),
+        "add_column": ("elem", lambda: T.add_column(x(Vr), x(A)),
+                       lambda: d["A"] + Vr[:, None]),
+        "add_row": ("elem", lambda: T.add_row(x(Vc), x(A)),
+                    lambda: d["A"] + Vc[None, :]),
+        "square": ("elem", lambda: T.square(x(A)), lambda: d["A"] ** 2),
+        "exp": ("elem", lambda: T.exp(x(A)), lambda: np.exp(d["A"])),
+        "log": ("elem", lambda: T.log(x(P)), lambda: np.log(d["P"])),
+        "sqrt": ("elem", lambda: T.sqrt(x(P)), lambda: np.sqrt(d["P"])),
+        "pow": ("elem", lambda: T.pow(x(P), 1.5), lambda: d["P"] ** 1.5),
+        "tanh": ("elem", lambda: T.tanh(x(A)), lambda: np.tanh(d["A"])),
+        "sigmoid": ("elem", lambda: T.sigmoid(x(A)),
+                    lambda: 1 / (1 + np.exp(-d["A"]))),
+        "softmax": ("sum", lambda: T.softmax(x(A), -1),
+                    lambda: softmax64(d["A"])),
+        "sum": ("sum", lambda: T.sum(x(A), 1, True),
+                lambda: d["A"].sum(1, keepdims=True)),
+        "sum_all": ("sum", lambda: T.sum_all(x(A)), lambda: d["A"].sum()),
+        "sum_columns": ("sum", lambda: T.sum_columns(x(A)),
+                        lambda: d["A"].sum(1)),
+        "sum_rows": ("sum", lambda: T.sum_rows(x(A)),
+                     lambda: d["A"].sum(0)),
+        "mean": ("sum", lambda: T.mean(x(A), 0), lambda: d["A"].mean(0)),
+        "matmul": ("sum", lambda: T.matmul(x(A), x(M)),
+                   lambda: d["A"] @ d["M"]),
+        "mult": ("sum", lambda: T.mult(x(A), x(M)), lambda: d["A"] @ d["M"]),
+        "tensordot": ("sum", lambda: T.tensordot(x(A), x(M), 1),
+                      lambda: np.tensordot(d["A"], d["M"], 1)),
+        "batchmatmul": ("sum", lambda: T.batchmatmul(x(Q), x(K)),
+                        lambda: d["Q"] @ d["K"]),
+        "einsum": ("sum", lambda: T.einsum("ij,jk->ik", x(A), x(M)),
+                   lambda: d["A"] @ d["M"]),
+        "gaussian": ("stat", lambda: T.gaussian(shape, 1.0, 2.0, dev,
+                                                torch.float32),
+                     lambda: (1.0, 2.0)),
+        "uniform": ("stat", lambda: T.uniform(shape, -1.0, 3.0, dev,
+                                              torch.float32),
+                    lambda: (1.0, 4 / 12 ** 0.5)),
+        "bernoulli": ("stat", lambda: T.bernoulli(shape, 0.3, dev,
+                                                  torch.float32),
+                      lambda: (0.3, (0.3 * 0.7) ** 0.5)),
+    }
+    rows = []
+    for name, (kind, got_fn, want_fn) in cases.items():
+        got, want = got_fn(), want_fn()
+        if kind == "value":
+            ok, err = got == want, None
+        elif kind == "stat":
+            g = got.double()
+            err = max(abs(g.mean().item() - want[0]),
+                      abs(g.std().item() - want[1]))
+            ok = got.device == dev.torch_device and err <= TENSOR_STAT_TOL
+        else:
+            outs = list(got) if isinstance(got, (list, tuple)) else [got]
+            wants = list(want) if isinstance(want, list) else [want]
+            on = all(not isinstance(o, torch.Tensor)
+                     or o.device == dev.torch_device for o in outs)
+            outs = [T.to_numpy(o) if isinstance(o, torch.Tensor)
+                    else np.asarray(o) for o in outs]
+            if kind == "exact":
+                err = None
+                ok = on and len(outs) == len(wants) and all(
+                    o.dtype == w.dtype and np.array_equal(o, w)
+                    for o, w in zip(outs, wants))
+            else:
+                (o,), (w,) = outs, wants
+                err = float(np.abs(o - w).max() / np.abs(w).max())
+                tol = TENSOR_RTOL if kind == "elem" else TENSOR_SUM_RTOL
+                ok = (on and o.shape == np.shape(w)
+                      and (o.dtype == f32 or o.ndim == 0) and err <= tol)
+        rows.append({"name": name, "kind": kind, "ok": bool(ok),
+                     "err": err})
+    return rows
+
+
+def phase_tensor():
+    """singa_tpu_torch.tensor on the card: every module function once at
+    base()'s widths against numpy (`tensor_checks`)."""
+    from singa_tpu_torch import device
+    from singa_tpu_torch import tensor as T
+
+    t0 = time.perf_counter()
+    dev = device.create_device("auto")
+    rows = tensor_checks(dev)
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "tensor", "device": str(dev.torch_device),
+          "shape": list(TENSOR_SHAPE), "dtype": "float32",
+          "functions": len(rows), "agreed": len(rows) - len(bad),
+          "disagreed": bad,
+          "max_rel_err": {r["name"]: r["err"] for r in rows
+                          if r["kind"] in ("elem", "sum")},
+          "phase_seconds": time.perf_counter() - t0})
+    public = set(T.__all__) - {"Tensor"}
+    named = {r["name"] for r in rows}
+    check(named == public, f"tensor functions without a case: "
+          f"{sorted(public - named)}")
+    check(not bad, f"tensor functions disagree with numpy: {bad}")
+
+
 def train_run_model():
     """The train_run phase's model and loader: GPT-2 124M (GPT2Config(),
     fused loss, dropout 0.1) on the card with f32 masters from seed 0,
@@ -4733,7 +5302,11 @@ def train_run_retried(tmp, store, u, later):
 def train_run_hung(tmp, base, later):
     """H: a child whose step at index RUN_HANG_STEP hangs RUN_HANG[1] s
     under step_timeout RUN_HANG[0] must exit 42 within step_timeout + 2
-    s of the hang's start, leaving a "hung" record and a flight dump."""
+    s of the hang's start, leaving a "hung" record and a flight dump.
+    Where that time went, on the wall clock from the hang's start: to
+    the record's stamp (the watchdog's wait and the flight dump), to the
+    store's rewrite (the record's lock and fsync), to the FATAL line on
+    stderr, and to the exit."""
     from singa_tpu_torch.obs.record import RunRecord
     t0 = time.perf_counter()
     timeout, delay = RUN_HANG
@@ -4744,6 +5317,7 @@ def train_run_hung(tmp, base, later):
     with _Child(spec, env) as c:
         t_hang, _ = c.wait_for(
             lambda o: o.get("step_done", 0) >= RUN_HANG_STEP)
+        wall_hang = time.time() - (time.perf_counter() - t_hang)
         rc = c.proc.wait(timeout=RUN_CHILD_TIMEOUT_S)
         exit_s = time.perf_counter() - t_hang
     hung = [e for e in RunRecord(spec["store"]).entries()
@@ -4751,6 +5325,12 @@ def train_run_hung(tmp, base, later):
     ref = hung[-1]["payload"].get("flight_ref") if hung else None
     out = {"run": "H", "rc": rc, "hang_to_exit_s": exit_s,
            "limit_s": timeout + 2, "step_timeout": timeout,
+           "hang_to_s": {
+               "record_stamp": hung[-1]["created_at"] - wall_hang
+               if hung else None,
+               "store_written": os.path.getmtime(spec["store"]) - wall_hang,
+               "fatal_line": os.path.getmtime(c.err_path) - wall_hang,
+               "exit": exit_s},
            "record": hung[-1]["payload"] if hung else None,
            "flight_dump_exists": bool(ref) and (
                Path(spec["store"]).parent / ref).exists(),
@@ -4787,9 +5367,9 @@ def _in_threads(*fns):
 def phase_train_run(builder=RUN_BUILDER):
     """Fault-tolerant training runs of GPT-2 124M through
     singa_tpu_torch.train: U uninterrupted, alone in this process; then
-    three children at once: P (preempted), T+K (a commit torn, then
-    killed mid-write) and H (hung); then P's and T+K's resumes at once,
-    beside R (a retried step, then retries exhausted, and its resume)
+    a child H (hung) alone; then two children at once: P (preempted)
+    and T+K (a commit torn, then killed mid-write); then P's and T+K's
+    resumes at once, beside R (a retried step, then retries exhausted, and its resume)
     in this process.  Each resumed run held to U bitwise in losses and
     final state."""
     import shutil
@@ -4811,11 +5391,12 @@ def phase_train_run(builder=RUN_BUILDER):
         show({"config": "GPT2Config() (GPT-2 124M), fused_loss, dropout "
                         "0.1, AdamW", **u})
         show({"run": "tools", **tools})
-        p, tk, h = _in_threads(
+        # H alone: its exit time is the watchdog's, not the fsyncs of
+        # P's and T+K's checkpoint writes
+        show(train_run_hung(tmp, base, later))
+        p, tk = _in_threads(
             lambda: train_run_preempt_first(tmp, base, later),
-            lambda: train_run_torn_first(tmp, base, later),
-            lambda: train_run_hung(tmp, base, later))
-        show(h)
+            lambda: train_run_torn_first(tmp, base, later))
         p, tk, r = _in_threads(
             lambda: train_run_preempt_resume(tmp, u, p, later),
             lambda: train_run_torn_resume(tmp, u, tk, later),
@@ -5363,17 +5944,17 @@ def _kernel_kind(name):
 
 
 
-def _profiled(fn, settle_s=None):
+def _profiled(fn, warmup=PROFILE_WARMUP):
     """fn() under torch.profiler with CPU and CUDA activities: (the
-    profile, fn's wall ms to the card's end).  The profiler runs
-    `settle_s` (default PROFILE_SETTLE_S) with the card idle before fn
-    starts: see PROFILE_SETTLE_S."""
+    profile, fn's wall ms to the card's end).  `warmup` spin kernels run
+    and finish under the profiler before fn starts: see PROFILE_WARMUP."""
     from torch.profiler import ProfilerActivity, profile
-    settle_s = PROFILE_SETTLE_S if settle_s is None else settle_s
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        time.sleep(settle_s)
+        for _ in range(warmup):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5381,14 +5962,19 @@ def _profiled(fn, settle_s=None):
     return prof, wall_ms
 
 
+def _is_warmup(name):
+    return "spin_kernel" in name
+
+
 def phase_profile(fn, what, expect):
     """Where one call's time goes on the card: device time of every
     kernel under torch.profiler, by kind, against the wall time of the
     same (profiled) call, the host's idle share of the card, and each
     hand-written kernel's launches, which must be `expect`: as the
-    kernels counted them on the card, and by name in the profile.  A
-    profiler that records no device time reports "not measured" for the
-    times and the names instead of failing the run."""
+    kernels counted them on the card, and by name in the profile.  The
+    warm-up's records are left out of all of it.  A profiler that
+    records no device time reports "not measured" for the times and the
+    names instead of failing the run."""
     from torch.autograd import DeviceType
     from singa_tpu_torch.ops import flash_attention as fa
 
@@ -5396,11 +5982,15 @@ def phase_profile(fn, what, expect):
     prof, wall_ms = _profiled(fn)
     counted = fa.device_launches()
     counted = {k: counted[k] for k in expect}
-    by_name = {}
+    by_name, warm = {}, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if _is_warmup(e.name):
+            warm += 1
+            continue
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     by_kind, count = {}, {}
     for name, (ms, n) in by_name.items():
@@ -5412,6 +6002,7 @@ def phase_profile(fn, what, expect):
     device_events = sum(n for _, n in by_name.values())
     emit({"phase": "profile", "what": what,
           "wall_ms_profiled": wall_ms, "device_events": device_events,
+          "warmup_records": {"launched": PROFILE_WARMUP, "kept": warm},
           "device_busy_ms": busy_ms if busy_ms else "not measured",
           "device_busy_share": busy_ms / wall_ms if busy_ms
           else "not measured",
@@ -5431,23 +6022,22 @@ def phase_profile(fn, what, expect):
             "device_busy_ms": busy_ms, "device_events": device_events}
 
 
-def profile_drops(n=PROFILE_REPEATS):
-    """How often torch.profiler misses device records that phase_profile
-    gates on: GPT-2 124M's replayed train step (phase transformer's: the
-    fused loss, SGD momentum 0.9, B, T = GPT2_TRAIN) profiled `n` times
-    through `_profiled` with no pause after the profiler starts and `n`
-    times with PROFILE_SETTLE_S, alternating, the first at the first
-    replay after the capture, each against the launches the kernels
-    counted on the card.  One line for each profile whose records differ
-    from the most common profile's: the names that differ, and how many
-    of the usual records, in start order, it lacks at the start; then a
-    summary for each pause.  Not part of the script's run: `python3 -c
-    "import chip_smoke as c; c.profile_drops()"` on the card, TF32 off."""
-    from collections import Counter
+def profile_drops(duration_s=PROFILE_PROBE_S):
+    """How many device records torch.profiler loses as the process ages:
+    GPT-2 124M's replayed train step (phase transformer's: the fused
+    loss, SGD momentum 0.9, B, T = GPT2_TRAIN) profiled through
+    `_profiled` with no warm-up and with PROFILE_WARMUP, one after the
+    other, then PROFILE_GAP_S of unprofiled replays, for `duration_s`.
+    A line for each profile: the process's age, the call's device
+    records, how many fewer than the most any profile kept, the warm-up
+    records kept, and the flash launches by name and as counted on the
+    card.  Not part of the script's run: `python3 -c "import chip_smoke
+    as c; c.profile_drops()"` on the card."""
     from torch.autograd import DeviceType
     from singa_tpu_torch import opt
     from singa_tpu_torch.models import GPT2Config
     from singa_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
     b, t = GPT2_TRAIN
     m = gpt2_model(dataclasses.replace(GPT2Config(), fused_loss=True))
     m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
@@ -5457,43 +6047,29 @@ def profile_drops(n=PROFILE_REPEATS):
         m.train_step(x)
     torch.cuda.synchronize()
     runs = []
-    for i in range(2 * n):
-        settle = PROFILE_SETTLE_S if i % 2 else 0.0
-        fa.reset_device_launches()
-        prof, _ = _profiled(lambda: m.train_step(x), settle)
-        seq = [e.name for e in sorted(
-            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
-            key=lambda e: e.time_range.start)]
-        runs.append((settle, fa.device_launches(), seq))
-    usual = Counter(tuple(seq) for *_, seq in runs).most_common(1)[0][0]
-    usual_names = Counter(usual)
-    odd = {}
-    for i, (settle, counted, seq) in enumerate(runs):
-        if tuple(seq) == usual:
-            continue
-        names = Counter(seq)
-        seen = Counter()
-        for name, k in names.items():
-            seen[_kernel_kind(name)] += k
-        lost = len(usual) - len(seq)
-        odd.setdefault(settle, []).append(i)
-        emit({"phase": "profile_drops", "profile": i, "settle_s": settle,
-              "device_events": len(seq), "usual_device_events": len(usual),
-              "lacks_the_first": lost if lost > 0
-              and tuple(seq) == usual[lost:] else None,
-              "flash_by_name": {k: seen[k] for k in fa.KERNELS},
-              "flash_counted_on_card": counted,
-              "differing": {k[:90]: [names.get(k, 0), usual_names.get(k, 0)]
-                            for k in set(names) | set(usual_names)
-                            if names.get(k, 0) != usual_names.get(k, 0)}})
-    for settle in (0.0, PROFILE_SETTLE_S):
-        emit({"phase": "profile_drops", "settle_s": settle, "profiles": n,
-              "usual_device_events": len(usual),
-              "profiles_that_differ": odd.get(settle, []),
-              "counted_on_card_always": all(
-                  c == dict.fromkeys(fa.KERNELS, m.cfg.num_layers)
-                  for st, c, _ in runs if st == settle)})
-    return odd
+    while time.perf_counter() - t0 < duration_s:
+        for warmup in (0, PROFILE_WARMUP):
+            fa.reset_device_launches()
+            prof, _ = _profiled(lambda: m.train_step(x), warmup)
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            kinds = [_kernel_kind(n) for n in names if not _is_warmup(n)]
+            runs.append({"age_s": time.perf_counter() - t0,
+                         "warmup": warmup,
+                         "device_events": len(kinds),
+                         "warmup_kept": len(names) - len(kinds),
+                         "flash_by_name": {k: kinds.count(k)
+                                           for k in fa.KERNELS},
+                         "flash_counted_on_card": fa.device_launches()})
+        t1 = time.perf_counter()
+        while time.perf_counter() - t1 < PROFILE_GAP_S:
+            m.train_step(x)
+        torch.cuda.synchronize()
+    most = max(r["device_events"] for r in runs)
+    for r in runs:
+        emit({"phase": "profile_drops", **r,
+              "lost": most - r["device_events"]})
+    return runs
 
 
 def _bound(flops, nbytes):
@@ -5801,7 +6377,8 @@ def main():
     disagg_launches = timed_phase("disagg", phase_disagg, m, serve_ctx)
     timed_phase("net", phase_net, serve_ctx)
     beam_launches = timed_phase("beam", phase_beam, m)
-    del m, serve_ctx
+    del serve_ctx
+    park(m)                       # for the hf phase
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = timed_phase("train", phase_train, faults)
@@ -5810,6 +6387,9 @@ def main():
     moe = timed_phase("moe", phase_moe)
     cnn_launches = timed_phase("cnn", phase_cnn)
     transformer = timed_phase("transformer", phase_transformer)
+    hf = timed_phase("hf", phase_hf, m)
+    del m
+    timed_phase("tensor", phase_tensor)
     train_run_launches = timed_phase("train_run", phase_train_run)
     sonnx_launches = timed_phase("sonnx", phase_sonnx,
                                  transformer["bert"]["step"])
@@ -5871,6 +6451,13 @@ def main():
             "launches": gp["remat"][r["name"]], "steps": REMAT_STEPS,
             "per_step": gp["remat"][r["name"]] / REMAT_STEPS}
         by_path["rnn"] = {"launches": rnn_launches[r["name"]]}
+        by_path["hf"] = {
+            name: {"generate": {"launches": res["generate"]["launches"][
+                       "imported"][r["name"]], "calls": 1},
+                   **({"train": {"launches": res["train"]["runs"][
+                       "imported"]["launches"][r["name"]],
+                       "steps": HF_STEPS}} if "train" in res else {})}
+            for name, res in hf.items()}
         by_path["train_run"] = {
             "launches": train_run_launches[r["name"]],
             "steps": RUN_STEPS,

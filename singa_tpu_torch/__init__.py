@@ -19,6 +19,8 @@ the tests use.
 __version__ = "0.1.0"
 
 from . import device
+from . import proto
+from . import tensor
 from . import autograd
 from . import layer
 from . import model
@@ -35,6 +37,6 @@ from . import parallel
 from . import autotune
 from . import train
 
-__all__ = ["device", "autograd", "layer", "model", "opt", "graph", "ops",
+__all__ = ["device", "proto", "tensor", "autograd", "layer", "model", "opt", "graph", "ops",
            "models", "utils", "obs", "faults", "serve", "sonnx", "parallel",
            "autotune", "train"]

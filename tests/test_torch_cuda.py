@@ -1575,3 +1575,44 @@ def test_index_and_gather_capture_with_out_of_range_ids(cuda_device):
     table = runs[True][1]
     assert torch.equal(table[9:], start[9:])
     assert not torch.equal(table[int(ids[2, 1])], start[int(ids[2, 1])])
+
+
+@pytest.mark.cuda
+def test_hf_layout_round_trip_on_the_card(cuda_device):
+    """A tiny Llama, a windowed one (the window binds at P = 512) and an
+    MoE one in the Mixtral layout written by hand, through the HF layout
+    and its importers on the card (no transformers): parameters,
+    configuration, logits and greedy streams bitwise the source's, the
+    flash forward once a layer a generate() call (the hf phase's
+    `hf_round_trip`)."""
+    import chip_smoke
+
+    checks = []
+    base = dict(vocab_size=256, dim=256, num_layers=2, num_heads=4,
+                num_kv_heads=2, ffn_dim=512, max_position=1024,
+                rope_theta=10000.0)
+    for kw, export in ((dict(rope_scaling=8.0,
+                             rope_scaling_original_max_position=256), None),
+                       (dict(sliding_window=256), None),
+                       (dict(num_experts=4, moe_top_k=2,
+                             moe_capacity_factor=2.0),
+                        chip_smoke.mixtral_layout)):
+        src = Llama(LlamaConfig(**base, **kw), device=cuda_device,
+                    generator=torch.Generator("cuda").manual_seed(0))
+        res, _ = chip_smoke.hf_round_trip(
+            src, str(kw), lambda ok, msg: checks.append((ok, msg)),
+            export=export, gen=(1, 512, 4))
+        assert res["generate"]["launches"]["imported"]["flash_fwd"] == 2
+    assert [msg for ok, msg in checks if not ok] == []
+
+
+@pytest.mark.cuda
+def test_tensor_functions_on_the_card(cuda_device):
+    """Every function of singa_tpu_torch.tensor on the card against numpy
+    (the tensor phase's `tensor_checks`, at a smaller shape)."""
+    import chip_smoke
+    from singa_tpu_torch import tensor as ttensor
+
+    rows = chip_smoke.tensor_checks(cuda_device, (1024, 512))
+    assert len(rows) == len(ttensor.__all__) - 1
+    assert [r for r in rows if not r["ok"]] == []

@@ -219,7 +219,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "singa_tpu_torch/train/loop.py",
             "singa_tpu_torch/train/preempt.py",
             "singa_tpu_torch/utils/timing.py",
-            "singa_tpu_torch/utils/profiler.py"} <= names
+            "singa_tpu_torch/utils/profiler.py",
+            "singa_tpu_torch/tensor.py",
+            "singa_tpu_torch/proto.py",
+            "singa_tpu_torch/models/convert.py",
+            "singa_tpu_torch/tools/obsq.py"} <= names
     assert len(files) > 10
     found = {str(f.relative_to(REPO)): _forbidden_imports(f) for f in files}
     assert not {f: b for f, b in found.items() if b}
