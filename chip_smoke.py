@@ -5923,6 +5923,178 @@ def phase_dist():
              for mode, run in llama.items()}, cnn_launches)
 
 
+# phase spmd: base() training under the three-axis mesh at a world of 1
+# (every Linear and embedding in its Megatron form, every collective
+# over a group of one), SPMD_STEPS steps from the same weights against
+# the plain step, then TRAIN_STEPS timed replays beside the plain step's
+SPMD_STEPS = 5
+
+
+def replay_ms(m, x, steps=TRAIN_STEPS):
+    """`steps` train_step calls of a captured model on batch `x`: their
+    median ms and each kernel's launches on the card per step."""
+    from singa_tpu_torch.ops import flash_attention as fa
+    times, per_step = [], []
+    for _ in range(steps):
+        before = fa.device_launches()
+        times.append(_timed(lambda: m.train_step(x))[1])
+        after = fa.device_launches()
+        per_step.append({k: after[k] - before[k] for k in fa.KERNELS})
+    return sorted(times)[len(times) // 2] * 1e3, per_step
+
+
+def ring_block_ms(S, dtype=torch.bfloat16):
+    """Kernel ms of the last rank's blocks of a causal ring of S at
+    RING_SHAPE (its diagonal causal and S − 1 full blocks of T/S: the
+    most a rank makes), forward and the two backward kernels, beside one
+    whole-sequence call of each at the same shape."""
+    from singa_tpu_torch import kernel_check
+    from singa_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = kernel_check.ring_inputs("timing", dtype)
+    T = q.shape[1]
+    Tl = T // S
+    scale = q.shape[-1] ** -0.5
+    qi = q[:, T - Tl:].contiguous()
+    doi = do[:, T - Tl:].contiguous()
+    blocks = [(k[:, j * Tl:(j + 1) * Tl].contiguous(),
+               v[:, j * Tl:(j + 1) * Tl].contiguous(), j == S - 1)
+              for j in range(S)]
+
+    def bwd_args(q_, k_, v_, do_, causal):
+        o, lse = fa._flash_fwd_cuda(q_, k_, v_, causal, scale)
+        delta = (do_.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+        return (q_, k_, v_, do_, lse, delta.contiguous(), causal, scale)
+    rank_args = [bwd_args(qi, kb, vb, doi, c) for kb, vb, c in blocks]
+    whole_args = bwd_args(q, k, v, do, True)
+
+    def fwd_rank():
+        for kb, vb, c in blocks:
+            fa._flash_fwd_cuda(qi, kb, vb, c, scale)
+
+    def bwd_rank():
+        for a in rank_args:
+            fa._launch_dq(*a)
+            fa._launch_dkv(*a)
+    return {"S": S, "T_local": Tl, "rank": S - 1, "blocks": S,
+            "fwd_rank_ms": graph_time_ms(fwd_rank),
+            "fwd_whole_ms": graph_time_ms(
+                lambda: fa._flash_fwd_cuda(q, k, v, True, scale)),
+            "bwd_rank_ms": graph_time_ms(bwd_rank),
+            "bwd_whole_ms": graph_time_ms(
+                lambda: (fa._launch_dq(*whole_args),
+                         fa._launch_dkv(*whole_args)))}
+
+
+def phase_spmd():
+    """Tensor and sequence parallelism on the card, in an NCCL group of
+    1: (a) LlamaConfig.base() with the fused loss trains through
+    DistOpt(SGD) at phase train's cell under make_mesh(SPMD_AXES), its
+    step captured, held bitwise against the plain step from the same
+    weights and timed beside it; (b) ring attention's per-rank body
+    (kernel_check.RING_CASES) over the shards of one card with an
+    in-process hop, against the plain whole-sequence attention, its
+    flash launches counted, each planted ring fault caught, and the
+    kernel ms of one rank's blocks beside a whole-sequence call."""
+    import os
+    from singa_tpu_torch import device, kernel_check, opt, parallel
+    from singa_tpu_torch.models import Llama, LlamaConfig
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True)
+        m = Llama(cfg, device=device.create_device("cuda"),
+                  generator=torch.Generator("cuda").manual_seed(0))
+        rng = np.random.RandomState(11)
+        batches = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (TB, TT))
+                                   .astype(np.int32), device="cuda")
+                   for _ in range(SPMD_STEPS)]
+        make_opt = lambda: opt.SGD(lr=0.01, momentum=0.9)   # noqa: E731
+        # the plain step's replays, timed on this model before the
+        # multi-axis run cuts it (at a world of 1 the blocks are whole)
+        start = {n: p.detach().cpu() for n, p in m.get_params().items()}
+        m.set_optimizer(make_opt())
+        m.compile([batches[0]], is_train=True, use_graph=True)
+        for b in batches[:3]:
+            m.train_step(b)
+        plain_ms, _ = replay_ms(m, batches[0])
+        m.set_params(start)
+        del start
+        same = kernel_check.spmd_vs_plain(m, batches, make_opt)
+        parallel.set_mesh(None)
+        spmd_ms, per_step = replay_ms(m, batches[0])
+        forms = same["forms"]
+        later(same["bitwise"], f"the three-axis step is not the plain "
+              f"step bitwise: {same}")
+        later(same["gspmd"] and same["captured"],
+              f"the three-axis step did not take the multi-axis path "
+              f"captured: {same}")
+        later(forms["whole"] == 0 and forms["embedding"] == 1
+              and forms["column"] == 5 * cfg.num_layers + 1
+              and forms["row"] == 2 * cfg.num_layers,
+              f"layers not in their Megatron forms: {forms}")
+        later(all(s == dict.fromkeys(fa.KERNELS, cfg.num_layers)
+                  for s in per_step),
+              f"flash launches per three-axis step {per_step}, expected "
+              f"{cfg.num_layers} of each")
+        train = {"config": "LlamaConfig.base(), fused_loss=True",
+                 "B": TB, "T": TT, "axes": kernel_check.SPMD_AXES,
+                 "vs_plain": same, "median_step_ms": spmd_ms,
+                 "plain_median_step_ms": plain_ms,
+                 "phase_train": SUMMARY.get("train"),
+                 "launches_per_step": per_step}
+        del m
+        _free()
+    finally:
+        parallel.finalize_distributed()
+        _free()
+
+    # (b) the ring's per-rank body at base()'s attention shape
+    ring, ring_launches = [], {}
+    for label in kernel_check.RING_CASES:
+        for dtype in kernel_check.RING_DTYPES:
+            r = kernel_check.check_ring(label, dtype)
+            r.update(case=label, dtype=str(dtype)[6:])
+            ring.append(r)
+            ring_launches[f"{label}/{r['dtype']}"] = r["launches"]
+            _free()
+    bad = [f"{r['case']}/{r['dtype']}" for r in ring if not r["ok"]]
+    later(not bad, f"ring cases disagree with the whole-sequence "
+          f"attention: {bad}")
+    bad = [f"{r['case']}/{r['dtype']}" for r in ring if not r["launches_ok"]]
+    later(not bad, f"ring cases launched other counts than "
+          f"ring_launches: {bad}")
+    faulty = {}
+    for name, (label, dtype, _) in kernel_check.RING_FAULTS.items():
+        S, causal = kernel_check.RING_CASES[label]
+        with kernel_check.ring_fault(name):
+            faulty[name] = {"case": label, "dtype": str(dtype)[6:],
+                            **kernel_check.ring_errors(
+                                *kernel_check.ring_inputs(label, dtype),
+                                S, causal, dtype)}
+        later(not faulty[name]["ok"], f"planted ring fault {name} passes "
+              f"the limits: {faulty[name]}")
+        _free()
+    timing = [ring_block_ms(S) for S in (2, 4)]
+    _free()
+    emit({"phase": "spmd", "nvidia_smi": smi_line(), "train": train,
+          "ring_shape": dict(zip("BTHKD", kernel_check.RING_SHAPE)),
+          "ring": ring, "ring_faults": faulty, "ring_block_ms": timing,
+          "p2p_under_capture": "not run: a world of 1 makes no hop",
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return {"base_train": {"steps": TRAIN_STEPS,
+                           "per_step": per_step[0]},
+            "ring": ring_launches}
+
+
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose")
 
 
@@ -6395,6 +6567,7 @@ def main():
                                  transformer["bert"]["step"])
     rnn_launches = timed_phase("rnn", phase_rnn)
     dist_llama, dist_cnn = timed_phase("dist", phase_dist)
+    spmd_launches = timed_phase("spmd", phase_spmd)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
@@ -6477,6 +6650,11 @@ def main():
                                 "per_step": n[r["name"]] / TRAIN_STEPS}
                for mode, n in dist_llama.items()},
             "resnet50": {"launches": dist_cnn[r["name"]]}}
+        by_path["spmd"] = {
+            "base_train": {"steps": TRAIN_STEPS, "per_step":
+                           spmd_launches["base_train"]["per_step"][r["name"]]},
+            "ring": {case: n[r["name"]]
+                     for case, n in spmd_launches["ring"].items()}}
 
         def at(row):
             return {key: row[key] for key in (

@@ -376,35 +376,60 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _FusedLinearCE(torch.autograd.Function):
     """lm-head matmul + softmax-CE over row chunks: the (n, V) logits
-    are never materialised.  The forward keeps each row's lse; the
-    backward recomputes each chunk's logits and accumulates dW in f32
-    (the reference's FusedLinearCrossEntropy)."""
+    are never materialised.  The forward keeps each row's lse (the steps
+    of ``torch.logsumexp``); the backward recomputes each chunk's logits
+    and accumulates dW in f32 (the reference's FusedLinearCrossEntropy).
+
+    With `axis`, w holds this rank's columns of a vocabulary of `vocab`
+    cut over that mesh axis (``parallel.tensor_parallel``): each row's
+    max and sum of exponentials are all-reduced over it, and the
+    target's logit taken on the rank that holds it; dh is then this
+    rank's part, which the caller's ``copy_to_region`` sums.  On an axis
+    of one rank every value is the plain function's, bit for bit.  The
+    summed loss is divided by `denom` (default n, the mean)."""
 
     @staticmethod
-    def forward(ctx, h, w, target, chunk):
-        n, d = h.shape
+    def forward(ctx, h, w, target, chunk, vocab=None, denom=None,
+                axis=None):
+        n = h.shape[0]
         V = w.shape[-1]
         wc = w.to(h.dtype)
         tgt = target.reshape(-1).long()
-        valid = (tgt >= 0) & (tgt < V)
+        valid = (tgt >= 0) & (tgt < (vocab or V))
+        if axis is None:
+            def allreduce(x, op):
+                return x
+        else:
+            from .parallel import communicator as comm
+
+            def allreduce(x, op):
+                return comm.allreduce(x, axis, op)
+            tgt = tgt - comm.axis_index(axis) * V
+        mine = (tgt >= 0) & (tgt < V)
         tgt = tgt.clamp(0, V - 1)
         lse = torch.empty(n, dtype=torch.float32, device=h.device)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for s in range(0, n, chunk):
             lg = _mm_f32(h[s:s + chunk], wc)
-            lse[s:s + chunk] = torch.logsumexp(lg, dim=-1)
+            mx = allreduce(lg.amax(dim=-1, keepdim=True), "max")
+            mx.masked_fill_(mx.abs() == float("inf"), 0.0)
+            se = allreduce((lg - mx).exp_().sum(dim=-1), "sum")
+            lse[s:s + chunk] = se.log_().add_(mx[:, 0])
             zt = lg.gather(1, tgt[s:s + chunk, None])[:, 0]
+            zt = allreduce(torch.where(mine[s:s + chunk], zt,
+                                       torch.zeros_like(zt)), "sum")
             total += torch.where(valid[s:s + chunk], lse[s:s + chunk] - zt,
                                  torch.zeros_like(zt)).sum()
-        ctx.save_for_backward(h, wc, tgt, valid, lse)
+        ctx.save_for_backward(h, wc, tgt, mine, valid, lse)
         ctx.chunk, ctx.w_dtype = chunk, w.dtype
-        return total / n
+        ctx.denom = float(n if denom is None else denom)
+        return total / ctx.denom
 
     @staticmethod
     def backward(ctx, dy):
-        h, wc, tgt, valid, lse = ctx.saved_tensors
+        h, wc, tgt, mine, valid, lse = ctx.saved_tensors
         n = h.shape[0]
-        scale = dy.float() / n
+        scale = dy.float() / ctx.denom
         dw = torch.zeros(wc.shape, dtype=torch.float32, device=h.device)
         dh = torch.empty_like(h)
         rows = torch.arange(min(ctx.chunk, n), device=h.device)
@@ -412,11 +437,11 @@ class _FusedLinearCE(torch.autograd.Function):
             hc = h[s:s + ctx.chunk]
             c = hc.shape[0]
             g = torch.exp(_mm_f32(hc, wc) - lse[s:s + c, None])
-            g[rows[:c], tgt[s:s + c]] -= 1.0
+            g[rows[:c], tgt[s:s + c]] -= mine[s:s + c].to(g.dtype)
             g = (g * valid[s:s + c, None] * scale).to(h.dtype)
             dw += _mm_f32(hc.t(), g)
             dh[s:s + c] = _mm_f32(g, wc.t()).to(h.dtype)
-        return dh, dw.to(ctx.w_dtype), None, None
+        return dh, dw.to(ctx.w_dtype), None, None, None, None, None
 
 
 def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target,

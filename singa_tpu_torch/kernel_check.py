@@ -5,13 +5,16 @@ and ``tests/test_torch_cuda.py``.  Beside them, planted faults: one-line
 changes to a kernel's source, each of the kind a wrong kernel could
 carry unseen.  Built from a copy of the source, each must fail the
 limits on its case; that shows the limits are tight enough to catch it.
-Last, what the paths of layer.Remat and the char-rnn are held to on
-the card.
+Then what the paths of layer.Remat and the char-rnn are held to on
+the card.  Last, ring attention's per-rank body over the shards of one
+card (``RING_CASES``), with its planted faults (``RING_FAULTS``), and the
+multi-axis training step against the plain one (``spmd_vs_plain``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import torch
 
@@ -25,7 +28,10 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
            "flash_bwd_fault_source", "flash_bwd_kernel",
            "bwd_repeats_bitwise", "REMAT_LAUNCHES_PER_BLOCK",
            "remat_launches", "CHAR_RNN", "CHAR_RNN_BATCH", "CHAR_RNN_LR",
-           "CHAR_RNN_STEPS", "CHAR_RNN_WINDOW"]
+           "CHAR_RNN_STEPS", "CHAR_RNN_WINDOW", "RING_SHAPE", "RING_CASES",
+           "RING_DTYPES", "RING_FAULTS", "ring_launches", "LocalRing",
+           "ring_run", "ring_inputs", "ring_errors", "check_ring",
+           "ring_fault", "SPMD_AXES", "megatron_forms", "spmd_vs_plain"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
@@ -311,3 +317,208 @@ CHAR_RNN_BATCH = (64, 64)                 # (batch, seqlen)
 CHAR_RNN_LR = 3e-3
 CHAR_RNN_STEPS = 40
 CHAR_RNN_WINDOW = 5
+
+
+# -- ring attention (ops/ring_attention.py) -----------------------------------
+# The ring's per-rank body, run over the S shards of one card with an
+# in-process hop (`LocalRing`): every rank's blocks through the flash
+# kernels, merged on their lse, then the backward ring through autograd
+# with each block's two backward kernels.  The shape is LlamaConfig.base()'s
+# attention in training (B=8, T=1024, 16 heads over 8 kv heads, head dim
+# 128); label: (S, causal), run in bf16 and f32.  Held against the port's
+# plain whole-sequence attention (`_flash_fwd_reference`,
+# `_flash_bwd_reference`) by the flash limits above: the merge adds one
+# f32 rescale a block, and in bf16 the blocks' outputs and the rank's
+# summed dq are rounded once more than the whole-sequence kernel's.
+RING_SHAPE = (8, 1024, 16, 8, 128)        # B, T, H, K, D
+RING_CASES = {f"s{S}_{'causal' if c else 'full'}": (S, c)
+              for S in (2, 4) for c in (True, False)}
+RING_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def ring_launches(S: int, causal: bool) -> int:
+    """Each kernel's launches over the S ranks of one ring, forward and
+    backward (a block's backward launches dQ and dK/dV once): S² blocks,
+    of which the causal mask leaves S(S+1)/2 (the masked ones are
+    skipped)."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+class LocalRing:
+    """The hop of rank `index` of a ring whose S blocks all lie in this
+    process: a rank's (k, v) blocks, found by identity, give those of
+    rank index − RING_STEP (autograd takes each block's gradient back
+    to its own rank's slice)."""
+
+    def __init__(self, index, k_blocks, v_blocks):
+        self.index, self.size = index, len(k_blocks)
+        self.k, self.v = k_blocks, v_blocks
+        self._of = {id(t): j for j, t in enumerate(k_blocks)}
+
+    def __call__(self, k, v):
+        j = (self._of[id(k)] - _ring_module().RING_STEP) % self.size
+        return self.k[j], self.v[j]
+
+
+def _ring_module():
+    # ops/__init__ binds the name ring_attention to the function
+    return importlib.import_module(__package__ + ".ops.ring_attention")
+
+
+def ring_run(q, k, v, S, causal, do, use_flash=True):
+    """The ring over S in-process ranks on (B, T, H|K, D) q, k, v:
+    (o (B, T, H, D), lse (B, H, T, 1), (dq, dk, dv)) with the output's
+    gradient `do`."""
+    from .ops.ring_attention import ring_attention_local
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    qs, ks, vs = ([c.contiguous() for c in t.chunk(S, 1)] for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    outs, lses = [], []
+    for i in range(S):
+        o, lse = ring_attention_local(
+            qs[i], ks[i], vs[i], causal=causal, scale=scale,
+            use_flash=use_flash, hop=LocalRing(i, ks, vs), return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    o = torch.cat(outs, 1)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return o.detach(), torch.cat(lses, 2).detach(), grads
+
+
+def ring_inputs(label, dtype, device="cuda"):
+    """q, k, v and do for case `label` at RING_SHAPE."""
+    b, t, h, kh, d = RING_SHAPE
+    g = torch.Generator(device).manual_seed(len(label))
+
+    def rnd(*shape, std=0.3):
+        return (torch.randn(shape, generator=g, device=device) * std
+                ).to(dtype)
+    return (rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d),
+            rnd(b, t, h, d, std=1.0))
+
+
+def ring_errors(q, k, v, do, S, causal, dtype):
+    """The ring against the plain whole-sequence attention on the same
+    inputs: o, lse and dq/dk/dv by the flash limits."""
+    scale = q.shape[-1] ** -0.5
+    o, lse, grads = ring_run(q, k, v, S, causal, do)
+    ro, rl = fa._flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)[..., None]
+    ref = fa._flash_bwd_reference(q, k, v, do, rl, delta.contiguous(),
+                                  causal, scale)
+    fwd = flash_errors(o, lse, ro, rl, dtype)
+    bwd = flash_bwd_errors(grads, ref, dtype)
+    return {**{k_: v_ for k_, v_ in fwd.items() if k_ != "ok"},
+            **{k_: v_ for k_, v_ in bwd.items() if k_ != "ok"},
+            "ok": fwd["ok"] and bwd["ok"]}
+
+
+def check_ring(label, dtype):
+    """Case `label` in `dtype` on the card: its errors, and each
+    kernel's launches on the card against `ring_launches`."""
+    S, causal = RING_CASES[label]
+    inputs = ring_inputs(label, dtype)
+    before = fa.device_launches()
+    out = ring_errors(*inputs, S, causal, dtype)
+    after = fa.device_launches()
+    launches = {n: after[n] - before[n] for n in fa.KERNELS}
+    want = ring_launches(S, causal)
+    out.update(launches=launches, expected_launches=want,
+               launches_ok=all(n == want for n in launches.values()))
+    return out
+
+
+# planted faults of the ring's body, each of which must fail the limits
+# on its case: name -> (case, dtype, what it patches)
+RING_FAULTS = {
+    # the merge takes every held block as visible: the causal mask
+    # between blocks is lost (future blocks are merged in)
+    "merge_ignores_causal_mask": ("s4_causal", torch.bfloat16,
+                                  "_block_visible"),
+    # the hop sends each block to rank − 1 instead of rank + 1
+    "hop_turns_wrong_way": ("s4_causal", torch.bfloat16, "RING_STEP"),
+}
+
+
+@contextlib.contextmanager
+def ring_fault(name):
+    """Plant ring fault `name` in ``ops.ring_attention`` for the body of
+    the with-block."""
+    ra = _ring_module()
+    attr = RING_FAULTS[name][2]
+    saved = getattr(ra, attr)
+    setattr(ra, attr, (lambda s, index, causal: True)
+            if attr == "_block_visible" else -saved)
+    try:
+        yield
+    finally:
+        setattr(ra, attr, saved)
+
+
+# -- the multi-axis training step ---------------------------------------------
+# A world of 1 under all three axes: every Linear and embedding runs its
+# Megatron form and every collective runs over a group of one, the lm
+# head's loss is the vocab-parallel one; its losses and parameters must
+# equal the plain step's bit for bit.
+SPMD_AXES = {"data": 1, "model": 1, "seq": 1}
+
+
+def megatron_forms(m):
+    """Counts of `m`'s Linear and Embedding layers by the form their
+    recorded spec gives them (column, row, embedding, whole)."""
+    from . import layer
+    from .parallel import tensor_parallel as tp
+    forms = {"column": 0, "row": 0, "embedding": 0, "whole": 0}
+    for mod in m.modules():
+        if isinstance(mod, layer.Linear):
+            cut = tp.sharded_dim(mod.W)
+            forms[{1: "column", 0: "row"}.get(cut, "whole")] += 1
+        elif isinstance(mod, layer.Embedding):
+            forms["embedding" if tp.sharded_dim(mod.table) == 1
+                  else "whole"] += 1
+    return forms
+
+
+def spmd_vs_plain(m, batches, make_opt, axes=SPMD_AXES):
+    """From `m`'s weights, its training steps over `batches` in graph
+    mode (eager at the first two calls, captured from the third) with
+    make_opt() and no mesh, then with DistOpt(make_opt()) under
+    make_mesh(`axes`): each run's losses and parameters, held to each
+    other bitwise; the collectives staged in the multi-axis run's first
+    step; the layers' forms; whether its step was captured.  Needs a
+    process group of the mesh's size (make_mesh binds to it).  The
+    model is left cut by the rules (at a world of 1: whole blocks)."""
+    from . import faults, opt, parallel
+    def host(ps):            # copies, also where the model is on the CPU
+        return {n: p.detach().to("cpu", copy=True) for n, p in ps.items()}
+    start = host(m.get_params())
+    runs, staged = {}, 0
+    for multi in (False, True):
+        m.set_params(start)
+        parallel.set_mesh(parallel.make_mesh(axes) if multi else None)
+        try:
+            base = make_opt()
+            m.set_optimizer(opt.DistOpt(base) if multi else base)
+            m.compile([batches[0]], is_train=True, use_graph=True)
+            losses = []
+            for i, b in enumerate(batches):
+                plan = faults.FaultPlan()
+                with faults.active(plan):
+                    losses.append(m.train_step(b)[1].item())
+                if i == 0 and multi:
+                    staged = plan.calls.get("comm.collective", 0)
+        finally:
+            parallel.set_mesh(None)
+        runs[multi] = (losses, host(m.get_params()))
+    ex = next(e for e in m._executors.values() if e.is_train)
+    differ = [n for n, p in runs[False][1].items()
+              if not torch.equal(p, runs[True][1][n])]
+    return {"steps": len(batches), "plain_losses": runs[False][0],
+            "spmd_losses": runs[True][0],
+            "losses_bitwise": runs[False][0] == runs[True][0],
+            "params_differing": differ[:8],
+            "bitwise": runs[False][0] == runs[True][0] and not differ,
+            "gspmd": ex.gspmd, "captured": ex.captured is not None
+            and ex.captured.graph is not None,
+            "collectives_staged_first_step": staged,
+            "forms": megatron_forms(m)}

@@ -6,7 +6,16 @@ recurrent layers ``RNN`` and ``LSTM``, activation checkpointing
 ``BatchNorm2d``, ``MaxPool2d``, ``AvgPool2d``, ``GlobalAvgPool2d``,
 ``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``SiLU``, ``LeakyReLU``,
 ``Dropout``, ``Sequential`` and the loss layers ``CrossEntropyLoss``,
-``MSELoss``.  ``PipelineStack`` comes with the distribution slice.
+``MSELoss``.  ``PipelineStack`` comes with the pipeline slice (ROADMAP
+queue 1, item 5b).
+
+Tensor parallelism: a parameter that ``parallel.tensor_parallel.
+shard_params`` cut to its rank's block carries its spec (``tp_spec``),
+and ``Linear`` and ``Embedding`` run their Megatron forms from it:
+column-parallel (W ``(None, 'model')``, b ``('model',)``), row-parallel
+(W ``('model', None)``, the bias added once after the reduce) and an
+embedding table ``(None, 'model')`` looked up, then gathered on the
+hidden dim.
 
 Layers are ``nn.Module``s whose parameters are created at construction
 (the reference initializes lazily from the first input; here the caller
@@ -34,10 +43,12 @@ from torch.utils.checkpoint import checkpoint
 
 from . import autograd
 from .device import Device, get_default_device
+from .parallel import tensor_parallel as tp
 from .ops import kv_cache as kv_ops
 from .ops import rnn as rnn_ops
 from .ops.attention import attention
 from .ops.moe import moe_forward
+from .ops.ring_attention import ring_attention, seq_parallel
 
 __all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "LayerNorm", "Gelu",
            "Softmax", "MultiHeadAttention", "MoE", "RNN", "LSTM", "Remat",
@@ -102,7 +113,11 @@ class Layer(nn.Module):
 
 
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict) -> None:
+    """Copy src's arrays into dst's tensors of the same names; an array
+    at the full shape of a parameter cut over the mesh (tensor
+    parallelism) gives it this rank's block."""
     names = [n for n in dst if n in src]
+    src = {n: tp.to_local(dst[n], src[n]) for n in names}
     for n in names:
         if tuple(src[n].shape) != tuple(dst[n].shape):
             raise ValueError(f"{n}: shape {tuple(src[n].shape)} does not "
@@ -145,7 +160,24 @@ class Linear(Layer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _maybe_cast(self.W, x)
         b = None if self.b is None else _maybe_cast(self.b, x)
+        cut = tp.sharded_dim(self.W)
+        if cut == 1:                       # column-parallel
+            return autograd.linear(tp.copy_to_region(x), w, b)
+        if cut == 0:                       # row-parallel
+            y = tp.reduce_from_region(autograd.linear(x, w))
+            return y if b is None else y + b
         return autograd.linear(x, w, b)
+
+
+def head_units(layer: Layer, columns, rows, head_dim: int) -> None:
+    """Declare that the named Linear sublayers shard by whole heads of
+    `head_dim`: W's columns for `columns` (q, k, v projections), W's rows
+    for `rows` (the output projection); see ``tensor_parallel``."""
+    for name in columns:
+        getattr(layer, name).shard_units = {"W": (1, head_dim),
+                                            "b": (head_dim,)}
+    for name in rows:
+        getattr(layer, name).shard_units = {"W": (head_dim, 1)}
 
 
 def _maybe_cast(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -174,6 +206,8 @@ class Embedding(Layer):
         dt = self.device.default_dtype
         if dt != torch.float32:
             out = autograd.cast(out, dt)
+        if tp.sharded_dim(self.table) == 1:     # hidden-dim shards
+            out = tp.gather_from_region(out)
         return out
 
 
@@ -236,16 +270,26 @@ class MultiHeadAttention(Layer):
         self.k_proj = Linear(d, d, **kw)
         self.v_proj = Linear(d, d, **kw)
         self.out_proj = Linear(d, d, **kw)
+        head_units(self, ("q_proj", "k_proj", "v_proj"), ("out_proj",),
+                   d // num_heads)
 
     def forward(self, x: torch.Tensor, mask=None, cache=None, pos=0):
         B, T, D = x.shape
-        H = self.num_heads
-        q = self.q_proj(x).reshape(B, T, H, D // H)
-        k = self.k_proj(x).reshape(B, T, H, D // H)
-        v = self.v_proj(x).reshape(B, T, H, D // H)
+        hd = D // self.num_heads
+        # this rank's heads (all of them without a model axis)
+        q = self.q_proj(x).reshape(B, T, -1, hd)
+        k = self.k_proj(x).reshape(B, T, -1, hd)
+        v = self.v_proj(x).reshape(B, T, -1, hd)
         if cache is None:
-            o = attention(q, k, v, causal=self.causal, mask=mask)
-            return self.out_proj(o.reshape(B, T, D))
+            if seq_parallel()[0] > 1:
+                if mask is not None:
+                    raise NotImplementedError(
+                        "an attention mask under a 'seq' mesh axis: ring "
+                        "attention takes the causal mask only")
+                o = ring_attention(q, k, v, causal=self.causal)
+            else:
+                o = attention(q, k, v, causal=self.causal, mask=mask)
+            return self.out_proj(o.reshape(B, T, -1))
         ck, cv = kv_ops.update_cache(cache[0], cache[1], k, v, pos)
         if isinstance(pos, int) and pos == 0:
             o = attention(q, k, v, causal=self.causal, mask=mask)
@@ -264,6 +308,12 @@ class MoE(Layer):
     calls (eval forwards do not record); `pop_aux_loss()` returns their
     sum and resets: add it to the training loss once per step."""
 
+    # expert parallelism over an 'expert' axis, as the reference declares
+    # it (spmd.collect_shard_rules merges it); the port's meshes refuse
+    # that axis until ROADMAP item 5c, so the rule matches nothing yet
+    SHARD_RULES = [
+        (r"\.(w_in|w_out|w_gate)$", ("expert", None, None)),
+    ]
     # the aux-loss list is a side channel: a forward recomputed in the
     # backward (activation checkpointing) would append again, so
     # checkpointing skips any block that holds this layer

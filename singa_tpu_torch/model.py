@@ -20,11 +20,24 @@ scalar outputs (the loss) mean-allreduced and other outputs gathered
 back to the global batch.  The executor keeps the mesh it was made
 under, so ``set_mesh(None)`` leaves it data-parallel while new
 executors run single-process.
+
+Under a mesh with an axis other than the data axis (``model``, ``seq``),
+or with ZeRO-1, an executor takes the reference's multi-axis path (its
+GSPMD step; ``gspmd`` is True): the model's rules
+(``spmd.collect_shard_rules``) cut its parameters to this rank's blocks
+(``tensor_parallel.shard_params``, at ``compile`` and here; ``_param_sh``
+holds the specs), each rank takes its block of the global batch
+(``spmd.batch_spec``: rows over the data axis, token ids' positions over
+``seq``), DistOpt averages the gradients over every axis but ``model``,
+the scalar outputs are averaged over the same ranks and the others
+gathered to the global batch and sequence.  On the card the step,
+collectives included, is captured as one CUDA graph.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
@@ -40,6 +53,8 @@ from .obs import events as obs_events
 from .opt import DistOpt, Optimizer
 from .parallel import communicator as comm
 from .parallel import mesh as mesh_mod
+from .parallel import spmd
+from .parallel import tensor_parallel as tp
 from .parallel.distributed import local_batch
 
 __all__ = ["Model", "Module", "model_device"]
@@ -101,6 +116,9 @@ class Model(Layer):
         self.train(is_train)
         self._compiled_init = True
         self._executors.clear()
+        mesh = mesh_mod.current_mesh()
+        if _multi_axis(mesh, self.optimizer):
+            tp.shard_params(self, spmd.collect_shard_rules(self), mesh)
 
     def train_one_batch(self, x, y, *args):
         """Default train step; override for custom behavior."""
@@ -179,6 +197,22 @@ class Model(Layer):
 Module = Model
 
 
+def _data_axis(opt) -> str:
+    return opt.data_axis if isinstance(opt, DistOpt) else mesh_mod.DATA_AXIS
+
+
+def _multi_axis(mesh, opt) -> bool:
+    """The reference's GSPMD condition: a mesh with an axis other than
+    the data axis (of any size: at a world of 1 the model and seq forms
+    run over groups of one), or ZeRO-1."""
+    if mesh is None:
+        return False
+    extra = [a for a in mesh.shape if a != _data_axis(opt)]
+    zero1 = (isinstance(opt, DistOpt)
+             and spmd.zero1_axis_for(opt, mesh) is not None)
+    return bool(extra) or zero1
+
+
 def _slot_compatible(restored, fresh) -> bool:
     """True when a restored slot has the same structure and shapes as a
     freshly made one."""
@@ -237,25 +271,72 @@ class _StepExecutor:
         self._static_in = None
         self._static_out = None
         self.slots: Dict = {}
-        # the data-parallel step: DistOpt under a mesh with its axis
         mesh = mesh_mod.current_mesh()
-        self.mesh = (mesh if isinstance(self.opt, DistOpt) and mesh is not
-                     None and self.opt.data_axis in mesh.shape else None)
+        self.data_axis = _data_axis(model.optimizer)
+        # the multi-axis step (the reference's GSPMD path), else the
+        # data-parallel step: DistOpt under a mesh with its axis
+        self.gspmd = _multi_axis(mesh, model.optimizer)
+        dp = (isinstance(self.opt, DistOpt) and mesh is not None
+              and self.data_axis in mesh.shape)
+        self.mesh = mesh if self.gspmd or dp else None
+        self._rules = None
+        self._seq_cut = False
         with self._mesh_scope():
-            self.axis = self.opt.data_axis if self.mesh is not None else None
-            self.dist = self.axis is not None and comm.axis_bound(self.axis)
+            if self.gspmd:
+                self._build_gspmd(mesh)
+                self.axis = tuple(a for a in mesh.axis_names
+                                  if a != mesh_mod.MODEL_AXIS) or None
+                self.dist = mesh.bound
+            else:
+                self.axis = self.data_axis if self.mesh is not None else None
+                self.dist = self.axis is not None and comm.axis_bound(
+                    self.axis)
             self._init_slots()
+
+    def _build_gspmd(self, mesh) -> None:
+        """Cut the parameters by the model's rules and keep their specs
+        (``_param_sh``, as the reference's executor exposes them)."""
+        if isinstance(self.opt, DistOpt) and (
+                self.opt.compress_dtype is not None or self.opt.topk_ratio
+                or self.opt.compression is not None):
+            warnings.warn(
+                "DistOpt compressed/sparsified allreduce applies only on "
+                "1-D data-parallel meshes; on a multi-axis mesh the "
+                "gradients are averaged in f32 and these options are "
+                "ignored", stacklevel=3)
+        replicas = [a for a in mesh.axis_names if a != mesh_mod.MODEL_AXIS
+                    and mesh.shape[a] > 1]
+        if self.is_train and replicas and not isinstance(self.opt, DistOpt):
+            raise ValueError(
+                f"training under {mesh!r} needs opt.DistOpt: the ranks of "
+                f"{replicas} hold different data and only DistOpt "
+                f"averages their gradients")
+        self._rules = spmd.collect_shard_rules(self.model)
+        specs = tp.shard_params(self.model, self._rules, mesh)
+        self._param_sh = {n: mesh_mod.NamedSharding(mesh, sp)
+                          for n, sp in specs.items()}
+        self.param_tensors = dict(self.model.get_params())
 
     @contextmanager
     def _mesh_scope(self):
         """The mesh this executor was made under is current while it
-        runs (None for a single-process executor)."""
+        runs (None for a single-process executor), with, on the
+        multi-axis path, its data axis and the model's rules
+        installed."""
         saved = mesh_mod.current_mesh()
+        saved_axis = mesh_mod.current_data_axis()
+        saved_rules = spmd.current_trace_rules()
         mesh_mod.set_mesh(self.mesh)
         try:
+            if self.gspmd:
+                if self.data_axis in self.mesh.shape:
+                    mesh_mod.set_data_axis(self.data_axis)
+                spmd.set_trace_rules(self._rules)
             yield
         finally:
             mesh_mod.set_mesh(saved)
+            mesh_mod._data_axis = saved_axis
+            spmd.set_trace_rules(saved_rules)
 
     def _init_slots(self) -> None:
         if self.opt is not None:
@@ -289,13 +370,26 @@ class _StepExecutor:
     @torch.no_grad()
     def _sync_after(self, outs):
         """Mean-allreduce the float buffers, then replicate the outputs:
-        scalars mean-allreduced, the rest gathered to the global batch."""
+        scalars mean-allreduced, the rest gathered to the global batch
+        (over the data axis; on the multi-axis path also their positions
+        over ``seq``).  `self.axis`: the ranks that hold different data
+        (the multi-axis path: every axis but ``model``)."""
+        if self.axis is None:
+            return outs
         for b in self.model._get_buffers().values():
             if b.is_floating_point():
                 b.copy_(comm.allreduce(b, self.axis, "mean"))
-        return _map_tensors(
-            lambda t: (comm.allreduce(t, self.axis, "mean") if t.ndim == 0
-                       else comm.gather_batch(t, self.axis)), outs)
+        seq = self.gspmd and self._seq_cut
+
+        def out(t):
+            if t.ndim == 0:
+                return comm.allreduce(t, self.axis, "mean")
+            if self.data_axis in self.mesh.shape:
+                t = comm.gather_batch(t, self.data_axis)
+            if seq and t.ndim >= 2:
+                t = comm.gather_batch(t, mesh_mod.SEQ_AXIS, dim=1)
+            return t
+        return _map_tensors(out, outs)
 
     def __call__(self, batch):
         m, opt = self.model, self.opt
@@ -314,7 +408,13 @@ class _StepExecutor:
             _sync(self.device)
             t0 = time.perf_counter()
         if self.dist:
-            batch = tuple(local_batch(t) for t in batch)
+            with self._mesh_scope():
+                local = tuple(local_batch(t, data_axis=self.data_axis)
+                              for t in batch)
+            # a block of the sequence: outputs gather their positions
+            self._seq_cut = any(a.ndim == 2 and b.shape[1] != a.shape[1]
+                                for a, b in zip(local, batch))
+            batch = local
         with obs_events.span("graph.execute", graph=name, step=step_host):
             outs = self._dispatch(batch, name)
         if led is not None:

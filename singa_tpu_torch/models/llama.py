@@ -6,8 +6,16 @@ SwiGLU FFN, untied LM head; with Mistral-style sliding-window attention
 
 Ported: ``forward``, ``forward_cached`` and ``generate`` (serving), and
 ``train_one_batch`` with the fused or plain loss, the MoE balance loss
-and optional remat (``layer.Remat`` blocks, as GPT-2's) (training).  Pipeline stages come with the
-distribution slice and raise here rather than being ignored.
+and optional remat (``layer.Remat`` blocks, as GPT-2's) (training).
+
+``LLAMA_SHARD_RULES`` give Megatron tensor parallelism over a ``model``
+mesh axis (q/k/v, gate and up column-parallel, o and down row-parallel,
+the embedding table on its hidden dim, the lm head on its vocabulary,
+whose logits enter the vocab-parallel cross-entropy); the attention
+works on this rank's heads, each with the kv heads it reads.  Under a
+``seq`` axis the attention is ``ops.ring_attention`` and RoPE rotates at
+the global positions.  Pipeline stages come with the pipeline slice
+(ROADMAP item 5b) and raise here rather than being ignored.
 """
 
 from __future__ import annotations
@@ -22,11 +30,24 @@ from .. import autograd, layer, model
 from ..device import Device, get_default_device
 from ..ops import kv_cache as kv_ops
 from ..ops import rope as rope_ops
-from ..ops.attention import attention, banded_attention
+from ..ops.attention import banded_attention
+from ..ops.ring_attention import ring_attention, seq_parallel
+from ..parallel import tensor_parallel as tp
 from ._generate import GenerateMixin
-from .transformer import next_token_loss, next_token_loss_fused
+from .transformer import (_no_cached_tp, lm_head_vocab, next_token_loss,
+                          next_token_loss_fused)
 
-__all__ = ["LlamaConfig", "Llama", "PUBLISHED"]
+__all__ = ["LlamaConfig", "Llama", "PUBLISHED", "LLAMA_SHARD_RULES"]
+
+# Megatron tensor parallelism over the 'model' axis (the reference's
+# rules): q/k/v/gate/up column-parallel, o/down row-parallel, the
+# embedding on its hidden dim and the head on its vocabulary
+LLAMA_SHARD_RULES = [
+    (r"(q_proj|k_proj|v_proj|gate|up)\.W$", (None, "model")),
+    (r"(o_proj|down)\.W$", ("model", None)),
+    (r"tok_emb\.table$", (None, "model")),
+    (r"lm_head\.W$", (None, "model")),
+]
 
 
 @dataclass
@@ -119,7 +140,8 @@ def _check_supported(c: LlamaConfig) -> None:
     if c.pipeline_stages:
         raise NotImplementedError(
             f"LlamaConfig.pipeline_stages={c.pipeline_stages!r} is not "
-            "ported yet; it comes with the distribution slice")
+            "ported yet; it comes with the next distribution slice "
+            "(ROADMAP item 5b)")
 
 
 class _LlamaAttention(layer.Layer):
@@ -132,6 +154,8 @@ class _LlamaAttention(layer.Layer):
         self.k_proj = layer.Linear(c.num_kv_heads * c.head_dim, c.dim, **kw)
         self.v_proj = layer.Linear(c.num_kv_heads * c.head_dim, c.dim, **kw)
         self.o_proj = layer.Linear(c.dim, c.num_heads * c.head_dim, **kw)
+        layer.head_units(self, ("q_proj", "k_proj", "v_proj"), ("o_proj",),
+                         c.head_dim)
         cos, sin = rope_ops.rope_frequencies(
             c.head_dim, c.max_position, c.rope_theta, c.rope_scaling,
             c.rope_scaling_original_max_position)
@@ -143,23 +167,35 @@ class _LlamaAttention(layer.Layer):
     def _attend(self, q, k, v, T):
         """Causal attention within the block, banded when the window is
         shorter than the sequence (flash kernels with a window on the
-        card, the chunked path elsewhere)."""
+        card, the chunked path elsewhere); else ring attention, which
+        is ``ops.attention`` without a 'seq' axis."""
         W = self.cfg.sliding_window
-        if W and W < T:
+        S = seq_parallel()[0]
+        if W and W < T * S:
+            if S > 1:
+                raise NotImplementedError(
+                    "sliding_window attention does not compose with the "
+                    "'seq' (ring attention) mesh axis; drop the seq axis "
+                    "or use full causal attention")
             return banded_attention(q, k, v, W)
-        return attention(q, k, v, causal=True)
+        return ring_attention(q, k, v, causal=True)
 
     def forward(self, x: torch.Tensor, cache=None, pos=0):
         c = self.cfg
         B, T, _ = x.shape
-        q = self.q_proj(x).reshape(B, T, c.num_heads, c.head_dim)
-        k = self.k_proj(x).reshape(B, T, c.num_kv_heads, c.head_dim)
-        v = self.v_proj(x).reshape(B, T, c.num_kv_heads, c.head_dim)
+        hd = c.head_dim
+        # this rank's heads: all of them without a 'model' axis
+        q = self.q_proj(x).reshape(B, T, -1, hd)
+        k = self.k_proj(x).reshape(B, T, -1, hd)
+        v = self.v_proj(x).reshape(B, T, -1, hd)
+        if cache is None:
+            pos = seq_parallel()[1] * T          # the block's first position
         q = rope_ops.apply_rope(q, self.rope_cos, self.rope_sin, offset=pos)
         k = rope_ops.apply_rope(k, self.rope_cos, self.rope_sin, offset=pos)
+        k, v = tp.select_kv_heads(q, k, v, c.num_heads, c.num_kv_heads)
         if cache is None:
             o = self._attend(q, k, v, T)
-            return self.o_proj(o.reshape(B, T, c.num_heads * c.head_dim))
+            return self.o_proj(o.reshape(B, T, -1))
         ck, cv = kv_ops.update_cache(cache[0], cache[1], k, v, pos)
         if isinstance(pos, int) and pos == 0:
             # prefill: attend within the prompt through the regular stack
@@ -218,6 +254,8 @@ class Llama(GenerateMixin, model.Model):
     passes ``device=create_device("cpu")``), with f32 master weights
     drawn from `generator` (default: the device's generator)."""
 
+    SHARD_RULES = LLAMA_SHARD_RULES
+
     def __init__(self, cfg: Optional[LlamaConfig] = None,
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
@@ -249,11 +287,17 @@ class Llama(GenerateMixin, model.Model):
         return self.norm_f(x)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.lm_head(self.features(ids))
+        """Logits (B, T, V); an lm head cut over 'model' gathers its
+        columns."""
+        logits = self.lm_head(self.features(ids))
+        if lm_head_vocab(self.lm_head) is not None:
+            logits = tp.gather_from_region(logits)
+        return logits
 
     # -- KV-cached decoding ----------------------------------------------
     def init_caches(self, batch: int, max_len: int):
         c = self.cfg
+        _no_cached_tp(self.tok_emb.table)
         dtype = torch.bfloat16 if self.tok_emb.table.dtype == torch.bfloat16 \
             else torch.float32
         return kv_ops.init_cache(c.num_layers, batch, max_len,
@@ -289,8 +333,15 @@ class Llama(GenerateMixin, model.Model):
                                          tgt,
                                          chunk_rows=self.cfg.fused_loss_chunk)
         else:
-            logits = self.forward(ids)
-            loss = next_token_loss(logits, tgt)
+            # an lm head cut over 'model': its columns of the logits
+            # enter the vocab-parallel loss; the step returns them
+            # gathered
+            vocab = lm_head_vocab(self.lm_head)
+            logits = self.lm_head(self.features(ids))
+            loss = next_token_loss(logits, tgt, vocab)
+            if vocab is not None:
+                with torch.no_grad():
+                    logits = tp.gather_from_region(logits)
         if self.cfg.num_experts:
             aux = self._moe_aux_loss()
             if aux is not None:

@@ -11,7 +11,17 @@ without an explicit mask, the plain path otherwise (BERT at T = 128, any
 padding mask).  Widths are given at construction; parameter names and
 shapes equal the reference's ``get_params()``.  ``GPT2Config.remat``
 wraps each block in ``layer.Remat``, as the reference does, with the
-same parameter names.  Tensor-parallel shard rules and pipeline stages
+same parameter names.
+
+Both models carry ``TRANSFORMER_SHARD_RULES``: under a ``model`` mesh
+axis the step's executor cuts the parameters by them and the layers run
+their Megatron forms (``layer.Linear``, ``layer.Embedding``); GPT-2's
+tied head gathers its table's hidden-dim shards.  Under a ``seq`` axis
+GPT-2's attention runs as a ring and its positions are the global ones;
+BERT refuses a ``seq`` axis (its pooler reads the first token, which one
+rank holds).  The losses take this rank's block: the next-token targets
+are shifted on the global sequence (`_seq_targets`), and an lm head cut
+over ``model`` enters the vocab-parallel cross-entropy.  Pipeline stages
 are not ported.
 """
 
@@ -26,15 +36,32 @@ from torch import nn
 from .. import autograd, layer, model
 from ..device import Device, get_default_device
 from ..ops import kv_cache as kv_ops
+from ..ops.ring_attention import seq_parallel
+from ..parallel import communicator as comm
+from ..parallel import tensor_parallel as tp
 from ._generate import GenerateMixin
 
 __all__ = ["GPT2Config", "GPT2", "BERTConfig", "BERT", "next_token_loss",
-           "next_token_loss_fused_w", "next_token_loss_fused"]
+           "next_token_loss_fused_w", "next_token_loss_fused",
+           "TRANSFORMER_SHARD_RULES"]
 
+# Megatron tensor parallelism over the 'model' axis (the reference's
+# rules): first match wins; an axis the mesh lacks or that does not
+# divide the dim is dropped
+TRANSFORMER_SHARD_RULES = [
+    (r"(q_proj|k_proj|v_proj|c_fc|fc_in|gate|up)\.W$", (None, "model")),
+    (r"(q_proj|k_proj|v_proj|c_fc|fc_in|gate|up)\.b$", ("model",)),
+    (r"(out_proj|c_proj|fc_out|down)\.W$", ("model", None)),
+    (r"(wte|wpe|wtype|emb\w*)\.table$", (None, "model")),
+    (r"lm_head\.W$", (None, "model")),
+]
 
 def _positions(ids: torch.Tensor) -> torch.Tensor:
+    """Global positions of this rank's block of the sequence."""
     T = ids.shape[-1]
-    return torch.arange(T, device=ids.device)[None, :].expand(ids.shape)
+    start = seq_parallel()[1] * T
+    return torch.arange(start, start + T,
+                        device=ids.device)[None, :].expand(ids.shape)
 
 
 def _padding_mask(attention_mask) -> Optional[torch.Tensor]:
@@ -139,6 +166,8 @@ class GPT2(GenerateMixin, model.Model):
     f32 master weights drawn from `generator` (default: the device's).
     With ``cfg.remat`` every block is a ``layer.Remat`` of itself."""
 
+    SHARD_RULES = TRANSFORMER_SHARD_RULES
+
     def __init__(self, cfg: Optional[GPT2Config] = None,
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
@@ -176,6 +205,10 @@ class GPT2(GenerateMixin, model.Model):
         w = self.wte.table
         if w.dtype != x.dtype:
             w = autograd.cast(w, x.dtype)
+        if tp.sharded_dim(self.wte.table) == 1:
+            # hidden-dim shards: the whole table on every rank (its
+            # gradient's block comes back to each)
+            w = tp.gather_from_region(w)
         return w.t()
 
     def forward(self, ids: torch.Tensor, attention_mask=None):
@@ -200,6 +233,7 @@ class GPT2(GenerateMixin, model.Model):
     # -- KV-cached decoding ----------------------------------------------
     def init_caches(self, batch: int, max_len: int):
         c = self.cfg
+        _no_cached_tp(self.wte.table)
         dtype = torch.bfloat16 if self.wte.table.dtype == torch.bfloat16 \
             else torch.float32
         return kv_ops.init_cache(c.num_layers, batch, max_len, c.num_heads,
@@ -290,6 +324,8 @@ class BERT(model.Model):
     """BERT-base encoder with pooler and an optional classifier, on one
     port ``Device``, f32 masters drawn from `generator`."""
 
+    SHARD_RULES = TRANSFORMER_SHARD_RULES
+
     def __init__(self, cfg: Optional[BERTConfig] = None,
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
@@ -317,6 +353,10 @@ class BERT(model.Model):
         classifier's logits (B, num_labels) when it has one.  Token
         types default to zeros."""
         ids = torch.as_tensor(ids, device=self.device.torch_device)
+        if seq_parallel()[0] > 1:
+            raise NotImplementedError(
+                "BERT under a 'seq' mesh axis: its pooler reads the first "
+                "token, which one rank of the axis holds")
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(ids)
         mask = _padding_mask(attention_mask)
@@ -354,28 +394,95 @@ class BERT(model.Model):
                 + 12 * c.num_layers * c.dim * seq_len)
 
 
-def next_token_loss(logits: torch.Tensor, ids) -> torch.Tensor:
-    """Causal-LM loss: predict ids[t+1] from logits[t]."""
+def _no_cached_tp(table: torch.Tensor) -> None:
+    if tp.is_sharded(table):
+        raise NotImplementedError(
+            "KV-cached decoding of a model cut over a 'model' mesh axis is "
+            "not ported: decode with the single-device model (the "
+            "checkpoint of a tensor-parallel run loads into one)")
+
+
+def _seq_targets(ids: torch.Tensor):
+    """(targets, denom) of this rank's block of the sequence under a
+    'seq' axis above 1: position t's target is token t + 1 of the global
+    sequence, so the block's last target is the next rank's first token
+    (one hop back along the ring), and the global last position has none
+    (-1).  `denom` is B·(T − 1)/S over this block's B rows and the
+    global T: the global mean is the mean of the ranks' losses over the
+    data and seq ranks, as DistOpt averages their gradients.  None
+    without such an axis."""
+    S, i = seq_parallel()
+    if S == 1:
+        return None, None
+    first = ids[:, :1].contiguous()
+    nxt = comm.ppermute(first, "seq", [(r, (r - 1) % S) for r in range(S)])
+    if i == S - 1:
+        nxt = torch.full_like(nxt, -1)
+    B, T = ids.shape
+    return torch.cat([ids[:, 1:], nxt], dim=1), B * (T * S - 1) / S
+
+
+def next_token_loss(logits: torch.Tensor, ids,
+                    vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Causal-LM loss: predict ids[t+1] from logits[t].  `vocab_size`:
+    given where `logits` are this rank's columns of the vocabulary (an
+    lm head cut over 'model'), which then enter the vocab-parallel
+    cross-entropy."""
     B, T, V = logits.shape
     ids = torch.as_tensor(ids, device=logits.device)
-    return autograd.softmax_cross_entropy(
-        logits[:, :-1, :].reshape(B * (T - 1), V), ids[:, 1:].reshape(-1))
+    axis = tp.MODEL_AXIS if vocab_size else None
+    tgt, denom = _seq_targets(ids)
+    if tgt is None:
+        lg = logits[:, :-1, :].reshape(B * (T - 1), V)
+        if axis is None:
+            return autograd.softmax_cross_entropy(lg, ids[:, 1:].reshape(-1))
+        return tp.vocab_parallel_cross_entropy(lg, ids[:, 1:].reshape(-1),
+                                               vocab_size, axis=axis)
+    return tp.vocab_parallel_cross_entropy(
+        logits.reshape(B * T, V), tgt.reshape(-1), vocab_size or V, denom,
+        axis)
 
 
 def next_token_loss_fused_w(x: torch.Tensor, w: torch.Tensor, ids,
-                            chunk_rows: int = 512) -> torch.Tensor:
+                            chunk_rows: int = 512,
+                            vocab_size: Optional[int] = None
+                            ) -> torch.Tensor:
     """Causal-LM loss straight from the final hidden states against an
     explicit (dim, V) head weight: the matmul and softmax-CE run fused
-    and row-chunked, so the (B*T, V) logits are never materialised."""
+    and row-chunked, so the (B*T, V) logits are never materialised.
+    `vocab_size`: given where `w` holds this rank's columns of the
+    vocabulary (cut over 'model'; x then goes through
+    ``copy_to_region``)."""
     B, T, d = x.shape
     ids = torch.as_tensor(ids, device=x.device)
-    return autograd.fused_linear_cross_entropy(
-        x[:, :-1, :].reshape(B * (T - 1), d), w, ids[:, 1:].reshape(-1),
-        chunk_rows)
+    tgt, denom = _seq_targets(ids)
+    if tgt is None and vocab_size is None:
+        return autograd.fused_linear_cross_entropy(
+            x[:, :-1, :].reshape(B * (T - 1), d), w, ids[:, 1:].reshape(-1),
+            chunk_rows)
+    axis = None
+    if vocab_size is not None:
+        x, axis = tp.copy_to_region(x), tp.MODEL_AXIS
+    if tgt is None:
+        h, tgt = x[:, :-1, :].reshape(B * (T - 1), d), ids[:, 1:]
+    else:
+        h = x.reshape(B * T, d)
+    return tp.fused_vocab_parallel_cross_entropy(
+        h, w, tgt.reshape(-1), vocab_size or w.shape[-1], chunk_rows, denom,
+        axis)
+
+
+def lm_head_vocab(lm_head) -> Optional[int]:
+    """The whole vocabulary where an lm head's columns are cut over
+    'model' (its logits are then this rank's columns), else None."""
+    W = lm_head.W
+    return W.tp_full_shape[1] if tp.sharded_dim(W) == 1 else None
 
 
 def next_token_loss_fused(x: torch.Tensor, lm_head, ids,
                           chunk_rows: int = 512) -> torch.Tensor:
     """next_token_loss_fused_w against a Linear lm-head layer (its f32
-    master W; the loss casts it to x's dtype)."""
-    return next_token_loss_fused_w(x, lm_head.W, ids, chunk_rows)
+    master W; the loss casts it to x's dtype), vocab-parallel where the
+    head's columns are cut over 'model'."""
+    return next_token_loss_fused_w(x, lm_head.W, ids, chunk_rows,
+                                   lm_head_vocab(lm_head))

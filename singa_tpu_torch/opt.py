@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -597,8 +597,14 @@ class DistOpt(Optimizer):
         over one of them); checkpoints carry the slots at their natural
         shapes.
 
-    Only the ``data`` axis exists in the port; another `data_axis`
-    raises."""
+    `data_axis` may name any axis of the mesh (``DistOpt(...,
+    data_axis='dp')`` under ``make_mesh({'dp': 2, 'seq': 2})``).  On a
+    multi-axis mesh the gradients are averaged over every axis but
+    ``model`` (the ranks that share a model coordinate hold different
+    data: ``data`` × ``seq``), each parameter being this rank's block of
+    it (tensor parallelism); ZeRO-1 then shards those blocks over the
+    data axis after a mean over the other axes; the compressed and
+    sparsified modes warn and are ignored there, as the reference's."""
 
     def __init__(self, opt: Optimizer, nccl_id=None, local_rank: int = 0,
                  world_size: Optional[int] = None, data_axis: str = "data",
@@ -608,11 +614,6 @@ class DistOpt(Optimizer):
                  error_feedback: bool = True,
                  compression_block: int = 256):
         super().__init__(opt.sched)
-        if data_axis != mesh_mod.DATA_AXIS:
-            raise NotImplementedError(
-                f"DistOpt(data_axis={data_axis!r}): the port's only mesh "
-                f"axis is {mesh_mod.DATA_AXIS!r}; other axes come with the "
-                f"next distribution slice")
         if compression is not None and compression not in _COMPRESSION_MODES:
             raise ValueError(
                 f"unknown compression mode {compression!r} "
@@ -649,6 +650,17 @@ class DistOpt(Optimizer):
         if m is not None and self.data_axis in m.shape:
             return m.shape[self.data_axis]
         return 1
+
+    def _multi_axis(self) -> bool:
+        """The current mesh has an axis other than the data axis."""
+        m = mesh_mod.current_mesh()
+        return m is not None and any(a != self.data_axis for a in m.shape)
+
+    def _replica_axes(self) -> Tuple[str, ...]:
+        """On a multi-axis mesh, the axes whose ranks hold different data
+        (every axis but ``model``): the gradients' mean is over them."""
+        return tuple(a for a in mesh_mod.current_mesh().axis_names
+                     if a != mesh_mod.MODEL_AXIS)
 
     def _zero1(self) -> bool:
         """ZeRO-1 runs now: eligible under the current mesh, and its axis
@@ -702,6 +714,10 @@ class DistOpt(Optimizer):
                 t0 = time.perf_counter()
             if self._zero1():
                 out = self._reduce_scatter(grads)
+            elif self._multi_axis():
+                axes = self._replica_axes()
+                out = comm.allreduce_grads(grads, axis=axes) if axes \
+                    else grads
             elif self.compression == "int8_ring":
                 out = self._reduce_int8_ring(grads)
             else:
@@ -715,6 +731,11 @@ class DistOpt(Optimizer):
             return out
 
     def _reduce_scatter(self, grads):
+        other = tuple(a for a in self._replica_axes()
+                      if a != self.data_axis) if self._multi_axis() else ()
+        if other:
+            # the mean over the other ranks that hold other data (seq)
+            grads = comm.allreduce_grads(grads, axis=other)
         W = comm.axis_size(self.data_axis)
         out = {}
         for name, g in grads.items():

@@ -5,13 +5,15 @@ an int32 wire, and the int8 ring with error feedback).
 
 The reference's collectives are in-graph ``lax`` ops that take effect
 only inside ``shard_map``.  Here each is a ``torch.distributed`` call on
-the default process group (NCCL on the card, gloo on the CPU), made
-eagerly or recorded into the step's CUDA graph when the step is
-captured; NCCL runs a captured collective on the capture stream's
-schedule, so a replay needs no extra stream sync.  An axis is *bound*
-when a process group exists and the current mesh has that axis; outside
-one every call here is the identity, as the reference's are outside a
-mapped axis.
+the subgroup of the current mesh's `axis` (one axis, or a tuple of axes
+taken together; NCCL on the card, gloo on the CPU), made eagerly or
+recorded into the step's CUDA graph when the step is captured; NCCL runs
+a captured collective on the capture stream's schedule, so a replay
+needs no extra stream sync.  Ranks and indices are positions along the
+axis, mapped to global ranks through the mesh.  An axis is *bound* when
+a process group exists and the current mesh, bound to it, has that
+axis; outside one every call here is the identity, as the reference's
+are outside a mapped axis.
 
 Hooks: each staged collective fires the ``comm.collective`` fault site
 and emits its ``comm.<op>.bytes`` counter, and each gradient sync the
@@ -53,19 +55,39 @@ __all__ = ["axis_bound", "allreduce", "allreduce_grads", "allgather",
            "f32_ring_wire_bytes"]
 
 
-def axis_bound(axis: str) -> bool:
-    """True when a process group exists and the current mesh has
-    `axis`."""
+def _names(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_bound(axis) -> bool:
+    """True when a process group exists and the current mesh, made over
+    it, has `axis` (every axis of a tuple)."""
     m = mesh_mod.current_mesh()
-    return m is not None and axis in m.shape and dist.is_initialized()
+    return (m is not None and dist.is_initialized() and m.bound
+            and all(a in m.shape for a in _names(axis)))
 
 
-def axis_index(axis: str) -> int:
-    return dist.get_rank() if axis_bound(axis) else 0
+def axis_index(axis) -> int:
+    """This rank's position along `axis` (0 where it is not bound)."""
+    if not axis_bound(axis):
+        return 0
+    return mesh_mod.current_mesh().axis_index(axis)
 
 
-def axis_size(axis: str) -> int:
-    return dist.get_world_size() if axis_bound(axis) else 1
+def axis_size(axis) -> int:
+    """The number of ranks along `axis` (1 where it is not bound)."""
+    if not axis_bound(axis):
+        return 1
+    return mesh_mod.current_mesh().axis_size(axis)
+
+
+def _group(axis):
+    """The subgroup of `axis` (None: the default group)."""
+    return mesh_mod.current_mesh().group(axis)
+
+
+def _label(axis) -> str:
+    return ",".join(_names(axis))
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +106,12 @@ def _tensors(x) -> List[torch.Tensor]:
 
 def _staged(collective: str, x, axis: str, **attrs) -> None:
     """The ``comm.collective`` fault site, then the payload counter."""
-    faults.fire("comm.collective", collective=collective, axis=axis)
+    faults.fire("comm.collective", collective=collective,
+                axis=_label(axis))
     if events.enabled():
         nbytes = sum(t.numel() * t.element_size() for t in _tensors(x))
-        events.counter(f"comm.{collective}.bytes", nbytes, axis=axis,
-                       **attrs)
+        events.counter(f"comm.{collective}.bytes", nbytes,
+                       axis=_label(axis), **attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -138,42 +161,43 @@ def _emit_wire_counters(n_elems: int, axis: str, mode: str,
         compressed = int(round(2.0 * (W - 1) / W * n_elems * 2))
     else:
         compressed = f32_eq
-    events.counter("comm.wire_bytes.compressed", compressed, axis=axis,
-                   mode=mode)
-    events.counter("comm.wire_bytes.f32_equiv", f32_eq, axis=axis,
+    events.counter("comm.wire_bytes.compressed", compressed,
+                   axis=_label(axis), mode=mode)
+    events.counter("comm.wire_bytes.f32_equiv", f32_eq, axis=_label(axis),
                    mode=mode)
 
 
 # ---------------------------------------------------------------------------
-# unstaged torch.distributed calls (the group is the default one)
+# unstaged torch.distributed calls over the group of `axis`
 # ---------------------------------------------------------------------------
 
-def _all_gather_into(out: torch.Tensor, x: torch.Tensor) -> None:
+def _all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     # torch 2.13 renames all_gather_into_tensor to all_gather_single and
     # deprecates the old name; 2.11 has only the old one
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
-    fn(out, x)
+    fn(out, x, group=group)
 
 
-def _reduce_scatter_into(out: torch.Tensor, x: torch.Tensor) -> None:
+def _reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
-    fn(out, x, op=dist.ReduceOp.SUM)
+    fn(out, x, op=dist.ReduceOp.SUM, group=group)
 
 
-def _gather(x: torch.Tensor) -> torch.Tensor:
-    """(W, *x.shape): every rank's x, stacked in rank order."""
-    W = dist.get_world_size()
+def _gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """(W, *x.shape): every rank's x along `axis`, stacked in axis
+    order."""
+    W = axis_size(axis)
     x = x.contiguous()
     out = x.new_empty((W * x.numel(),))
-    _all_gather_into(out, x.reshape(-1))
+    _all_gather_into(out, x.reshape(-1), _group(axis))
     return out.reshape((W,) + tuple(x.shape))
 
 
-def _reduce(x: torch.Tensor, op) -> torch.Tensor:
+def _reduce(x: torch.Tensor, op, axis) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op)
+    dist.all_reduce(out, op=op, group=_group(axis))
     return out
 
 
@@ -183,34 +207,39 @@ def _recip(n: int) -> float:
     return float(np.float32(1.0 / n))
 
 
-def _pmax(x: torch.Tensor) -> torch.Tensor:
-    return _reduce(x, dist.ReduceOp.MAX)
+def _pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    return _reduce(x, dist.ReduceOp.MAX, axis)
 
 
-def _pmean(x: torch.Tensor) -> torch.Tensor:
+def _pmean(x: torch.Tensor, axis) -> torch.Tensor:
     # the reference's pmean: psum, then a division by the axis size
-    return _reduce(x, dist.ReduceOp.SUM) * _recip(dist.get_world_size())
+    return _reduce(x, dist.ReduceOp.SUM, axis) * _recip(axis_size(axis))
 
 
-def _ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
-              ) -> torch.Tensor:
-    """Send x to each target of this rank in `perm` ((src, dst) pairs)
-    and return what this rank receives; zeros where nothing arrives."""
-    r = dist.get_rank()
-    x = x.contiguous()
-    out = torch.zeros_like(x)
+def _ppermute(x, perm: Sequence[Tuple[int, int]], axis):
+    """Send x (a tensor, or a tuple of tensors sent together in one
+    batch) to each target of this rank in `perm` ((src, dst) pairs of
+    positions along `axis`) and return what this rank receives; zeros
+    where nothing arrives."""
+    many = isinstance(x, (tuple, list))
+    xs = [t.contiguous() for t in (x if many else (x,))]
+    m = mesh_mod.current_mesh()
+    line, group = m.line(axis), _group(axis)
+    r = m.axis_index(axis)
+    outs = [torch.zeros_like(t) for t in xs]
     ops = []
     for src, dst in perm:
-        if src == r and dst == r:
-            out.copy_(x)
-        elif src == r:
-            ops.append(dist.P2POp(dist.isend, x, dst))
-        elif dst == r:
-            ops.append(dist.P2POp(dist.irecv, out, src))
+        for t, out in zip(xs, outs):
+            if src == r and dst == r:
+                out.copy_(t)
+            elif src == r:
+                ops.append(dist.P2POp(dist.isend, t, line[dst], group))
+            elif dst == r:
+                ops.append(dist.P2POp(dist.irecv, out, line[src], group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return out
+    return tuple(outs) if many else outs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -220,80 +249,87 @@ def _ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 
-def allreduce(x: torch.Tensor, axis: str = "data", op: str = "mean"):
+def allreduce(x: torch.Tensor, axis="data", op: str = "mean"):
     if not axis_bound(axis):
         return x
     if op != "mean" and op not in _OPS:
         raise ValueError(f"unknown reduce op {op}")
     _staged("allreduce", x, axis, op=op)
     if op == "mean":
-        return _pmean(x)
-    return _reduce(x, getattr(dist.ReduceOp, _OPS[op]))
+        return _pmean(x, axis)
+    return _reduce(x, getattr(dist.ReduceOp, _OPS[op]), axis)
 
 
-def allgather(x: torch.Tensor, axis: str = "data", tiled: bool = False):
+def allgather(x: torch.Tensor, axis="data", tiled: bool = False):
     """Every rank's x: stacked on a new axis 0, or concatenated along
     axis 0 when `tiled`."""
     if not axis_bound(axis):
         return x
     _staged("allgather", x, axis)
-    out = _gather(x)
+    out = _gather(x, axis)
     return out.reshape((-1,) + tuple(x.shape[1:])) if tiled else out
 
 
-def reduce_scatter(x: torch.Tensor, axis: str = "data",
+def reduce_scatter(x: torch.Tensor, axis="data",
                    scatter_dimension: int = 0):
     """The sum over ranks, of which rank r keeps block r along
     `scatter_dimension` (the reference's tiled psum_scatter)."""
     if not axis_bound(axis):
         return x
     _staged("reduce_scatter", x, axis)
-    W = dist.get_world_size()
+    W = axis_size(axis)
     d = scatter_dimension % x.ndim
     if x.shape[d] % W:
         raise ValueError(f"dimension {d} of {tuple(x.shape)} is not "
                          f"divisible by {W} ranks")
     xm = x.movedim(d, 0).contiguous()
     out = xm.new_empty((xm.shape[0] // W,) + tuple(xm.shape[1:]))
-    _reduce_scatter_into(out, xm)
+    _reduce_scatter_into(out, xm, _group(axis))
     return out.movedim(0, d)
 
 
-def gather_batch(x: torch.Tensor, axis: str = "data") -> torch.Tensor:
-    """Every rank's rows concatenated along axis 0: a data-parallel
-    step's output back at the global batch (the reference's
-    ``out_specs=P(axis)``, which stages no collective, so neither does
-    this)."""
+def gather_batch(x: torch.Tensor, axis="data", dim: int = 0
+                 ) -> torch.Tensor:
+    """Every rank's blocks concatenated along `dim` (default the rows): a
+    data-parallel step's output back at the global batch (the
+    reference's ``out_specs=P(axis)``, which stages no collective, so
+    neither does this)."""
     if not axis_bound(axis):
         return x
-    return _gather(x).reshape((-1,) + tuple(x.shape[1:]))
+    g = _gather(x, axis)                        # (W, *x.shape)
+    return torch.cat(g.unbind(0), dim=dim) if dim else \
+        g.reshape((-1,) + tuple(x.shape[1:]))
 
 
-def ppermute(x: torch.Tensor, axis: str, perm):
+def ppermute(x, axis, perm):
+    """`x` (a tensor or a tuple of tensors, sent in one batch) moved
+    along `perm`, (src, dst) positions along `axis`."""
     if not axis_bound(axis):
         return x
     _staged("ppermute", x, axis)
-    return _ppermute(x, perm)
+    return _ppermute(x, perm, axis)
 
 
-def broadcast(x: torch.Tensor, axis: str = "data", src: int = 0):
-    """Rank src's value on every rank."""
+def broadcast(x: torch.Tensor, axis="data", src: int = 0):
+    """The value of the rank at position `src` along `axis` on every
+    rank of it."""
     if not axis_bound(axis):
         return x
-    if dist.get_world_size() == 1:
+    if axis_size(axis) == 1:
         return x
     _staged("broadcast", x, axis)
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.broadcast(out, src)
+    m = mesh_mod.current_mesh()
+    dist.broadcast(out, m.line(axis)[src], group=_group(axis))
     return out
 
 
-def barrier(axis: str = "data") -> None:
+def barrier(axis="data") -> None:
     """An allreduce of one element: a barrier that a CUDA graph can
     hold (``dist.barrier`` syncs the host)."""
     if axis_bound(axis):
         dev = mesh_mod.local_devices()[0]
-        dist.all_reduce(torch.ones((), device=dev))
+        dist.all_reduce(torch.ones((), device=dev), group=_group(axis))
 
 
 # ---------------------------------------------------------------------------
@@ -357,9 +393,9 @@ def allreduce_grads(grads: Dict[str, torch.Tensor], axis: str = "data",
         elif _is_int8(compress_dtype):
             out[name] = quantized_allreduce(g, axis)
         elif compress_dtype is not None and g.dtype != compress_dtype:
-            out[name] = _pmean(g.to(compress_dtype)).to(g.dtype)
+            out[name] = _pmean(g.to(compress_dtype), axis).to(g.dtype)
         else:
-            out[name] = _pmean(g)
+            out[name] = _pmean(g, axis)
     return out
 
 
@@ -403,12 +439,12 @@ def quantized_allreduce(x: torch.Tensor, axis: str = "data",
     if pad:
         flat = F.pad(flat, (0, pad))
     blocks = flat.reshape(-1, block)
-    absmax = _pmax(blocks.abs().amax(dim=1, keepdim=True))
+    absmax = _pmax(blocks.abs().amax(dim=1, keepdim=True), axis)
     scale = torch.where(absmax > 0, absmax * _recip(127),
                         torch.ones_like(absmax))
     q = _quantize(blocks, scale).to(torch.int8)
-    total = _reduce(q.to(torch.int32), dist.ReduceOp.SUM)
-    out = total.float() * scale * _recip(dist.get_world_size())
+    total = _reduce(q.to(torch.int32), dist.ReduceOp.SUM, axis)
+    out = total.float() * scale * _recip(axis_size(axis))
     out = out.reshape(-1)
     if pad:
         out = out[:-pad]
@@ -426,8 +462,8 @@ def _ring_int8_allreduce(x: torch.Tensor, axis: str, block: int,
     same on every rank.  ``with_error=True`` also returns this rank's
     quantization error on the hop-0 grid, x − dequant(quant(x, s)): the
     residual error feedback carries to the next step."""
-    W = dist.get_world_size()
-    r = dist.get_rank()
+    W = axis_size(axis)
+    r = axis_index(axis)
     orig_shape, orig_dtype = x.shape, x.dtype
     flat = x.float().reshape(-1)
     n = flat.numel()
@@ -437,7 +473,7 @@ def _ring_int8_allreduce(x: torch.Tensor, axis: str, block: int,
         flat = F.pad(flat, (0, pad))
     chunks = flat.reshape(W, C)
     blocks = chunks.reshape(W, C // block, block)
-    absmax = _pmax(blocks.abs().amax(dim=2))                # (W, C/b)
+    absmax = _pmax(blocks.abs().amax(dim=2), axis)          # (W, C/b)
     s = torch.where(absmax > 0, absmax * _recip(127),
                     torch.ones_like(absmax))
 
@@ -449,13 +485,13 @@ def _ring_int8_allreduce(x: torch.Tensor, axis: str, block: int,
     for t in range(W - 1):
         c_send = (r - t) % W
         q = _quantize(partial, grid_for(c_send, float(t + 1))).to(torch.int8)
-        q_recv = _ppermute(q, fwd)                          # int8 wire
+        q_recv = _ppermute(q, fwd, axis)                    # int8 wire
         c_recv = (r - t - 1) % W
         partial = _madd(q_recv.float(), grid_for(c_recv, float(t + 1)),
                         chunks[c_recv])
     c_own = (r + 1) % W
     q_final = _quantize(partial, grid_for(c_own, float(W))).to(torch.int8)
-    all_q = _gather(q_final)                                # (W, C) int8
+    all_q = _gather(q_final, axis)                          # (W, C) int8
     # rank (c-1) % W owns chunk c after the ring: undo the rotation
     codes = torch.roll(all_q, 1, 0).float()
     # mean = sum/W = codes * (s*W)/W = codes * s
@@ -498,9 +534,9 @@ def _topk_allreduce(g: torch.Tensor, axis: str, ratio: float):
     k = max(1, int(flat.numel() * ratio))
     idx = torch.topk(flat.abs(), k).indices
     vals = flat[idx]
-    w = dist.get_world_size()
-    all_vals = _gather(vals)
-    all_idx = _gather(idx)
+    w = axis_size(axis)
+    all_vals = _gather(vals, axis)
+    all_idx = _gather(idx, axis)
     dense = torch.zeros_like(flat).index_add_(
         0, all_idx.reshape(-1), all_vals.reshape(-1) * _recip(w))
     return dense.reshape(g.shape)

@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from .. import device as device_mod
 from . import mesh as mesh_mod
+from . import spmd
 
 __all__ = ["init_distributed", "finalize_distributed", "is_initialized",
            "global_mesh", "local_batch", "assert_same_across_processes"]
@@ -131,17 +132,42 @@ def global_mesh(axes: Dict[str, int]) -> mesh_mod.Mesh:
     return mesh_mod.make_mesh(axes)
 
 
-def local_batch(global_batch, axis_size: Optional[int] = None):
-    """This process's contiguous rows of a host-global batch (axis 0):
-    rows [r·B/W, (r+1)·B/W)."""
-    n = axis_size or mesh_mod.process_count()
+def local_batch(global_batch, axis_size: Optional[int] = None,
+                data_axis: Optional[str] = None):
+    """This process's block of a host-global batch.
+
+    Under a current mesh bound to the process group: the block that
+    ``spmd.batch_spec`` gives it, dim 0 over `data_axis` (default the
+    installed one) and, for 2-D integer arrays (token ids), dim 1 over
+    ``seq``; a dimension that an axis of the mesh does not divide
+    raises.  Otherwise (or given `axis_size`): rows [r·B/W, (r+1)·B/W)
+    of rank r of W processes."""
     b = global_batch if isinstance(global_batch, torch.Tensor) \
         else np.asarray(global_batch)
-    if b.shape[0] % n:
-        raise ValueError(f"batch {b.shape[0]} not divisible by {n} processes")
-    per = b.shape[0] // n
-    i = mesh_mod.process_index()
-    return b[i * per:(i + 1) * per]
+    m = mesh_mod.current_mesh()
+    if axis_size is not None or m is None or not m.bound:
+        n = axis_size or mesh_mod.process_count()
+        if b.shape[0] % n:
+            raise ValueError(f"batch {b.shape[0]} not divisible by {n} "
+                             f"processes")
+        per = b.shape[0] // n
+        i = mesh_mod.process_index()
+        return b[i * per:(i + 1) * per]
+    data_axis = data_axis or mesh_mod.current_data_axis()
+    cuts = [(0, data_axis)]
+    if b.ndim == 2 and spmd._is_integer(b.dtype):
+        cuts.append((1, mesh_mod.SEQ_AXIS))
+    for dim, axis in cuts:
+        if axis not in m.shape:
+            continue
+        n = m.shape[axis]
+        if b.shape[dim] % n:
+            raise ValueError(f"batch dimension {dim} of {tuple(b.shape)} "
+                             f"not divisible by {n} ranks of axis {axis!r}")
+        per = b.shape[dim] // n
+        i = m.axis_index(axis)
+        b = b[(slice(None),) * dim + (slice(i * per, (i + 1) * per),)]
+    return b
 
 
 def assert_same_across_processes(value: float, tol: float = 0.0) -> None:

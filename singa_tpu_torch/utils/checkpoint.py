@@ -38,6 +38,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel import tensor_parallel as tp
+
 __all__ = ["save_states", "load_states", "save_arrays", "load_arrays",
            "atomic_write", "check_opt_manifest", "CheckpointManager"]
 
@@ -150,13 +152,22 @@ def _collect(model, aux_states: Optional[Dict]):
     optimizer's slot gather is a collective); only rank 0, the writer,
     copies to the host."""
     host = _host if _process_index() == 0 else (lambda t: None)
-    arrays = {name: host(t) for name, t in model.get_states().items()}
+    # parameters cut over a 'model' axis are gathered to their full
+    # shapes (a collective), their slots with them
+    states = model.get_states()
+    arrays = {name: host(tp.full_tensor(t))
+              for name, t in states.items()}
     aux = dict(aux_states or {})
     opt = getattr(model, "optimizer", None)
     if opt is not None:
         aux["optimizer"] = opt.get_states()
         aux["opt_signature"] = opt.state_signature()
-        slot_arrays = opt.slot_arrays()
+        slot_arrays = {
+            name: [tp.full_tensor(leaf, p) if p is not None
+                   and tuple(leaf.shape) == tuple(p.shape) else leaf
+                   for leaf in leaves]
+            for name, leaves in opt.slot_arrays().items()
+            for p in [states.get(name)]}
         manifest: List = []
         i = 0
         for name in sorted(slot_arrays):
@@ -219,11 +230,15 @@ def _apply(model, arrays: Dict, aux: Dict) -> None:
         opt.set_states(aux["optimizer"])
     if manifest is not None:
         dev = model.device.torch_device
+        params = model.get_params()
         slots, i = {}, 0
         for name, n_leaves in manifest:
-            slots[name] = [torch.tensor(arrays[f"{_OPT_PREFIX}{i + j}"],
-                                        device=dev)
-                           for j in range(n_leaves)]
+            p = params.get(name)
+            slots[name] = [
+                torch.tensor(np.asarray(a if p is None else tp.to_local(p, a)),
+                             device=dev)
+                for a in (arrays[f"{_OPT_PREFIX}{i + j}"]
+                          for j in range(n_leaves))]
             i += n_leaves
         opt.load_slot_arrays(slots)
 

@@ -1217,6 +1217,50 @@ def test_plain_distopt_at_world_one_is_the_base_step(nccl_world):
         assert torch.equal(runs[True][1][n], p), n
 
 
+# -- tensor and sequence parallelism on one card -----------------------------
+
+@pytest.mark.cuda
+def test_three_axis_step_is_the_plain_step_bitwise(nccl_world):
+    """Under make_mesh({'data': 1, 'model': 1, 'seq': 1}) every Linear and
+    embedding runs its Megatron form, each collective over a group of
+    one, the step captured: five steps equal the plain step's bitwise in
+    losses and parameters."""
+    m = _small_llama(nccl_world)
+    same = kernel_check.spmd_vs_plain(
+        m, _batches(5), lambda: topt.SGD(lr=0.01, momentum=0.9))
+    assert same["bitwise"], same
+    assert same["gspmd"] and same["captured"]
+    assert same["collectives_staged_first_step"] > 0
+    layers = m.cfg.num_layers
+    assert same["forms"] == {"column": 5 * layers + 1, "row": 2 * layers,
+                             "embedding": 1, "whole": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", kernel_check.RING_DTYPES)
+@pytest.mark.parametrize("case", list(kernel_check.RING_CASES))
+def test_ring_body_matches_whole_sequence_attention(cuda_device, case,
+                                                    dtype):
+    """Ring attention's per-rank body over the shards of one card at
+    base()'s attention shape: o, lse and dq/dk/dv within the flash
+    limits of the plain whole-sequence attention, each kernel launched
+    `ring_launches` times."""
+    r = kernel_check.check_ring(case, dtype)
+    assert r["ok"], r
+    assert r["launches_ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(kernel_check.RING_FAULTS))
+def test_planted_ring_fault_fails_the_limits(cuda_device, fault):
+    case, dtype, _ = kernel_check.RING_FAULTS[fault]
+    S, causal = kernel_check.RING_CASES[case]
+    with kernel_check.ring_fault(fault):
+        r = kernel_check.ring_errors(*kernel_check.ring_inputs(case, dtype),
+                                     S, causal, dtype)
+    assert not r["ok"], r
+
+
 # -- the serving operator's tools on the card --------------------------------
 
 @pytest.mark.cuda

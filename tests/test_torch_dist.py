@@ -871,10 +871,15 @@ def test_init_distributed_single_process_noop(monkeypatch):
 
 
 def test_only_the_data_axis_exists():
+    # the model and seq axes exist since the tensor/sequence-parallel
+    # slice; pipeline and expert axes still raise, as does a mesh that
+    # the group's world does not fill
     with pytest.raises(NotImplementedError, match="next distribution"):
-        tparallel.make_mesh({"data": 1, "model": 1})
+        tparallel.make_mesh({"data": 1, "pipe": 1})
     with pytest.raises(NotImplementedError, match="next distribution"):
-        topt.DistOpt(topt.SGD(lr=0.1), data_axis="batch")
+        tparallel.make_mesh({"expert": 1})
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        tparallel.make_mesh({"data": 1, "model": 2})
     with pytest.raises(ValueError, match="unknown compression"):
         topt.DistOpt(topt.SGD(lr=0.1), compression="int4_ring")
     with pytest.raises(ValueError, match="exclusive"):
