@@ -319,13 +319,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
  25. dist    — data-parallel training over NCCL at a world of 1 (the
                machine has one card): parallel.init_distributed on a
                free local port, the data mesh set, the group destroyed
-               at the end.  base()'s training cell (B=8 x T=1024, fused
-               loss, SGD 0.01 / 0.9) through DistOpt in three modes:
+               at the end.  base()'s training cell cut to DIST_LAYERS
+               blocks (B=8 x T=1024, fused loss, SGD 0.01 / 0.9) through
+               DistOpt in three modes:
                plain, compression="int8_ring" and shard_weight_update
                (ZeRO-1), each as the train phase's step is driven: 5
                eager and 5 captured steps bitwise in losses and
-               parameters, 10 timed replays with 16 launches of each
-               flash kernel a step counted on the card, step ms,
+               parameters, 10 timed replays with DIST_LAYERS launches
+               of each flash kernel a step counted on the card, step ms,
                tokens/s, MFU and peak memory beside phase train's; one
                eager step's grad_sync ms (an obs.attr ledger) and ms; the
                int8 ring's residual of one parameter after its first
@@ -337,7 +338,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
                images, 8 steps, the step captured); no
                flash launch there.  No allreduce bandwidth: one rank
                moves nothing between cards
- 26. timing  — each kernel, its plain version and the PyTorch call that
+ 26. spmd    — tensor and sequence parallelism at a world of 1: base()
+               (fused loss) under make_mesh({'data': 1, 'model': 1,
+               'seq': 1}), every Linear and embedding in its Megatron
+               form, captured, held bitwise to the plain step and timed
+               beside it; ring attention's per-rank body over S = 2 and 4
+               shards of one card (kernel_check.RING_CASES) against the
+               whole-sequence attention, its planted faults caught
+ 27. pipe    — pipeline and expert parallelism on one card: base()'s 16
+               blocks through the per-rank GPipe body of S = 2 and 4
+               stages over M = S and 2S microbatches with an in-process
+               hop (kernel_check.PIPE_CASES), bf16 and f32, against the
+               blocks in order, 16·M launches of each flash kernel, each
+               planted pipe fault caught, the schedule timed beside the
+               blocks in order; the planner (parallel.planner) for base()
+               at a world of 1 against the bytes a captured step holds,
+               and llama3_8b's plan on data 4 x model 8; Mixtral-8x7B's
+               MoE layer at published widths over 2 and 4 in-process
+               expert ranks against the one-device scatter path
+ 28. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -620,6 +639,8 @@ SONNX_EVAL_CALLS = 10
 DIST_MODES = {"plain": {}, "int8_ring": {"compression": "int8_ring"},
               "zero1": {"shard_weight_update": True}}
 DIST_EQUAL_STEPS = 2           # DistOpt vs the base optimizer, bitwise
+# base()'s depth here (16 in phase train): the script's wall budget
+DIST_LAYERS = 4
 DIST_RESIDUAL_PARAM = "blocks.0.attn.q_proj.W"
 DIST_RING_BLOCK = 256
 
@@ -3127,8 +3148,8 @@ def route_trace():
     calls = []
     saved = moe._route
 
-    def traced(logits, capacity, k):
-        out = saved(logits, capacity, k)
+    def traced(logits, capacity, k, grid=None):
+        out = saved(logits, capacity, k, grid)
         calls.append(out[4].detach().clone())
         return out
     moe._route = traced
@@ -5848,7 +5869,8 @@ def phase_dist():
         later(group["backend"] == "nccl" and group["world"] == 1,
               f"the group is not NCCL at a world of 1: {group}")
 
-        cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True)
+        cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True,
+                                  num_layers=DIST_LAYERS)
         m = Llama(cfg, device=device.create_device("cuda"),
                   generator=torch.Generator("cuda").manual_seed(0))
         init = {n: p.detach().cpu() for n, p in m.get_params().items()}
@@ -5909,7 +5931,8 @@ def phase_dist():
           and parallel.current_mesh() is None,
           "the process group or the mesh outlived the phase")
     emit({"phase": "dist", "group": group, "llama_base": {
-        "config": "LlamaConfig.base(), fused_loss=True", "B": TB, "T": TT,
+        "config": f"LlamaConfig.base(), fused_loss=True, {DIST_LAYERS} "
+                  f"layers", "B": TB, "T": TT,
         "distopt_vs_base": equal, "modes": llama,
         "beside_phase_train": SUMMARY.get("train")},
         "resnet50": r50, "resnet50_beside_phase_cnn": SUMMARY.get("cnn"),
@@ -6093,6 +6116,202 @@ def phase_spmd():
     return {"base_train": {"steps": TRAIN_STEPS,
                            "per_step": per_step[0]},
             "ring": ring_launches}
+
+
+# phase pipe: pipeline and expert parallelism on one card
+PIPE_TIMED = "s4_m8"             # the schedule timed beside the blocks in order
+PLAN_GRAD_MARGIN = 0.0           # gradient bytes: the plan's against p.grad's
+
+
+def pipe_schedule(later):
+    """(a) base()'s blocks through kernel_check.PIPE_CASES in each dtype
+    against the blocks in order, launches counted, faults planted in
+    bf16, and the schedule's ms beside the sequential pass's."""
+    from singa_tpu_torch import autograd, kernel_check as kc
+    from singa_tpu_torch.ops import flash_attention as fa
+    cases, launches, faulty, timing = [], {}, {}, {}
+    autograd.set_training(True)
+    try:
+        for dtype in kc.PIPE_DTYPES:
+            dt = str(dtype)[6:]
+            blocks, x, do = kc.pipe_blocks(dtype)
+            before = fa.device_launches()
+            want = kc.seq_run(blocks, x, do)
+            torch.cuda.synchronize()
+            after = fa.device_launches()
+            seq = {n: after[n] - before[n] for n in fa.KERNELS}
+            later(all(v == len(blocks) for v in seq.values()),
+                  f"sequential blocks launched {seq}, expected "
+                  f"{len(blocks)} of each")
+            for label in kc.PIPE_CASES:
+                r = kc.check_pipe(label, dtype, blocks, x, do, want)
+                r.update(case=label, dtype=dt)
+                cases.append(r)
+                launches[f"{label}/{dt}"] = r["launches"]
+                later(r["ok"], f"pipe case {label}/{dt} disagrees with the "
+                      f"blocks in order: {r}")
+                later(r["launches_ok"], f"pipe case {label}/{dt} launched "
+                      f"{r['launches']}, expected {r['expected_launches']}")
+            if dtype == torch.bfloat16:
+                for name, (label, fdt, _) in kc.PIPE_FAULTS.items():
+                    S, M = kc.PIPE_CASES[label]
+                    with kc.pipe_fault(name):
+                        f = kc.pipe_errors(kc.pipe_run(blocks, x, do, S, M),
+                                           want, fdt)
+                    faulty[name] = {"case": label, "dtype": dt, **f}
+                    later(not f["ok"], f"planted pipe fault {name} passes "
+                          f"the limits: {f}")
+                S, M = kc.PIPE_CASES[PIPE_TIMED]
+                timing = {
+                    "case": PIPE_TIMED, "dtype": dt,
+                    "schedule_ms": cuda_time_ms(
+                        lambda: kc.pipe_run(blocks, x, do, S, M), iters=5,
+                        warmup=1),
+                    "sequential_ms": cuda_time_ms(
+                        lambda: kc.seq_run(blocks, x, do), iters=5,
+                        warmup=1),
+                    "timed_by": "CUDA events over 5 eager forward and "
+                                "backward passes, S in-process stages "
+                                "one after another on one card"}
+            del blocks, x, do, want
+            _free()
+    finally:
+        autograd.set_training(False)
+    return cases, launches, faulty, timing
+
+
+def _held(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pipe_planner(later):
+    """(b) base() planned under SGD(momentum) at a world of 1 against
+    what its model and optimizer hold after one captured step;
+    llama3_8b's plan on data 4 x model 8."""
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.models import Llama, LlamaConfig
+    from singa_tpu_torch.parallel import planner
+    cfg = dataclasses.replace(LlamaConfig.base(), fused_loss=True)
+    make_opt = lambda: opt.SGD(lr=0.01, momentum=0.9)   # noqa: E731
+    t = time.perf_counter()
+    plan = planner.plan_train_step(
+        lambda d: Llama(cfg, device=d), make_opt(),
+        ((torch.Size([TB, TT]), torch.int32),), {"data": 1}, lower=True)
+    plan_s = time.perf_counter() - t
+    m = Llama(cfg, device=device.create_device("cuda"),
+              generator=torch.Generator("cuda").manual_seed(0))
+    x = torch.as_tensor(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (TB, TT)).astype(np.int32), device="cuda")
+    m.set_optimizer(make_opt())
+    m.compile([x], is_train=True, use_graph=True)
+    for _ in range(3):                       # the third call is captured
+        m.train_step(x)
+    torch.cuda.synchronize()
+    params = m.get_params()
+    held = {"param_bytes": _held(params.values()),
+            "slot_bytes": _held(t for ls in m.optimizer.slot_arrays()
+                                .values() for t in ls),
+            "grad_bytes": _held(p.grad for p in params.values()
+                                if p.grad is not None),
+            "captured": m.graph is not None and m.graph.graph is not None,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    planned = {"param_bytes": plan.param_bytes_per_device,
+               "slot_bytes": plan.slot_bytes_per_device,
+               "grad_bytes": plan.grad_bytes_per_device,
+               "state_bytes": plan.per_device_state_bytes,
+               "lowered_ops": plan.lowered.num_ops,
+               "lowered_flops": plan.lowered.flops(), "seconds": plan_s}
+    later(held["captured"], "the planner's check step was not captured")
+    for k in ("param_bytes", "slot_bytes"):
+        later(planned[k] == held[k], f"planned {k} {planned[k]} != held "
+              f"{held[k]}")
+    gap = abs(planned["grad_bytes"] - held["grad_bytes"]) / held["grad_bytes"]
+    later(gap <= PLAN_GRAD_MARGIN, f"planned gradient bytes "
+          f"{planned['grad_bytes']} differ from p.grad's {held['grad_bytes']} "
+          f"by {gap:.4f} > {PLAN_GRAD_MARGIN}")
+    del m, x
+    _free()
+    big = planner.plan_train_step(
+        lambda d: Llama(LlamaConfig.llama3_8b(), device=d),
+        opt.SGD(lr=1e-3, momentum=0.9), ((torch.Size([4, 1024]), torch.int32),),
+        {"data": 4, "model": 8}, lower=False)
+    total = torch.cuda.get_device_properties(0).total_memory
+    later(planner.HBM_BYTES["h100"] == total, f"HBM_BYTES['h100'] "
+          f"{planner.HBM_BYTES['h100']} is not this card's total_memory "
+          f"{total}")
+    return {"base_world_1": {"planned": planned, "held": held,
+                             "grad_margin": PLAN_GRAD_MARGIN},
+            "llama3_8b_data4_model8": {
+                "param_bytes_global": big.param_bytes_global,
+                "param_bytes_per_device": big.param_bytes_per_device,
+                "slot_bytes_per_device": big.slot_bytes_per_device,
+                "state_bytes_per_device": big.per_device_state_bytes,
+                "fits_h100": big.fits("h100")},
+            "total_memory": total, "device_name": torch.cuda.get_device_name(0)}
+
+
+def pipe_experts(later):
+    """(c) mixtral-8x7b's MoE layer over ep in-process expert ranks
+    against the one-device scatter path (kernel_check.EP_CASES)."""
+    from singa_tpu_torch import kernel_check as kc
+    from singa_tpu_torch.ops import moe
+    from singa_tpu_torch.parallel import mesh as mesh_mod
+    mesh_mod.set_mesh(mesh_mod.Mesh({"expert": 2}))
+    try:
+        auto = moe.resolve_dispatch("auto")
+    finally:
+        mesh_mod.set_mesh(None)
+    later(auto == "einsum" and moe.resolve_dispatch("auto") == "scatter",
+          f"'auto' resolves to {auto} under an expert axis")
+    out = []
+    for dtype in kc.EP_DTYPES:
+        inputs = kc.ep_inputs(dtype)
+        want = kc.ep_run(*inputs, 0)
+        for label, ep in kc.EP_CASES.items():
+            t = time.perf_counter()
+            e = kc.ep_errors(kc.ep_run(*inputs, ep), want, dtype)
+            e.update(case=label, dtype=str(dtype)[6:],
+                     seconds=time.perf_counter() - t)
+            out.append(e)
+            later(e["ok"], f"expert case {label}/{e['dtype']} disagrees "
+                  f"with the one-device scatter path: {e}")
+        del inputs, want
+        _free()
+    return out
+
+
+def phase_pipe():
+    """Pipeline and expert parallelism on the card, whose one card runs
+    no pipe or expert axis above 1: (a) LlamaConfig.base()'s 16 blocks
+    through the per-rank GPipe body of S = 2 and 4 stages over M = S and
+    2S microbatches with an in-process hop, in bf16 and f32, against the
+    blocks in order, its flash launches counted, each planted pipe fault
+    caught, and the schedule timed beside the blocks in order; (b) the
+    planner against the bytes a trained base() holds; (c) Mixtral-8x7B's
+    MoE layer over 2 and 4 in-process expert ranks against the one-device
+    scatter path."""
+    from singa_tpu_torch import kernel_check as kc
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    cases, launches, faulty, timing = pipe_schedule(later)
+    _free()
+    plan = pipe_planner(later)
+    _free()
+    experts = pipe_experts(later)
+    _free()
+    emit({"phase": "pipe", "nvidia_smi": smi_line(),
+          "pipe_shape": {"config": "LlamaConfig.base() blocks",
+                         "B": kc.PIPE_SHAPE[0], "T": kc.PIPE_SHAPE[1]},
+          "cases": cases, "faults": faulty, "timing": timing,
+          "planner": plan, "experts": experts,
+          "p2p_under_capture": "not run: a world of 1 makes no hop",
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+    return launches
 
 
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose")
@@ -6568,6 +6787,7 @@ def main():
     rnn_launches = timed_phase("rnn", phase_rnn)
     dist_llama, dist_cnn = timed_phase("dist", phase_dist)
     spmd_launches = timed_phase("spmd", phase_spmd)
+    pipe_launches = timed_phase("pipe", phase_pipe)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
@@ -6655,6 +6875,8 @@ def main():
                            spmd_launches["base_train"]["per_step"][r["name"]]},
             "ring": {case: n[r["name"]]
                      for case, n in spmd_launches["ring"].items()}}
+        by_path["pipe"] = {case: n[r["name"]]
+                           for case, n in pipe_launches.items()}
 
         def at(row):
             return {key: row[key] for key in (

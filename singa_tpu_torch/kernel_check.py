@@ -6,9 +6,13 @@ changes to a kernel's source, each of the kind a wrong kernel could
 carry unseen.  Built from a copy of the source, each must fail the
 limits on its case; that shows the limits are tight enough to catch it.
 Then what the paths of layer.Remat and the char-rnn are held to on
-the card.  Last, ring attention's per-rank body over the shards of one
+the card.  Then ring attention's per-rank body over the shards of one
 card (``RING_CASES``), with its planted faults (``RING_FAULTS``), and the
 multi-axis training step against the plain one (``spmd_vs_plain``).
+Last, the pipeline schedule's per-rank body over S stages of one card
+with an in-process hop (``PIPE_CASES``, ``LocalPipe``, ``PIPE_FAULTS``)
+and the expert-parallel MoE body over ep ranks of one card
+(``EP_CASES``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,13 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
            "CHAR_RNN_STEPS", "CHAR_RNN_WINDOW", "RING_SHAPE", "RING_CASES",
            "RING_DTYPES", "RING_FAULTS", "ring_launches", "LocalRing",
            "ring_run", "ring_inputs", "ring_errors", "check_ring",
-           "ring_fault", "SPMD_AXES", "megatron_forms", "spmd_vs_plain"]
+           "ring_fault", "SPMD_AXES", "megatron_forms", "spmd_vs_plain",
+           "PIPE_SHAPE", "PIPE_CASES", "PIPE_DTYPES", "PIPE_RTOL",
+           "pipe_launches", "LocalPipe", "pipe_run", "seq_run",
+           "pipe_errors", "pipe_blocks", "PIPE_FAULTS", "pipe_fault",
+           "check_pipe", "EP_TOKENS", "EP_CASES", "EP_DTYPES",
+           "EP_ROW_RTOL", "EP_GRAD_RTOL", "ep_inputs", "ep_run",
+           "ep_errors"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
@@ -522,3 +532,279 @@ def spmd_vs_plain(m, batches, make_opt, axes=SPMD_AXES):
             and ex.captured.graph is not None,
             "collectives_staged_first_step": staged,
             "forms": megatron_forms(m)}
+
+
+# -- the pipeline schedule (parallel/pipeline.py) ------------------------------
+# The per-rank GPipe body of S stages, run in one process on one card with
+# an in-process hop (`LocalPipe`): the forward rank by rank (a stage only
+# receives from the one before it), the backward in descending rank order
+# (a stage's gradients come from the one after it).  The blocks are
+# LlamaConfig.base()'s at full width and depth (16 blocks, dim 2048, GQA
+# 16/8) on a (B=8, T=1024) activation; label: (S, M), run in bf16 and f32,
+# against the same blocks applied in order to the whole batch.  Limits
+# (readings in PERF.md): the largest relative error of the output and of
+# each gradient (Frobenius norms, x's and every parameter's): a
+# microbatch's products differ from the whole batch's only in summation
+# order (and in bf16 in where they are rounded).
+PIPE_SHAPE = (8, 1024)                    # B, T
+PIPE_CASES = {f"s{S}_m{M}": (S, M) for S in (2, 4) for M in (S, 2 * S)}
+PIPE_DTYPES = (torch.bfloat16, torch.float32)
+PIPE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def pipe_launches(num_layers: int, M: int) -> int:
+    """Each flash kernel's launches in one pipelined forward and
+    backward: every block once per microbatch (bubbles are skipped)."""
+    return num_layers * M
+
+
+class LocalPipe:
+    """The hops of S pipeline stages that all run in this process:
+    `endpoint(r)` is stage r's transport.  A send is queued for its
+    receiver; a receive takes the oldest message from its sender, or
+    zeros where none waits (as a ppermute with no source gives).  The
+    last stage's outputs are not replicated to the others: read them
+    from the last stage."""
+
+    def __init__(self, size: int):
+        import collections
+        self.size = size
+        self._boxes = collections.defaultdict(collections.deque)
+
+    def endpoint(self, index: int) -> "_LocalStage":
+        return _LocalStage(self, index)
+
+
+class _LocalStage:
+    def __init__(self, pipe: LocalPipe, index: int):
+        self.pipe, self.index, self.size = pipe, index, pipe.size
+
+    def exchange(self, send, recv_like, step):
+        S, i = self.size, self.index
+        if send is not None:
+            self.pipe._boxes[(i, (i + step) % S, step)].append(send)
+        if recv_like is None:
+            return None
+        box = self.pipe._boxes[((i - step) % S, i, step)]
+        return box.popleft() if box else torch.zeros_like(recv_like)
+
+    def replicate(self, x):
+        return x
+
+
+def pipe_run(blocks, x, do, S, M):
+    """The blocks cut into S stages of one in-process pipeline over M
+    microbatches of x (B, ...): (output, gradient of x, the blocks'
+    parameter gradients in order), `do` the output's gradient."""
+    from .parallel import pipeline
+    L = len(blocks)
+    k = L // S
+    x = x.detach().requires_grad_()
+    xm = x.reshape((M, x.shape[0] // M) + tuple(x.shape[1:]))
+    pipe = LocalPipe(S)
+    stages = [blocks[r * k:(r + 1) * k] for r in range(S)]
+    params = [[p for b in st for p in b.parameters()] for st in stages]
+    outs = []
+    for r in range(S):
+        def fn(ps, h, own=stages[r]):
+            for b in own:
+                h = b(h)
+            return h
+        outs.append(pipeline.run_schedule(fn, params[r], xm, (), M,
+                                          pipe.endpoint(r)))
+    grads = [None] * S
+    dx = None
+    for r in reversed(range(S)):
+        g_out = do.reshape(xm.shape) if r == S - 1 else \
+            torch.zeros_like(outs[r])
+        ins = ([x] if r == 0 else []) + params[r]
+        g = torch.autograd.grad(outs[r], ins, g_out)
+        if r == 0:
+            dx, g = g[0], g[1:]
+        grads[r] = list(g)
+    return (outs[-1].detach().reshape(x.shape), dx,
+            [g for gs in grads for g in gs])
+
+
+def seq_run(blocks, x, do):
+    """The blocks in order on the whole batch: (output, dx, the
+    parameter gradients)."""
+    x = x.detach().requires_grad_()
+    h = x
+    for b in blocks:
+        h = b(h)
+    params = [p for b in blocks for p in b.parameters()]
+    g = torch.autograd.grad(h, [x] + params, do)
+    return h.detach(), g[0], list(g[1:])
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def pipe_errors(got, want, dtype):
+    """Relative errors of a pipelined run against the sequential one:
+    output, x's gradient, and the largest over the parameters'."""
+    out = {"out": _rel(got[0], want[0]), "dx": _rel(got[1], want[1]),
+           "dparams": max(_rel(a, b) for a, b in zip(got[2], want[2]))}
+    out["ok"] = all(v <= PIPE_RTOL[dtype] for v in out.values())
+    out["limit"] = PIPE_RTOL[dtype]
+    return out
+
+
+def pipe_blocks(dtype, device="cuda", num_layers=None):
+    """LlamaConfig.base()'s blocks (all of them by default) with the
+    inputs of the pipe cases: (blocks, x, do) in `dtype`."""
+    import dataclasses
+    from .models import llama
+    cfg = llama.LlamaConfig.base()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    dev = _device(device, dtype)
+    gen = torch.Generator(device).manual_seed(0)
+    blocks = [llama._LlamaBlock(cfg, dev, gen)
+              for _ in range(cfg.num_layers)]
+    B, T = PIPE_SHAPE
+    x = torch.randn((B, T, cfg.dim), generator=gen, device=device).to(dtype)
+    do = torch.randn((B, T, cfg.dim), generator=gen, device=device
+                     ).to(dtype) * 1e-2
+    return blocks, x, do
+
+
+def _device(kind, dtype):
+    from . import device as device_mod
+    dev = device_mod.create_device(kind)
+    dev.default_dtype = dtype
+    return dev
+
+
+# planted faults of the schedule, each of which must fail the limits on
+# its case: name -> (case, dtype, what it patches in parallel.pipeline)
+PIPE_FAULTS = {
+    # the hop sends each activation to stage r − 1 instead of r + 1
+    "hop_turns_wrong_way": ("s4_m4", torch.bfloat16, "_PIPE_STEP"),
+    # the last stage works one tick early: the output of a bubble tick
+    # (on an empty buffer) is recorded in place of microbatch 0, and each
+    # later one in place of the next
+    "bubble_recorded": ("s4_m4", torch.bfloat16, "_micro"),
+}
+
+
+def _early_last(t, r, S, M):
+    j = t - r + (r == S - 1)
+    return j if 0 <= j < M else None
+
+
+@contextlib.contextmanager
+def pipe_fault(name):
+    """Plant pipe fault `name` in ``parallel.pipeline`` for the body of
+    the with-block."""
+    from .parallel import pipeline
+    attr = PIPE_FAULTS[name][2]
+    saved = getattr(pipeline, attr)
+    setattr(pipeline, attr, _early_last if attr == "_micro" else -saved)
+    try:
+        yield
+    finally:
+        setattr(pipeline, attr, saved)
+
+
+def check_pipe(label, dtype, blocks, x, do, want):
+    """Case `label` in `dtype` on the card: its errors against the
+    sequential run `want` (``seq_run``), and each kernel's launches
+    against `pipe_launches`."""
+    S, M = PIPE_CASES[label]
+    before = fa.device_launches()
+    got = pipe_run(blocks, x, do, S, M)
+    torch.cuda.synchronize()
+    after = fa.device_launches()
+    out = pipe_errors(got, want, dtype)
+    launches = {n: after[n] - before[n] for n in fa.KERNELS}
+    expect = pipe_launches(len(blocks), M)
+    out.update(launches=launches, expected_launches=expect,
+               launches_ok=all(n == expect for n in launches.values()))
+    return out
+
+
+# -- expert parallelism (ops/moe.py) ------------------------------------------
+# One MoE layer at Mixtral-8x7B's published widths (D 4096, H 14336, 8
+# SwiGLU experts, top-2, capacity factor E/k = 4: dropless) over phase
+# moe's training tokens (B=4 × T=1024), its experts cut over ep ranks of
+# one process (each rank's share through ops.moe.moe_partial with the
+# einsum dispatch, as 'auto' resolves under an expert axis), the shares
+# summed in-process, against the one-device scatter path.  Routing is the
+# same f32 product on both sides, so every token is routed alike; rows
+# are held to a relative error (2-norms over D), bf16 at PR 9's
+# routed-alike limit; the gradients (x, router, each expert weight) by
+# their relative Frobenius error.
+EP_TOKENS = (4, 1024)
+EP_CASES = {"ep2": 2, "ep4": 4}
+EP_DTYPES = (torch.bfloat16, torch.float32)
+EP_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 0.0625}
+EP_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def ep_inputs(dtype, device="cuda"):
+    """(x (N, D), router (D, E) f32, w_in, w_out, w_gate (E, ...) f32,
+    do (N, D)) at EP_TOKENS and mixtral-8x7b's widths."""
+    from .models.llama import PUBLISHED
+    c = PUBLISHED["mixtral-8x7b"]
+    g = torch.Generator(device).manual_seed(7)
+    N = EP_TOKENS[0] * EP_TOKENS[1]
+    D, H, E = c.dim, c.ffn_dim, c.num_experts
+
+    def rnd(*shape, std):
+        return torch.randn(shape, generator=g, device=device) * std
+    std = (2.0 / (D + H)) ** 0.5
+    return (rnd(N, D, std=1.0).to(dtype), rnd(D, E, std=D ** -0.5),
+            rnd(E, D, H, std=std), rnd(E, H, D, std=std),
+            rnd(E, D, H, std=std), rnd(N, D, std=1e-2).to(dtype))
+
+
+def ep_run(x, router, w_in, w_out, w_gate, do, ep):
+    """(output, aux loss, grads of x, router, w_in, w_out, w_gate): the
+    one-device scatter path with ep == 0, else ep in-process expert
+    ranks (einsum dispatch), their outputs summed and the aux loss taken
+    once."""
+    from .models.llama import PUBLISHED
+    from .ops import moe
+    c = PUBLISHED["mixtral-8x7b"]
+    ins = [t.detach().requires_grad_() for t in (x, router, w_in, w_out,
+                                                 w_gate)]
+    xr, rr, wi, wo, wg = ins
+    cf, k = c.moe_capacity_factor, c.moe_top_k
+    if not ep:
+        out, aux = moe.moe_forward(xr, rr, wi, wo, cf, True, k, wg,
+                                   "scatter")
+    else:
+        El = wi.shape[0] // ep
+        out, aux = None, None
+        for r in range(ep):
+            sl = slice(r * El, (r + 1) * El)
+            o, a = moe.moe_partial(xr, rr, wi[sl], wo[sl], cf, k, wg[sl],
+                                   "einsum", r * El)
+            out = o if out is None else out + o
+            aux = a if aux is None else aux
+    grads = torch.autograd.grad((out, aux), ins, (do, torch.ones_like(aux)))
+    return out.detach(), aux.detach(), grads
+
+
+def ep_errors(got, want, dtype):
+    """The expert-parallel run against the one-device one: the largest
+    row relative error of the output, the aux loss's relative error, and
+    each gradient's relative Frobenius error."""
+    o, w = got[0].float(), want[0].float()
+    rows = ((o - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30))
+    out = {"out_row": rows.max().item(),
+           "aux": abs(got[1].item() - want[1].item())
+           / abs(want[1].item())}
+    for name, a, b in zip(("dx", "drouter", "dw_in", "dw_out", "dw_gate"),
+                          got[2], want[2]):
+        out[name] = _rel(a, b)
+    out["ok"] = out["out_row"] <= EP_ROW_RTOL[dtype] and all(
+        v <= EP_GRAD_RTOL[dtype] for k_, v in out.items()
+        if k_ not in ("out_row", "ok"))
+    out["limits"] = {"out_row": EP_ROW_RTOL[dtype],
+                     "rest": EP_GRAD_RTOL[dtype]}
+    return out

@@ -6,8 +6,8 @@ recurrent layers ``RNN`` and ``LSTM``, activation checkpointing
 ``BatchNorm2d``, ``MaxPool2d``, ``AvgPool2d``, ``GlobalAvgPool2d``,
 ``Flatten``, ``ReLU``, ``Tanh``, ``Sigmoid``, ``SiLU``, ``LeakyReLU``,
 ``Dropout``, ``Sequential`` and the loss layers ``CrossEntropyLoss``,
-``MSELoss``.  ``PipelineStack`` comes with the pipeline slice (ROADMAP
-queue 1, item 5b).
+``MSELoss``, and ``PipelineStack`` (a block stack over the ``pipe``
+mesh axis).
 
 Tensor parallelism: a parameter that ``parallel.tensor_parallel.
 shard_params`` cut to its rank's block carries its spec (``tp_spec``),
@@ -55,7 +55,7 @@ __all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "LayerNorm", "Gelu",
            "Conv2d", "SeparableConv2d", "BatchNorm2d", "MaxPool2d",
            "AvgPool2d", "GlobalAvgPool2d", "Flatten", "ReLU", "Tanh",
            "Sigmoid", "SiLU", "LeakyReLU", "Dropout", "Sequential",
-           "CrossEntropyLoss", "MSELoss"]
+           "CrossEntropyLoss", "MSELoss", "PipelineStack"]
 
 
 class Layer(nn.Module):
@@ -68,8 +68,10 @@ class Layer(nn.Module):
     def get_params(self) -> Dict[str, torch.Tensor]:
         """Parameters keyed by attribute path (e.g. ``blocks.0.attn.q_proj.W``);
         each parameter records its path as ``param_name`` (the optimizer's
-        slot key), as the reference names its tensors here."""
-        params = dict(self.named_parameters())
+        slot key), as the reference names its tensors here.  Blocks of a
+        ``PipelineStack`` that another pipe rank holds are left out."""
+        params = {n: p for n, p in self.named_parameters()
+                  if getattr(p, "pipe_held", True)}
         for name, p in params.items():
             p.param_name = name
         return params
@@ -306,11 +308,16 @@ class MoE(Layer):
 
     The router's load-balance losses accumulate across training-mode
     calls (eval forwards do not record); `pop_aux_loss()` returns their
-    sum and resets: add it to the training loss once per step."""
+    sum and resets: add it to the training loss once per step.
+
+    Under an ``expert`` mesh axis the executor cuts the expert weights
+    by `SHARD_RULES` (E/ep experts a rank) and ``dispatch_mode='auto'``
+    is the einsum dispatch; the router and the aux loss stay whole on
+    every rank (``ops.moe.moe_partial``)."""
 
     # expert parallelism over an 'expert' axis, as the reference declares
-    # it (spmd.collect_shard_rules merges it); the port's meshes refuse
-    # that axis until ROADMAP item 5c, so the rule matches nothing yet
+    # it (spmd.collect_shard_rules merges it): each expert rank holds E/ep
+    # experts and ops.moe sums their partial outputs over the axis
     SHARD_RULES = [
         (r"\.(w_in|w_out|w_gate)$", ("expert", None, None)),
     ]
@@ -803,6 +810,147 @@ class Dropout(Layer):
 
     def forward(self, x):
         return autograd.dropout(x, self.p, self.generator)
+
+
+class PipelineStack(Layer):
+    """A stack of identical shape-preserving blocks (transformer blocks)
+    over the ``pipe`` mesh axis: the Model-API surface of
+    ``parallel.pipeline``.
+
+    Parameter paths are those of a plain block list (``blocks.0. ...``),
+    so checkpoints move between pipelined and sequential models.  With
+    `remat` every block is a ``Remat`` of itself, on both paths.
+
+    Under a bound ``pipe`` axis equal to `stages` (> 1), compiling the
+    model (``parallel.pipeline.shard_stages``) leaves each pipe rank its
+    own stage's blocks and frees the others: ``get_params()`` returns the
+    live blocks, a checkpoint gathers every block, a load takes a
+    sequential checkpoint.  A training call with gradients then runs the
+    GPipe schedule over `n_micro` microbatches of the batch, extras such
+    as padding masks cut next to x; any other call on a cut stack (eval,
+    or a reason of `_pipe_blocker`, with its warning) runs the stages in
+    turn on the whole batch, one microbatch, its extras whole.  A cut
+    stack refuses gradient-carrying extras: it cannot fall back to a
+    sequential run, its other stages' blocks being on other ranks.
+    Uncut, the stack runs its blocks in order.  Under a ``model`` axis
+    each stage's blocks keep their Megatron forms.
+
+    Constraints, as the reference's: len(blocks) % stages == 0; a stack
+    whose blocks hold buffers, ``Dropout(p>0)`` or a side channel
+    (``REMAT_SAFE = False``, MoE) is not cut and runs sequentially, with
+    the reference's warning."""
+
+    def __init__(self, blocks, stages: int, n_micro: Optional[int] = None,
+                 remat: bool = False):
+        blocks = list(blocks)
+        super().__init__(getattr(blocks[0], "device", None) if blocks
+                         else None)
+        if stages < 1 or len(blocks) % stages:
+            raise ValueError(
+                f"{len(blocks)} blocks do not divide into {stages} stages")
+        self.stages = stages
+        self.n_micro = n_micro or stages
+        self.remat = remat
+        for i, b in enumerate(blocks):
+            self.add_module(str(i), Remat(b) if remat else b)
+        #: (mesh, this rank's stage) once `shard_stages` cut the stack
+        self.cut = None
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i]
+
+    def _pipe_live(self) -> bool:
+        """A bound pipe axis of `stages` (> 1); a mismatched one is warned
+        of where the model is compiled (``pipeline.shard_stages``)."""
+        from .parallel import communicator as comm
+        from .parallel import mesh as mesh_mod
+        m = mesh_mod.current_mesh()
+        pipe = m.shape.get("pipe", 0) if m is not None else 0
+        return pipe == self.stages > 1 and comm.axis_bound("pipe")
+
+    def forward(self, x: torch.Tensor, *rest) -> torch.Tensor:
+        rest = tuple(r for r in rest if r is not None)
+        if self.cut is None:
+            if autograd.is_training() and self._pipe_live():
+                why = self._structural_blocker() or (
+                    "it was not cut into stages (compile the model under "
+                    "the pipe mesh)")
+                warnings.warn(f"PipelineStack running sequentially: {why}",
+                              stacklevel=2)
+            h = x
+            for blk in self:
+                h = blk(h, *rest)
+            return h
+        from .parallel import pipeline
+        mesh, stage = self.cut
+        if torch.is_grad_enabled() and any(
+                isinstance(r, torch.Tensor) and r.requires_grad for r in rest):
+            # the schedule takes no gradient for an extra, and the other
+            # stages' blocks are on other ranks: no sequential run either
+            raise ValueError(
+                "PipelineStack: gradient-carrying extra args are "
+                "unsupported on a stack cut into stages (detach them, or "
+                "build the model without pipeline_stages)")
+        M = 1
+        if autograd.is_training() and torch.is_grad_enabled():
+            why = self._pipe_blocker(x, rest)
+            if why:
+                warnings.warn(f"PipelineStack running its stages on the "
+                              f"whole batch as one microbatch: {why}",
+                              stacklevel=2)
+            else:
+                M = self.n_micro
+        k = len(self) // self.stages
+        own = list(self)[stage * k:(stage + 1) * k]
+        params = [p for b in own for p in b.parameters()]
+
+        def stage_fn(ps, h, *ex):
+            for blk in own:
+                h = blk(h, *ex)
+            return h
+        B = x.shape[0]
+        split = (lambda t: t.unsqueeze(0) if M == 1 else
+                 t.reshape((M, B // M) + tuple(t.shape[1:])))
+        out = pipeline.run_schedule(stage_fn, params, split(x),
+                                    tuple(split(r) for r in rest), M,
+                                    pipeline.Hop())
+        return out.reshape(x.shape)
+
+    def _structural_blocker(self) -> Optional[str]:
+        """A reason the schedule cannot replay these blocks, known from
+        the blocks alone (None: it can)."""
+        for blk in self:
+            if isinstance(blk, Layer) and blk._get_buffers():
+                return ("blocks hold non-trainable buffers (the pipelined "
+                        "forward must be replayable)")
+            for l in blk.modules():
+                if isinstance(l, Dropout) and l.p > 0:
+                    return ("Dropout(p>0) inside blocks would draw "
+                            "different keys than sequential execution")
+                if not getattr(type(l), "REMAT_SAFE", True):
+                    return (f"{type(l).__name__} layers carry a "
+                            "side-channel (e.g. MoE aux losses) the "
+                            "schedule's pure replay would drop")
+        return None
+
+    def _pipe_blocker(self, x, rest) -> Optional[str]:
+        """The reason this call on a cut stack cannot be cut into
+        `n_micro` microbatches (None: it can)."""
+        B = x.shape[0]
+        if B % self.n_micro:
+            return f"batch {B} not divisible by n_micro={self.n_micro}"
+        for r in rest:
+            shape = getattr(r, "shape", None)
+            if not shape or shape[0] != B:
+                return (f"extra arg must be batch-leading (got shape "
+                        f"{shape}, batch {B})")
+        return None
 
 
 class Sequential(_Deviceless):

@@ -21,17 +21,20 @@ back to the global batch.  The executor keeps the mesh it was made
 under, so ``set_mesh(None)`` leaves it data-parallel while new
 executors run single-process.
 
-Under a mesh with an axis other than the data axis (``model``, ``seq``),
-or with ZeRO-1, an executor takes the reference's multi-axis path (its
-GSPMD step; ``gspmd`` is True): the model's rules
+Under a mesh with an axis other than the data axis (``model``, ``seq``,
+``pipe``, ``expert``), or with ZeRO-1, an executor takes the reference's
+multi-axis path (its GSPMD step; ``gspmd`` is True): the model's rules
 (``spmd.collect_shard_rules``) cut its parameters to this rank's blocks
 (``tensor_parallel.shard_params``, at ``compile`` and here; ``_param_sh``
-holds the specs), each rank takes its block of the global batch
-(``spmd.batch_spec``: rows over the data axis, token ids' positions over
-``seq``), DistOpt averages the gradients over every axis but ``model``,
-the scalar outputs are averaged over the same ranks and the others
-gathered to the global batch and sequence.  On the card the step,
-collectives included, is captured as one CUDA graph.
+holds the specs) and a ``pipe`` axis cuts its ``layer.PipelineStack``s
+into stages (``pipeline.shard_stages``); each rank takes its block of
+the global batch (``spmd.batch_spec``: rows over the data axis, token
+ids' positions over ``seq``; the ranks of ``model``, ``pipe`` and
+``expert`` see the same batch), DistOpt averages the gradients over the
+axes whose ranks hold different data (``opt.replica_axes``), the scalar
+outputs are averaged over the same ranks and the others gathered to the
+global batch and sequence.  On the card the step, collectives included,
+is captured as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -50,9 +53,10 @@ from .graph import epoch as graph_epoch
 from .layer import Dropout, Layer
 from .obs import attr as obs_attr
 from .obs import events as obs_events
-from .opt import DistOpt, Optimizer
+from .opt import DistOpt, Optimizer, replica_axes
 from .parallel import communicator as comm
 from .parallel import mesh as mesh_mod
+from .parallel import pipeline
 from .parallel import spmd
 from .parallel import tensor_parallel as tp
 from .parallel.distributed import local_batch
@@ -119,6 +123,7 @@ class Model(Layer):
         mesh = mesh_mod.current_mesh()
         if _multi_axis(mesh, self.optimizer):
             tp.shard_params(self, spmd.collect_shard_rules(self), mesh)
+            pipeline.shard_stages(self, mesh)
 
     def train_one_batch(self, x, y, *args):
         """Default train step; override for custom behavior."""
@@ -284,8 +289,7 @@ class _StepExecutor:
         with self._mesh_scope():
             if self.gspmd:
                 self._build_gspmd(mesh)
-                self.axis = tuple(a for a in mesh.axis_names
-                                  if a != mesh_mod.MODEL_AXIS) or None
+                self.axis = replica_axes(mesh) or None
                 self.dist = mesh.bound
             else:
                 self.axis = self.data_axis if self.mesh is not None else None
@@ -309,10 +313,11 @@ class _StepExecutor:
         if self.is_train and replicas and not isinstance(self.opt, DistOpt):
             raise ValueError(
                 f"training under {mesh!r} needs opt.DistOpt: the ranks of "
-                f"{replicas} hold different data and only DistOpt "
-                f"averages their gradients")
+                f"{replicas} hold different data or parts of the model "
+                f"and only DistOpt syncs their gradients")
         self._rules = spmd.collect_shard_rules(self.model)
         specs = tp.shard_params(self.model, self._rules, mesh)
+        pipeline.shard_stages(self.model, mesh)
         self._param_sh = {n: mesh_mod.NamedSharding(mesh, sp)
                           for n, sp in specs.items()}
         self.param_tensors = dict(self.model.get_params())
@@ -326,17 +331,33 @@ class _StepExecutor:
         saved = mesh_mod.current_mesh()
         saved_axis = mesh_mod.current_data_axis()
         saved_rules = spmd.current_trace_rules()
+        saved_cut = spmd.current_token_cut()
         mesh_mod.set_mesh(self.mesh)
         try:
             if self.gspmd:
                 if self.data_axis in self.mesh.shape:
                     mesh_mod.set_data_axis(self.data_axis)
                 spmd.set_trace_rules(self._rules)
+                spmd.set_token_cut(self._token_cut())
             yield
         finally:
             mesh_mod.set_mesh(saved)
             mesh_mod._data_axis = saved_axis
             spmd.set_trace_rules(saved_rules)
+            spmd.set_token_cut(saved_cut)
+
+    def _token_cut(self):
+        """((dim, axis), ...): the axes that cut this step's token batch
+        (rows over the data axis, positions over ``seq``) on a bound
+        multi-axis mesh."""
+        if not getattr(self, "dist", False):
+            return ()
+        cut = []
+        if self.mesh.shape.get(self.data_axis, 1) > 1:
+            cut.append((0, self.data_axis))
+        if self._seq_cut:
+            cut.append((1, mesh_mod.SEQ_AXIS))
+        return cut
 
     def _init_slots(self) -> None:
         if self.opt is not None:
@@ -373,7 +394,7 @@ class _StepExecutor:
         scalars mean-allreduced, the rest gathered to the global batch
         (over the data axis; on the multi-axis path also their positions
         over ``seq``).  `self.axis`: the ranks that hold different data
-        (the multi-axis path: every axis but ``model``)."""
+        (the multi-axis path: ``opt.replica_axes``)."""
         if self.axis is None:
             return outs
         for b in self.model._get_buffers().values():

@@ -184,8 +184,8 @@ def from_hf_llama(hf_model, pipeline_stages: int = 0, device=None,
                   generator=None):
     """transformers.LlamaForCausalLM -> models.Llama on `device` (default:
     the default device), Llama-3.1 ``rope_scaling`` carried over through
-    ``ops.rope.llama31_rope_scaling``.  `pipeline_stages` > 0 raises, as
-    the port's Llama does until pipeline stages are ported."""
+    ``ops.rope.llama31_rope_scaling``.  `pipeline_stages` > 0 makes the
+    blocks a ``layer.PipelineStack`` of that many stages."""
     from .llama import Llama, LlamaConfig
 
     hc = hf_model.config

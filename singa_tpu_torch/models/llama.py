@@ -14,8 +14,11 @@ the embedding table on its hidden dim, the lm head on its vocabulary,
 whose logits enter the vocab-parallel cross-entropy); the attention
 works on this rank's heads, each with the kv heads it reads.  Under a
 ``seq`` axis the attention is ``ops.ring_attention`` and RoPE rotates at
-the global positions.  Pipeline stages come with the pipeline slice
-(ROADMAP item 5b) and raise here rather than being ignored.
+the global positions.  With ``pipeline_stages`` the blocks are a
+``layer.PipelineStack`` (``pipeline_microbatches`` microbatches, remat
+folded in) over the ``pipe`` mesh axis; MoE blocks in it run
+sequentially with the reference's warning.  Under an ``expert`` axis
+each rank holds its share of every MoE block's experts.
 """
 
 from __future__ import annotations
@@ -134,14 +137,6 @@ PUBLISHED = {
         rope_theta=1e6, eps=1e-5, num_experts=8, moe_top_k=2,
         moe_capacity_factor=4.0),
 }
-
-
-def _check_supported(c: LlamaConfig) -> None:
-    if c.pipeline_stages:
-        raise NotImplementedError(
-            f"LlamaConfig.pipeline_stages={c.pipeline_stages!r} is not "
-            "ported yet; it comes with the next distribution slice "
-            "(ROADMAP item 5b)")
 
 
 class _LlamaAttention(layer.Layer):
@@ -263,14 +258,20 @@ class Llama(GenerateMixin, model.Model):
         super().__init__(device)
         self.cfg = cfg or LlamaConfig(**kw)
         c = self.cfg
-        _check_supported(c)
         gen = generator if generator is not None else device.generator
         self.tok_emb = layer.Embedding(c.vocab_size, c.dim, device=device,
                                        generator=gen)
         blocks = [_LlamaBlock(c, device, gen) for _ in range(c.num_layers)]
-        if c.remat:
-            blocks = [layer.Remat(b) for b in blocks]
-        self.blocks = nn.ModuleList(blocks)
+        if c.pipeline_stages:
+            # the embedding and the head stay outside the pipeline; remat
+            # folds into the stack
+            self.blocks = layer.PipelineStack(
+                blocks, c.pipeline_stages,
+                n_micro=c.pipeline_microbatches or None, remat=c.remat)
+        else:
+            if c.remat:
+                blocks = [layer.Remat(b) for b in blocks]
+            self.blocks = nn.ModuleList(blocks)
         self.norm_f = layer.RMSNorm(c.dim, eps=c.eps, device=device)
         self.lm_head = layer.Linear(c.vocab_size, c.dim, bias=False,
                                     device=device, generator=gen)
@@ -280,10 +281,14 @@ class Llama(GenerateMixin, model.Model):
         With ``cfg.remat`` each block is a ``layer.Remat``: while
         training, its internals are recomputed in the backward instead
         of saved, except in blocks with a side channel (MoE), which run
-        plain.  Parameter paths are unchanged."""
+        plain.  Parameter paths are unchanged.  A ``PipelineStack`` runs
+        as one call (the GPipe schedule under a pipe axis)."""
         x = self.tok_emb(ids)
-        for blk in self.blocks:
-            x = blk(x)
+        if isinstance(self.blocks, layer.PipelineStack):
+            x = self.blocks(x)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.norm_f(x)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -297,7 +302,7 @@ class Llama(GenerateMixin, model.Model):
     # -- KV-cached decoding ----------------------------------------------
     def init_caches(self, batch: int, max_len: int):
         c = self.cfg
-        _no_cached_tp(self.tok_emb.table)
+        _no_cached_tp(self.tok_emb.table, self.blocks)
         dtype = torch.bfloat16 if self.tok_emb.table.dtype == torch.bfloat16 \
             else torch.float32
         return kv_ops.init_cache(c.num_layers, batch, max_len,

@@ -104,8 +104,9 @@ class _MLP(layer.Layer):
 @dataclass
 class GPT2Config:
     """GPT-2's widths and options, as the reference's: the defaults are
-    GPT-2 124M.  Supported options: ``dropout``, ``fused_loss`` and
-    ``remat`` (blocks under ``layer.Remat``); ``pipeline_stages`` raises."""
+    GPT-2 124M.  Options: ``dropout``, ``fused_loss``, ``remat`` (blocks
+    under ``layer.Remat``) and ``pipeline_stages`` (the blocks a
+    ``layer.PipelineStack`` of ``pipeline_microbatches``)."""
     vocab_size: int = 50257
     max_position: int = 1024
     dim: int = 768
@@ -119,7 +120,7 @@ class GPT2Config:
     # training (its internals recomputed in the backward; masked calls
     # remat too)
     remat: bool = False
-    # not ported: raises at construction rather than being ignored
+    # pipeline parallelism over the 'pipe' mesh axis (0 = off)
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
 
@@ -127,14 +128,6 @@ class GPT2Config:
     def tiny() -> "GPT2Config":
         return GPT2Config(vocab_size=256, max_position=64, dim=64,
                           num_layers=2, num_heads=4, dropout=0.0)
-
-
-def _check_supported(c: GPT2Config) -> None:
-    if c.pipeline_stages:
-        raise NotImplementedError(
-            f"GPT2Config.pipeline_stages={c.pipeline_stages!r} is not "
-            "ported yet: it needs layer.PipelineStack (ROADMAP.md queue 1, "
-            "distribution)")
 
 
 class _GPT2Block(layer.Layer):
@@ -175,7 +168,6 @@ class GPT2(GenerateMixin, model.Model):
         super().__init__(device)
         self.cfg = cfg or GPT2Config(**kw)
         c = self.cfg
-        _check_supported(c)
         gen = generator if generator is not None else device.generator
         self.wte = layer.Embedding(c.vocab_size, c.dim, device=device,
                                    generator=gen)
@@ -183,9 +175,14 @@ class GPT2(GenerateMixin, model.Model):
                                    generator=gen)
         self.drop = layer.Dropout(c.dropout, device=device)
         blocks = [_GPT2Block(c, device, gen) for _ in range(c.num_layers)]
-        if c.remat:
-            blocks = [layer.Remat(b) for b in blocks]
-        self.blocks = nn.ModuleList(blocks)
+        if c.pipeline_stages:
+            self.blocks = layer.PipelineStack(
+                blocks, c.pipeline_stages,
+                n_micro=c.pipeline_microbatches or None, remat=c.remat)
+        else:
+            if c.remat:
+                blocks = [layer.Remat(b) for b in blocks]
+            self.blocks = nn.ModuleList(blocks)
         self.ln_f = layer.LayerNorm(c.dim, device=device)
 
     def features(self, ids: torch.Tensor,
@@ -195,6 +192,10 @@ class GPT2(GenerateMixin, model.Model):
         if mask is not None:
             mask = mask.to(ids.device)
         x = self.drop(self.wte(ids) + self.wpe(_positions(ids)))
+        if isinstance(self.blocks, layer.PipelineStack):
+            # the mask (None is dropped) rides the schedule as a
+            # microbatched extra
+            return self.ln_f(self.blocks(x, mask))
         for blk in self.blocks:
             x = blk(x, mask)
         return self.ln_f(x)
@@ -233,7 +234,7 @@ class GPT2(GenerateMixin, model.Model):
     # -- KV-cached decoding ----------------------------------------------
     def init_caches(self, batch: int, max_len: int):
         c = self.cfg
-        _no_cached_tp(self.wte.table)
+        _no_cached_tp(self.wte.table, self.blocks)
         dtype = torch.bfloat16 if self.wte.table.dtype == torch.bfloat16 \
             else torch.float32
         return kv_ops.init_cache(c.num_layers, batch, max_len, c.num_heads,
@@ -394,12 +395,17 @@ class BERT(model.Model):
                 + 12 * c.num_layers * c.dim * seq_len)
 
 
-def _no_cached_tp(table: torch.Tensor) -> None:
+def _no_cached_tp(table: torch.Tensor, blocks=None) -> None:
     if tp.is_sharded(table):
         raise NotImplementedError(
             "KV-cached decoding of a model cut over a 'model' mesh axis is "
             "not ported: decode with the single-device model (the "
             "checkpoint of a tensor-parallel run loads into one)")
+    if getattr(blocks, "cut", None) is not None:
+        raise NotImplementedError(
+            "KV-cached decoding of a model cut into pipeline stages is not "
+            "ported: decode with the single-device model (the checkpoint "
+            "of a pipelined run loads into one)")
 
 
 def _seq_targets(ids: torch.Tensor):

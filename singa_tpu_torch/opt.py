@@ -46,6 +46,7 @@ from .obs import attr as obs_attr
 from .obs import events as obs_events
 from .parallel import communicator as comm
 from .parallel import mesh as mesh_mod
+from .parallel import pipeline
 from .parallel import spmd
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "RMSProp", "AdaGrad",
@@ -566,6 +567,13 @@ def _capturing() -> bool:
         torch.cuda.is_current_stream_capturing()
 
 
+def replica_axes(mesh) -> Tuple[str, ...]:
+    """The axes of `mesh` whose ranks hold different data: every axis but
+    ``model``, ``pipe`` and ``expert`` (whose ranks see the same batch)."""
+    same = (mesh_mod.MODEL_AXIS, mesh_mod.PIPE_AXIS, mesh_mod.EXPERT_AXIS)
+    return tuple(a for a in mesh.axis_names if a not in same)
+
+
 class DistOpt(Optimizer):
     """Wraps a base optimizer with the data-parallel gradient sync.
 
@@ -599,12 +607,18 @@ class DistOpt(Optimizer):
 
     `data_axis` may name any axis of the mesh (``DistOpt(...,
     data_axis='dp')`` under ``make_mesh({'dp': 2, 'seq': 2})``).  On a
-    multi-axis mesh the gradients are averaged over every axis but
-    ``model`` (the ranks that share a model coordinate hold different
-    data: ``data`` × ``seq``), each parameter being this rank's block of
-    it (tensor parallelism); ZeRO-1 then shards those blocks over the
-    data axis after a mean over the other axes; the compressed and
-    sparsified modes warn and are ignored there, as the reference's."""
+    multi-axis mesh the gradients are averaged over the axes whose ranks
+    hold different data: every axis but ``model``, ``pipe`` and
+    ``expert`` (``data`` × ``seq``), each parameter being this rank's
+    block of it (tensor parallelism), this rank's experts (expert
+    parallelism) or its stage's blocks (pipeline stages).  Under a
+    ``pipe`` axis every parameter outside the stages is then broadcast
+    from stage 0, which holds its whole gradient: the embedding's comes
+    only there, and the final norm's and the head's are the same on
+    every stage (a sum would count them once per stage).  ZeRO-1 then
+    shards the blocks over the data axis after a mean over the other
+    axes; the compressed and sparsified modes warn and are ignored
+    there, as the reference's."""
 
     def __init__(self, opt: Optimizer, nccl_id=None, local_rank: int = 0,
                  world_size: Optional[int] = None, data_axis: str = "data",
@@ -658,9 +672,21 @@ class DistOpt(Optimizer):
 
     def _replica_axes(self) -> Tuple[str, ...]:
         """On a multi-axis mesh, the axes whose ranks hold different data
-        (every axis but ``model``): the gradients' mean is over them."""
-        return tuple(a for a in mesh_mod.current_mesh().axis_names
-                     if a != mesh_mod.MODEL_AXIS)
+        (every axis but ``model``, ``pipe`` and ``expert``): the
+        gradients' mean is over them."""
+        return replica_axes(mesh_mod.current_mesh())
+
+    @staticmethod
+    def _pipe_sync(grads, staged) -> Dict[str, torch.Tensor]:
+        """Every gradient of a parameter outside the pipeline stages
+        (names not in `staged`), broadcast from stage 0, in name order."""
+        if comm.axis_size(mesh_mod.PIPE_AXIS) < 2:
+            return grads
+        out = dict(grads)
+        for name in sorted(n for n, g in grads.items()
+                           if g is not None and n not in staged):
+            out[name] = comm.broadcast(grads[name], mesh_mod.PIPE_AXIS, 0)
+        return out
 
     def _zero1(self) -> bool:
         """ZeRO-1 runs now: eligible under the current mesh, and its axis
@@ -691,12 +717,13 @@ class DistOpt(Optimizer):
         return slot
 
     # -- the gradient sync --------------------------------------------------------
-    def reduce_gradients(self, grads: Dict[str, torch.Tensor]
-                         ) -> Dict[str, torch.Tensor]:
+    def reduce_gradients(self, grads: Dict[str, torch.Tensor],
+                         staged=frozenset()) -> Dict[str, torch.Tensor]:
         """Mean-allreduce gradients over the data axis; the identity
         when the axis is not bound.  Under ZeRO-1 each gradient is
         reduce-scattered instead: what comes back is this rank's mean
-        shard of the flattened, padded gradient.
+        shard of the flattened, padded gradient.  `staged`: the names of
+        parameters a pipeline stage holds (see the class docstring).
 
         Telemetry: an ``opt.grad_sync`` span, the communicator's
         counters, and, with a ledger installed (``obs.attr``), the sync's
@@ -713,11 +740,12 @@ class DistOpt(Optimizer):
                 _cuda_sync(some)
                 t0 = time.perf_counter()
             if self._zero1():
-                out = self._reduce_scatter(grads)
+                out = self._reduce_scatter(grads, staged)
             elif self._multi_axis():
                 axes = self._replica_axes()
                 out = comm.allreduce_grads(grads, axis=axes) if axes \
                     else grads
+                out = self._pipe_sync(out, staged)
             elif self.compression == "int8_ring":
                 out = self._reduce_int8_ring(grads)
             else:
@@ -730,12 +758,13 @@ class DistOpt(Optimizer):
                 led.note("grad_sync", time.perf_counter() - t0)
             return out
 
-    def _reduce_scatter(self, grads):
+    def _reduce_scatter(self, grads, staged=frozenset()):
         other = tuple(a for a in self._replica_axes()
                       if a != self.data_axis) if self._multi_axis() else ()
         if other:
             # the mean over the other ranks that hold other data (seq)
             grads = comm.allreduce_grads(grads, axis=other)
+        grads = self._pipe_sync(grads, staged)
         W = comm.axis_size(self.data_axis)
         out = {}
         for name, g in grads.items():
@@ -782,7 +811,10 @@ class DistOpt(Optimizer):
                 if self._eager_state.get(param_name(p)) is None:
                     self._eager_state[param_name(p)] = self.init_slot(p)
         zero1 = self._zero1()
-        grads = self.reduce_gradients({param_name(p): g for p, g in pg})
+        staged = {param_name(p) for p, _ in pg
+                  if pipeline.stage_of(p) is not None}
+        grads = self.reduce_gradients({param_name(p): g for p, g in pg},
+                                      staged)
         for p, _ in pg:
             g = grads[param_name(p)]
             if zero1:

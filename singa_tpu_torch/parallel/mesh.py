@@ -14,13 +14,14 @@ set of axes (a line: the ranks that differ only in those axes), made by
 `make_mesh` on every rank in one order.  A set of axes that spans the
 whole group uses the default group.
 
-    'data'  — data parallel (DistOpt's gradient sync)
-    'model' — tensor parallel (Megatron layers from the models' SHARD_RULES)
-    'seq'   — sequence parallel (ring attention)
+    'data'   — data parallel (DistOpt's gradient sync)
+    'model'  — tensor parallel (Megatron layers from the models' SHARD_RULES)
+    'seq'    — sequence parallel (ring attention)
+    'pipe'   — pipeline stages (``parallel.pipeline``, ``layer.PipelineStack``)
+    'expert' — expert parallelism (``layer.MoE``'s experts cut by its rules)
 
-``pipe`` and ``expert`` raise ``NotImplementedError``: pipeline stages
-and expert parallelism come with the next distribution slices (ROADMAP
-queue 1, items 5b and 5c).
+Any other axis name is a data axis only where DistOpt names it
+(``data_axis``); `set_data_axis` accepts any axis of the mesh.
 """
 
 from __future__ import annotations
@@ -36,15 +37,14 @@ import torch.distributed as dist
 __all__ = ["Mesh", "P", "NamedSharding", "named_sharding", "make_mesh",
            "set_mesh", "current_mesh", "data_parallel_mesh", "mesh_shape",
            "process_index", "process_count", "local_devices",
-           "set_data_axis", "current_data_axis", "DATA_AXIS", "MODEL_AXIS",
-           "SEQ_AXIS"]
+           "set_data_axis", "current_data_axis", "pipeline_mesh", "DATA_AXIS",
+           "MODEL_AXIS", "SEQ_AXIS", "PIPE_AXIS", "EXPERT_AXIS"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
-
-#: axes whose parallelism has no port yet, and the item that brings each
-_LATER = {"pipe": "5b (pipeline stages)", "expert": "5c (expert parallelism)"}
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
 
 _current_mesh: Optional["Mesh"] = None
 _data_axis: str = DATA_AXIS
@@ -164,23 +164,12 @@ class Mesh:
         self.bound = True
 
 
-def _check_axes(axes) -> None:
-    later = [a for a in axes if a in _LATER]
-    if later:
-        raise NotImplementedError(
-            f"mesh axes {later}: the port has the data, model and seq "
-            f"axes; the others come with the next distribution slices ("
-            + ", ".join(f"{a!r}: ROADMAP item {_LATER[a]}" for a in later)
-            + ")")
-
-
 def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
     """A mesh such as ``make_mesh({'data': 2, 'model': 2, 'seq': 2})``
     over the default process group (the ranks are its devices; without
     a group, a world of 1).  The axes must span every rank.  With a
     group, every rank must call this, in the same order as the others:
     it makes the mesh's subgroups."""
-    _check_axes(axes)
     world = process_count() if devices is None else len(list(devices))
     mesh = Mesh(axes)
     if mesh.size > world:
@@ -199,10 +188,18 @@ def data_parallel_mesh(n: Optional[int] = None) -> Mesh:
     return make_mesh({DATA_AXIS: n or process_count()})
 
 
+def pipeline_mesh(n_stages: int, data: int = 1) -> Mesh:
+    """``{'data': data, 'pipe': n_stages}`` (the data axis only when
+    above 1), over the default process group."""
+    axes = {}
+    if data > 1:
+        axes[DATA_AXIS] = data
+    axes[PIPE_AXIS] = n_stages
+    return make_mesh(axes)
+
+
 def set_mesh(mesh: Optional[Mesh]) -> None:
     global _current_mesh
-    if mesh is not None:
-        _check_axes(mesh.shape)
     _current_mesh = mesh
 
 
@@ -227,7 +224,6 @@ def set_data_axis(name: str) -> None:
     ``data_axis`` so that ring attention and the batch cut agree with
     it).  Any axis the current mesh has; with no mesh, any name."""
     global _data_axis
-    _check_axes({name: 1})
     m = current_mesh()
     if m is not None and name not in m.shape:
         raise ValueError(f"data axis {name!r} is not an axis of {m!r}")

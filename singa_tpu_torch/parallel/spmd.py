@@ -13,9 +13,8 @@ collectives.  The port reads them in ``parallel.tensor_parallel``
 the spec; the Megatron layers of ``layer.py`` run the collectives), in
 ``distributed.local_batch`` (``batch_spec``) and in DistOpt
 (``zero1_axis_for``).  ``param_shardings`` and ``tree_shardings`` give
-the reference's shardings of parameters and optimizer slots, which its
-planner (``planner.plan_train_step``, the next distribution slice)
-reads.
+the reference's shardings of parameters and optimizer slots;
+``planner.plan_train_step`` reads ``spec_for``.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from .mesh import Mesh, NamedSharding, P
 
 __all__ = ["spec_for", "param_shardings", "batch_spec", "tree_shardings",
            "set_trace_rules", "current_trace_rules", "collect_shard_rules",
-           "zero1_axis_for"]
+           "zero1_axis_for", "set_token_cut", "current_token_cut"]
 
 
 def zero1_axis_for(optimizer, mesh: Optional[Mesh]) -> Optional[str]:
@@ -73,6 +72,22 @@ def set_trace_rules(rules) -> None:
 
 def current_trace_rules() -> Optional[list]:
     return _trace_rules
+
+
+# how the multi-axis step cut its token batch: ((dim, axis), ...) over the
+# (B, T) token grid, while the executor runs it (the reference's GSPMD
+# step computes in global semantics, so what is global over the batch,
+# such as MoE's capacity and balance loss, reads it)
+_token_cut: Tuple[Tuple[int, str], ...] = ()
+
+
+def set_token_cut(cut) -> None:
+    global _token_cut
+    _token_cut = tuple(cut or ())
+
+
+def current_token_cut() -> Tuple[Tuple[int, str], ...]:
+    return _token_cut
 
 
 def collect_shard_rules(model) -> Optional[list]:

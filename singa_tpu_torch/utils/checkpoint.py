@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel import pipeline
 from ..parallel import tensor_parallel as tp
 
 __all__ = ["save_states", "load_states", "save_arrays", "load_arrays",
@@ -151,23 +152,41 @@ def _collect(model, aux_states: Optional[Dict]):
     arrays, and the aux that describes them.  Every rank calls it (the
     optimizer's slot gather is a collective); only rank 0, the writer,
     copies to the host."""
-    host = _host if _process_index() == 0 else (lambda t: None)
     # parameters cut over a 'model' axis are gathered to their full
-    # shapes (a collective), their slots with them
+    # shapes (a collective), their slots with them; the blocks of the
+    # other pipe stages come from the ranks that hold them (every rank
+    # of a stage copies its blocks to the host for that gather)
     states = model.get_states()
-    arrays = {name: host(tp.full_tensor(t))
+    staged = {n for n, t in states.items()
+              if pipeline.stage_of(t) is not None}
+    first = _process_index() == 0
+
+    def host(name, t):
+        return _host(t) if first or name in staged else None
+    arrays = {name: host(name, tp.full_tensor(t))
               for name, t in states.items()}
     aux = dict(aux_states or {})
     opt = getattr(model, "optimizer", None)
+    slot_arrays = {}
     if opt is not None:
-        aux["optimizer"] = opt.get_states()
-        aux["opt_signature"] = opt.state_signature()
         slot_arrays = {
             name: [tp.full_tensor(leaf, p) if p is not None
                    and tuple(leaf.shape) == tuple(p.shape) else leaf
                    for leaf in leaves]
             for name, leaves in opt.slot_arrays().items()
             for p in [states.get(name)]}
+    if staged:
+        mine = {"p": {n: arrays[n] for n in staged},
+                "s": {n: [_host(leaf) for leaf in slot_arrays[n]]
+                      for n in staged if n in slot_arrays}}
+        for theirs in pipeline.gather_stages(model, mine):
+            arrays.update(theirs["p"])
+            slot_arrays.update(theirs["s"])
+    if opt is not None:
+        aux["optimizer"] = opt.get_states()
+        aux["opt_signature"] = opt.state_signature()
+        host = (lambda t: t if isinstance(t, np.ndarray) else _host(t)) \
+            if first else (lambda t: None)
         manifest: List = []
         i = 0
         for name in sorted(slot_arrays):
@@ -231,8 +250,12 @@ def _apply(model, arrays: Dict, aux: Dict) -> None:
     if manifest is not None:
         dev = model.device.torch_device
         params = model.get_params()
+        elsewhere = set(pipeline.held_elsewhere(model))
         slots, i = {}, 0
         for name, n_leaves in manifest:
+            if name in elsewhere:       # another pipe stage's block
+                i += n_leaves
+                continue
             p = params.get(name)
             slots[name] = [
                 torch.tensor(np.asarray(a if p is None else tp.to_local(p, a)),

@@ -129,8 +129,13 @@ def test_importers_refuse_what_they_would_change(hf_gpt2, hf_bert):
                                   activation_function="relu")
     with pytest.raises(NotImplementedError, match="activation_function"):
         from_hf_gpt2(transformers.GPT2LMHeadModel(cfg), device=CPU)
-    with pytest.raises(NotImplementedError, match="PipelineStack"):
-        from_hf_gpt2(hf_gpt2, pipeline_stages=2, device=CPU)
+    # pipeline stages are ported: the import's blocks are a PipelineStack
+    # with the plain import's parameters
+    piped = from_hf_gpt2(hf_gpt2, pipeline_stages=2, device=CPU)
+    assert type(piped.blocks).__name__ == "PipelineStack"
+    plain = from_hf_gpt2(hf_gpt2, device=CPU).get_params()
+    assert all(torch.equal(p, plain[n])
+               for n, p in piped.get_params().items())
     with pytest.raises(NotImplementedError, match="no options"):
         from_hf_bert(hf_bert, pipeline_stages=2)
     bcfg = transformers.BertConfig(

@@ -194,10 +194,14 @@ def test_mixtral_options_and_pipeline_stages_raise(fam):
     hf = fam["mixtral"]["hf"]
     assert _message(from_hf_mixtral, hf, pipeline_stages=2) == \
         _message(jmodels.from_hf_mixtral, hf, pipeline_stages=2)
-    # a stated difference: the port's Llama has no pipeline stages yet
+    # the dense families take pipeline stages, as the reference's do:
+    # the blocks a PipelineStack holding the plain import's parameters
     for name in ("llama", "mistral"):
-        assert "pipeline_stages=2 is not ported" in _message(
-            from_hf, fam[name]["hf"], pipeline_stages=2, device=CPU)
+        m = from_hf(fam[name]["hf"], pipeline_stages=2, device=CPU)
+        assert type(m.blocks).__name__ == "PipelineStack"
+        plain = fam[name]["tm"].get_params()
+        assert all(torch.equal(p, plain[n])
+                   for n, p in m.get_params().items())
 
 
 EXPORT_REFUSALS = {

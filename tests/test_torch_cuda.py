@@ -1261,6 +1261,89 @@ def test_planted_ring_fault_fails_the_limits(cuda_device, fault):
     assert not r["ok"], r
 
 
+# -- pipeline stages and expert ranks on one card ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", kernel_check.PIPE_DTYPES)
+def test_pipe_body_matches_the_blocks_in_order(cuda_device, dtype):
+    """base()'s 16 blocks through the per-rank GPipe body of every
+    PIPE_CASES case with an in-process hop: output and gradients within
+    PIPE_RTOL of the blocks in order, each flash kernel launched once a
+    block a microbatch."""
+    from singa_tpu_torch import autograd
+    autograd.set_training(True)
+    try:
+        blocks, x, do = kernel_check.pipe_blocks(dtype)
+        want = kernel_check.seq_run(blocks, x, do)
+        for case in kernel_check.PIPE_CASES:
+            r = kernel_check.check_pipe(case, dtype, blocks, x, do, want)
+            assert r["ok"] and r["launches_ok"], (case, r)
+    finally:
+        autograd.set_training(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(kernel_check.PIPE_FAULTS))
+def test_planted_pipe_fault_fails_the_limits(cuda_device, fault):
+    case, dtype, _ = kernel_check.PIPE_FAULTS[fault]
+    S, M = kernel_check.PIPE_CASES[case]
+    blocks, x, do = kernel_check.pipe_blocks(dtype, num_layers=4)
+    want = kernel_check.seq_run(blocks, x, do)
+    with kernel_check.pipe_fault(fault):
+        r = kernel_check.pipe_errors(kernel_check.pipe_run(blocks, x, do, S,
+                                                           M), want, dtype)
+    assert not r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", kernel_check.EP_DTYPES)
+def test_expert_ranks_match_the_one_device_scatter_path(cuda_device, dtype):
+    """Mixtral-8x7B's MoE layer at published widths over 2 and 4
+    in-process expert ranks (einsum dispatch, partial outputs summed):
+    output rows, aux loss and every gradient within the EP limits of
+    the one-device scatter path."""
+    inputs = kernel_check.ep_inputs(dtype)
+    want = kernel_check.ep_run(*inputs, 0)
+    for case, ep in kernel_check.EP_CASES.items():
+        r = kernel_check.ep_errors(kernel_check.ep_run(*inputs, ep), want,
+                                   dtype)
+        assert r["ok"], (case, r)
+
+
+@pytest.mark.cuda
+def test_planner_bytes_are_what_a_captured_step_holds(cuda_device):
+    """base() cut to 2 blocks, planned at a world of 1 under SGD with
+    momentum: its parameter, slot and gradient bytes are those the model
+    and optimizer hold after a captured step."""
+    from singa_tpu_torch.parallel import planner
+    cfg = dataclasses.replace(LlamaConfig.base(), num_layers=2,
+                              fused_loss=True)
+    sgd = lambda: topt.SGD(lr=0.01, momentum=0.9)   # noqa: E731
+    plan = planner.plan_train_step(
+        lambda d: Llama(cfg, device=d), sgd(),
+        ((torch.Size([2, 512]), torch.int32),), {"data": 1})
+    m = Llama(cfg, device=cuda_device,
+              generator=torch.Generator("cuda").manual_seed(0))
+    x = torch.randint(0, cfg.vocab_size, (2, 512), dtype=torch.int32,
+                      device="cuda")
+    m.set_optimizer(sgd())
+    m.compile([x], is_train=True, use_graph=True)
+    for _ in range(3):
+        m.train_step(x)
+    params = m.get_params().values()
+    assert m.graph.graph is not None
+    assert plan.param_bytes_per_device == sum(
+        p.numel() * p.element_size() for p in params)
+    assert plan.slot_bytes_per_device == sum(
+        t.numel() * t.element_size()
+        for ls in m.optimizer.slot_arrays().values() for t in ls)
+    assert plan.grad_bytes_per_device == sum(
+        p.grad.numel() * p.grad.element_size() for p in params)
+    assert torch.cuda.get_device_properties(0).total_memory == \
+        planner.HBM_BYTES["h100"] or "H100" not in \
+        torch.cuda.get_device_name(0)
+
+
 # -- the serving operator's tools on the card --------------------------------
 
 @pytest.mark.cuda

@@ -871,13 +871,13 @@ def test_init_distributed_single_process_noop(monkeypatch):
 
 
 def test_only_the_data_axis_exists():
-    # the model and seq axes exist since the tensor/sequence-parallel
-    # slice; pipeline and expert axes still raise, as does a mesh that
-    # the group's world does not fill
-    with pytest.raises(NotImplementedError, match="next distribution"):
-        tparallel.make_mesh({"data": 1, "pipe": 1})
-    with pytest.raises(NotImplementedError, match="next distribution"):
-        tparallel.make_mesh({"expert": 1})
+    # every axis of the reference exists since the pipeline and expert
+    # slice; asking a mesh for an axis it lacks raises, as does a mesh
+    # (a pipe axis among them) that the group's world does not fill
+    with pytest.raises(ValueError, match="has no axis"):
+        tparallel.make_mesh({"data": 1, "pipe": 1}).axis_size("expert")
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        tparallel.make_mesh({"data": 1, "pipe": 2})
     with pytest.raises(ValueError, match="needs 2 devices"):
         tparallel.make_mesh({"data": 1, "model": 2})
     with pytest.raises(ValueError, match="unknown compression"):

@@ -178,15 +178,16 @@ def test_load_reference_params_rejects_mismatches(pair):
                                          ("num_experts", 4),
                                          ("pipeline_stages", 2)])
 def test_later_slice_options_raise(field, value):
-    """Pipeline stages come with the distribution slice and raise; the
-    window and the experts are ported (tests/test_torch_banded.py,
-    tests/test_torch_moe.py) and build."""
+    """The later slices' options are all ported and build: the window,
+    the experts (tests/test_torch_banded.py, tests/test_torch_moe.py)
+    and pipeline stages, a layer.PipelineStack of the blocks
+    (tests/test_torch_pipeline.py)."""
     cfg = dataclasses.replace(LlamaConfig.tiny(), **{field: value})
+    m = Llama(cfg)
+    assert getattr(m.cfg, field) == value
     if field == "pipeline_stages":
-        with pytest.raises(NotImplementedError, match=field):
-            Llama(cfg)
-    else:
-        assert getattr(Llama(cfg).cfg, field) == value
+        assert type(m.blocks).__name__ == "PipelineStack"
+        assert m.blocks.stages == value
 
 
 def test_presets_match_the_reference():

@@ -251,15 +251,15 @@ def test_mlp_activations_match_reference(act):
 @pytest.mark.parametrize("field,value,what", [
     ("remat", True, "Remat"), ("pipeline_stages", 2, "PipelineStack")])
 def test_gpt2_unported_options_raise(field, value, what):
-    """No option is ignored: one not ported raises, naming the layer it
-    needs; remat, ported since, builds that layer around every block."""
+    """No option is ignored: each builds the layer it needs, ported
+    since: remat a Remat around every block, pipeline stages a
+    PipelineStack of the blocks."""
     cfg = dataclasses.replace(GPT2Config.tiny(), **{field: value})
+    m = GPT2(cfg, device=CPU)
     if field == "remat":
-        m = GPT2(cfg, device=CPU)
         assert all(type(b).__name__ == what for b in m.blocks)
         return
-    with pytest.raises(NotImplementedError, match=what):
-        GPT2(cfg, device=CPU)
+    assert type(m.blocks).__name__ == what and m.blocks.stages == value
 
 
 # -- BERT ------------------------------------------------------------------------
