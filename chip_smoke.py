@@ -208,7 +208,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tools/train_cnn.py: one epoch of the synthetic MNIST CNN and
                CIFAR VGG-11, each evaluating through its captured eval
                step.  No flash kernel runs on the path
- 19. transformer — GPT-2 124M (GPT2Config(): published widths and 12
+ 19. native  — the native core (singa_tpu_torch._core over the port's copy
+               of the C++ runtime, singa_tpu_torch/csrc/core) on the
+               card's host: the library built by g++ from the checkout
+               (seconds, version, timed alone), then its test binary
+               under ASan and UBSan on a thread beside the untimed
+               set-up and joined before anything else is timed (not run
+               where g++ links no sanitizer; a build or run that raises
+               fails the phase).  Three eager MLP steps through
+               create_cpu_device(use_native=True) against
+               use_native=False (1e-4 / 1e-5, host kernels called and
+               not).  Phase cnn's CIFAR ResNet-18 cell, built from its
+               seed and captured: schedule()'s node count, the order held
+               against the traced graph's dependencies, the arena beside
+               the capture's pool.  Phase cnn's ResNet-50 cell, built from
+               its seed and captured, fed by DataLoader(use_native=True,
+               workers=4, prefetch=4) through prefetch_to_device over 768
+               images at 224² labelled arange(768) (three batches an
+               epoch), two epochs with the loss read every step, every
+               batch's rows equal to x[labels] on the card and every label
+               once an epoch; the same through the numpy pipeline; beside
+               them the replay alone on a batch already on the card.  Of
+               each pipeline: every step's wall ms and batch wait, the
+               epoch-first steps (which pull the whole epoch), and
+               images/s over the whole window.  No flash kernel runs
+ 20. transformer — GPT-2 124M (GPT2Config(): published widths and 12
                layers, dropout 0.1) and BERT-base (BERTConfig(num_labels=2)),
                random weights from seed 0, bf16 activations over f32
                masters.  GPT-2: generate() at B=4, P=512, N=32 (captured =
@@ -240,7 +264,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                padded ids; the f32 eval against the port on the CPU; no
                flash launch anywhere on BERT's path (T = 128 takes the
                plain attention, as in the reference)
- 20. hf      — the Llama family through the HuggingFace layout and back on
+ 21. hf      — the Llama family through the HuggingFace layout and back on
                the card, without transformers: the slice phase's base()
                (parked on the host since the beam phase), mistral-w4096
                cut to 2 layers and mixtral-8x7b cut to 1, each exported
@@ -256,10 +280,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                kernels banded) bitwise in losses and parameters; the
                export's and the import's host seconds, the process's
                peak RSS and the card's peak memory
- 21. tensor  — every function of singa_tpu_torch.tensor once on
+ 22. tensor  — every function of singa_tpu_torch.tensor once on
                create_device("auto") at (4096, 2048) f32 against numpy,
                with the count that agreed
- 22. train_run — fault-tolerant training runs through singa_tpu_torch.train:
+ 23. train_run — fault-tolerant training runs through singa_tpu_torch.train:
                GPT-2 124M (GPT2Config() uncut, fused loss, dropout 0.1,
                seed 0) with AdamW(3e-4, weight decay 0.1) at B=8 x
                T=1024, a DataLoader over 512 synthetic sequences, 24
@@ -286,7 +310,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                the emergency checkpoint's pre-draw cursor, an "aborted"
                record, TrainAborted, and a resume).  Every resume
                bitwise U's in losses and final sha256
- 23. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
+ 24. sonnx   — the ONNX path (singa_tpu_torch.sonnx).  BERT-base at
                bench.py's cell (BERTConfig(num_labels=2), seed 0, B=256 x
                T=128): exported by the port (to_onnx), serialised and
                parsed back (bytes, export / serialise / parse seconds),
@@ -307,7 +331,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                captured eval bitwise the eager one, ms a call and
                tokens/s of each.  No flash launch on either path, counted
                on the card
- 24. rnn     — the char-rnn (tools/train_rnn.CharRNN: two LSTMs of 128
+ 25. rnn     — the char-rnn (tools/train_rnn.CharRNN: two LSTMs of 128
                over an embedding of 64, the reference example's
                widths), B=64 x T=64 characters, Adam 3e-3, bf16
                activations: 40 eager and 40 captured steps bitwise in
@@ -316,7 +340,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                imported on the card, eval logits against the native
                model's in bf16 and f32; then tools/train_rnn at its
                defaults (150 steps, a sample).  No flash launch
- 25. dist    — data-parallel training over NCCL at a world of 1 (the
+ 26. dist    — data-parallel training over NCCL at a world of 1 (the
                machine has one card): parallel.init_distributed on a
                free local port, the data mesh set, the group destroyed
                at the end.  base()'s training cell cut to DIST_LAYERS
@@ -338,14 +362,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                images, 8 steps, the step captured); no
                flash launch there.  No allreduce bandwidth: one rank
                moves nothing between cards
- 26. spmd    — tensor and sequence parallelism at a world of 1: base()
+ 27. spmd    — tensor and sequence parallelism at a world of 1: base()
                (fused loss) under make_mesh({'data': 1, 'model': 1,
                'seq': 1}), every Linear and embedding in its Megatron
                form, captured, held bitwise to the plain step and timed
                beside it; ring attention's per-rank body over S = 2 and 4
                shards of one card (kernel_check.RING_CASES) against the
                whole-sequence attention, its planted faults caught
- 27. pipe    — pipeline and expert parallelism on one card: base()'s 16
+ 28. pipe    — pipeline and expert parallelism on one card: base()'s 16
                blocks through the per-rank GPipe body of S = 2 and 4
                stages over M = S and 2S microbatches with an in-process
                hop (kernel_check.PIPE_CASES), bf16 and f32, against the
@@ -356,7 +380,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                and llama3_8b's plan on data 4 x model 8; Mixtral-8x7B's
                MoE layer at published widths over 2 and 4 in-process
                expert ranks against the one-device scatter path
- 28. timing  — each kernel, its plain version and the PyTorch call that
+ 29. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
                training shapes of base() and GPT-2, beside the card's
@@ -3937,6 +3961,220 @@ def phase_cnn():
     return launches
 
 
+# phase native: the native core (singa_tpu_torch._core, built by g++ from
+# singa_tpu_torch/csrc/core) on the card's host.  The threaded loader
+# (kernel_check.NATIVE_WORKERS workers, a ring of NATIVE_PREFETCH)
+# feeds phase cnn's ResNet-50 cell through prefetch_to_device, the loss
+# read every step, beside the numpy pipeline and the replay alone
+# (NATIVE_REPLAYS steps on a batch already on the card); NATIVE_IMAGES
+# images at 224² (three batches of CNN_B an epoch), labels arange(n).
+# With three batches an epoch, prefetch_to_device pulls the whole epoch
+# at its first step, so a pipeline's cost shows in the epoch-first
+# steps and in the window's wall time, not in the later steps
+NATIVE_IMAGES, NATIVE_REPLAYS = 768, 6
+
+
+def native_asan():
+    """The core's test binary under ASan and UBSan, built and run; not
+    run where g++ here cannot link the sanitizers.  A build that raises
+    or a binary that runs past its limit is a failed run."""
+    from singa_tpu_torch import _build
+    t0 = time.perf_counter()
+    try:
+        if not _build.asan_supported():
+            return {"run": False, "why": "g++ here links no -fsanitize="
+                    "address,undefined program", "passed": None}
+        exe = _build.build_asan()
+        r = subprocess.run([str(exe)], capture_output=True, text=True,
+                           timeout=300)
+    except Exception as e:          # noqa: BLE001 -- reported as a failure
+        return {"run": True, "passed": False, "error": repr(e)[-2000:],
+                "seconds": time.perf_counter() - t0}
+    return {"run": True, "rc": r.returncode,
+            "passed": r.returncode == 0
+            and "ALL NATIVE TESTS PASSED" in r.stdout,
+            "output_tail": (r.stdout + r.stderr)[-400:],
+            "seconds": time.perf_counter() - t0}
+
+
+def native_models(later):
+    """Phase cnn's two cells built again from CNN_SEED: ResNet-50 (the
+    loader's, compiled later) and CIFAR ResNet-18, captured at CNN_B
+    with CNN_SGD (schedule()'s)."""
+    from singa_tpu_torch import device, models, opt
+    dev = device.create_device("cuda")
+
+    def build(factory):
+        gen = torch.Generator("cuda").manual_seed(CNN_SEED)
+        return factory(device=dev, generator=gen)
+    r18 = build(models.resnet18)
+    x, y = _images((32, 32, 3), 10)
+    r18.set_optimizer(opt.SGD(**CNN_SGD))
+    r18.compile([x], is_train=True, use_graph=True)
+    for _ in range(3):
+        r18.train_step(x, y)
+    torch.cuda.synchronize()
+    later(r18.get_graph("train").graph is not None,
+          "ResNet-18's train step did not capture")
+    return build(models.resnet50), r18
+
+
+def native_loader_cell(m, x_np, labels, later):
+    """Phase cnn's ResNet-50 cell (B = CNN_B, 224², SGD CNN_SGD) fed by
+    the native loader and by the numpy pipeline in turns (native, numpy,
+    numpy, native; two epochs each), beside the replay alone; every
+    batch held whole (kernel_check.native_feed).  Each pipeline's
+    images/s is over its whole window (every step's wall time, batch
+    waits included)."""
+    from singa_tpu_torch import kernel_check, opt
+    from singa_tpu_torch.utils.data import DataLoader
+    x_dev = torch.from_numpy(x_np).cuda()
+    x0, y0 = x_dev[:CNN_B], torch.from_numpy(labels[:CNN_B]).cuda()
+    m.set_optimizer(opt.SGD(**CNN_SGD))
+    m.compile([x0], is_train=True, use_graph=True)
+    warm = [_timed(lambda: m.train_step(x0, y0))[1] for _ in range(3)]
+
+    def step(xb, yb):
+        return m.train_step(xb, yb)[1].item()
+
+    replay = []
+    for _ in range(NATIVE_REPLAYS):
+        t0 = time.perf_counter()
+        step(x0, y0)
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - t0)
+    rmed = sorted(replay)[len(replay) // 2]
+    runs = {"native": [], "numpy": []}
+    for name in ("native", "numpy", "numpy", "native"):
+        loader = DataLoader(x_np, labels, batch_size=CNN_B, seed=CNN_SEED,
+                            workers=kernel_check.NATIVE_WORKERS,
+                            prefetch=kernel_check.NATIVE_PREFETCH,
+                            use_native=name == "native")
+        r = kernel_check.native_feed(step, loader, x_dev)
+        loader.close()
+        runs[name].append(r)
+        whole = {k: r[k] for k in ("rows_match_labels",
+                                    "each_label_once_per_epoch", "epochs")}
+        later(r["rows_match_labels"] and r["each_label_once_per_epoch"],
+              f"the {name} loader's batches are not whole: {whole}")
+        later(np.isfinite(r["losses"]).all(), f"{name}: non-finite loss")
+    per_epoch = len(labels) // CNN_B
+    out = {"model": "resnet50", "B": CNN_B, "images": NATIVE_IMAGES,
+           "batch_bytes": CNN_B * 224 * 224 * 3 * 4,
+           "batches_an_epoch": per_epoch,
+           "workers": kernel_check.NATIVE_WORKERS,
+           "prefetch": kernel_check.NATIVE_PREFETCH,
+           "epochs_a_round": kernel_check.NATIVE_EPOCHS,
+           "order": "native, numpy, numpy, native",
+           "capture_first_calls_ms": [t * 1e3 for t in warm],
+           "replay_only": {"step_ms": [t * 1e3 for t in replay],
+                           "median_step_ms": rmed * 1e3,
+                           "images_per_s": CNN_B / rmed}}
+    for name, rounds in runs.items():
+        walls = [t for r in rounds for t in r["step_s"]]
+        first = walls[::per_epoch]
+        rest = sorted(t for i, t in enumerate(walls) if i % per_epoch)
+        window = sum(walls)
+        out[name] = {
+            "step_ms": [[t * 1e3 for t in r["step_s"]] for r in rounds],
+            "batch_wait_ms": [[t * 1e3 for t in r["wait_s"]]
+                              for r in rounds],
+            "epoch_first_step_ms": [t * 1e3 for t in first],
+            "later_steps_median_ms": rest[len(rest) // 2] * 1e3,
+            "mean_step_ms": window / len(walls) * 1e3,
+            "window_s": window, "steps": len(walls),
+            "images_per_s": CNN_B * len(walls) / window,
+            "mean_over_replay": window / len(walls) / rmed,
+            "losses": [r["losses"] for r in rounds],
+            "batches_whole": all(r["rows_match_labels"]
+                                 and r["each_label_once_per_epoch"]
+                                 for r in rounds)}
+    del x_dev, x0, y0
+    return out
+
+
+def native_schedule(m, later):
+    """schedule() of phase cnn's CIFAR ResNet-18 step, captured: traced
+    on demand over fake tensors, its order checked against the traced
+    graph's dependencies, its arena beside the capture's pool."""
+    from singa_tpu_torch import kernel_check
+    g = m.get_graph("train")
+    t0 = time.perf_counter()
+    s = g.schedule()
+    secs = time.perf_counter() - t0
+    topo = kernel_check.schedule_is_topological(s)
+    later(topo and s.num_nodes > 100 and s.arena_bytes > 0,
+          f"ResNet-18's schedule is not a topological order of its "
+          f"{s.num_nodes} nodes (arena {s.arena_bytes} B)")
+    return {"model": "resnet18_cifar", "B": CNN_B, "num_nodes": s.num_nodes,
+            "order_is_topological": topo, "arena_bytes": s.arena_bytes,
+            "graph_pool_bytes": g.pool_bytes,
+            "arena_over_pool": s.arena_bytes / g.pool_bytes,
+            "trace_and_plan_s": secs}
+
+
+def phase_native():
+    """The native core on the card's host: the library built from the
+    checkout (timed alone), then its test binary under ASan on a thread
+    beside the untimed set-up (the host kernels' MLP steps against
+    torch's, the two models, the image set), joined before schedule()
+    of a card step and the threaded loader feeding ResNet-50's captured
+    step are timed."""
+    import threading
+    from singa_tpu_torch import _build, _core, kernel_check
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    built = _core.built()
+    emit({"phase": "native", "build": {
+        "library": built.path.name, "gxx_seconds": built.seconds,
+        "version": _core.version(), "flags": _build.GXX_FLAGS}})
+    asan = {}
+    th = threading.Thread(target=lambda: asan.update(native_asan()))
+    th.start()
+    try:
+        fa.reset_device_launches()
+        native, calls = kernel_check.native_mlp_losses(True)
+        plain, plain_calls = kernel_check.native_mlp_losses(False)
+        mlp = {"native_losses": native, "plain_losses": plain,
+               "native_calls": calls, "plain_calls": plain_calls,
+               "rtol": kernel_check.NATIVE_MLP_RTOL,
+               "atol": kernel_check.NATIVE_MLP_ATOL,
+               "torch_threads": torch.get_num_threads(),
+               "core_omp_threads": _core.omp_max_threads(),
+               "ok": calls > 0 and plain_calls == 0 and bool(np.allclose(
+                   native, plain, rtol=kernel_check.NATIVE_MLP_RTOL,
+                   atol=kernel_check.NATIVE_MLP_ATOL))}
+        later(mlp["ok"], f"the host kernels' MLP steps differ from "
+              f"torch's or did not run: {mlp}")
+        r50, r18 = native_models(later)
+        x_np, labels = kernel_check.native_set(NATIVE_IMAGES, (224, 224, 3),
+                                               seed=CNN_SEED)
+    finally:
+        th.join()
+    later(asan.get("run") is False or asan.get("passed") is True,
+          f"the core's ASan test binary did not pass: {asan}")
+    sched = native_schedule(r18, later)
+    del r18
+    _free()
+    loader = native_loader_cell(r50, x_np, labels, later)
+    del r50, x_np
+    _free()
+    launches = fa.device_launches()
+    later(not any(launches.values()), f"flash kernels ran in phase "
+          f"native: {launches}")
+    emit({"phase": "native", "nvidia_smi": smi_line(), "asan": asan,
+          "loader": loader, "mlp_host_kernels": mlp, "schedule": sched,
+          "flash_launches": launches,
+          "phase_seconds": time.perf_counter() - t0})
+    for cond, msg in checks:
+        check(cond, msg)
+
+
 def gpt2_model(cfg):
     """GPT-2 at `cfg` on the card, f32 masters from seed 0."""
     from singa_tpu_torch import device
@@ -6777,6 +7015,7 @@ def main():
     banded = timed_phase("banded", phase_banded)
     moe = timed_phase("moe", phase_moe)
     cnn_launches = timed_phase("cnn", phase_cnn)
+    timed_phase("native", phase_native)
     transformer = timed_phase("transformer", phase_transformer)
     hf = timed_phase("hf", phase_hf, m)
     del m

@@ -12,10 +12,25 @@ with a one-node ONNX form are marked ``@unit`` for the exporter
 (``_unit``).
 
 Plain functions on ``torch.Tensor`` with the reference's dtype rules.
-torch autograd is the tape: the reference's ``Operator``/``backward``
-machinery is not rebuilt, only its public surface.  A cast of an f32
-master to bf16 passes its gradient back as f32, as the reference's
-``Cast.backward`` does.
+torch autograd is the tape.  ``Operator``, the reference's base class
+for user-defined ops, is a ``torch.autograd.Function`` underneath: a
+subclass gives a hand-written ``forward``/``backward``, or only
+``fwd``, which torch autograd differentiates (the reference uses
+``jax.vjp``).  A cast of an f32 master to bf16 passes its gradient back
+as f32, as the reference's ``Cast.backward`` does.
+
+The native CPU dispatch (``device.CppCPU(use_native=True)`` as the
+default device): the reference's nine ops with a ``native_fwd`` (add,
+mul, matmul, linear, relu, sigmoid, tanh, softmax, conv2d) run as
+such an ``Operator`` whose forward is the host kernel of ``_core``,
+under the reference's conditions (`Operator._native_candidate`):
+concrete f32 CPU tensors, no trace or dispatch mode active, and a
+hand-written backward or no gradient needed (so conv2d goes native
+only without a gradient); each op keeps its shape conditions (equal
+shapes for add and mul, 2-D for matmul and linear, symmetric pads and
+no groups or dilation for conv2d).  Otherwise, and always on the card,
+a public function is what it was: the check is one read of
+``device._native_cpu``.
 """
 
 from __future__ import annotations
@@ -26,9 +41,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import device as _device
 from ._unit import unit
 
-__all__ = ["linear", "embedding", "cast", "silu", "rmsnorm", "layernorm",
+__all__ = ["Operator", "training", "linear", "embedding", "cast", "silu",
+           "rmsnorm", "layernorm",
            "gelu", "softmax", "log_softmax", "relu",
            "tanh", "sigmoid", "dropout", "flatten", "reduce_mean",
            "conv2d", "max_pool2d", "avg_pool2d", "batchnorm",
@@ -69,9 +86,306 @@ def eval_mode():
     return _TrainingScope(False)
 
 
+# ---------------------------------------------------------------------------
+# Operator: the reference's base class for user-defined ops
+# ---------------------------------------------------------------------------
+
+def _host_f32(*ts) -> bool:
+    """Whether each of `ts` is a concrete f32 tensor in host memory and
+    no trace, dispatch or function mode is active: what the host kernels
+    may read by address."""
+    if torch._C._len_torch_dispatch_stack() or \
+            torch._C._len_torch_function_stack() or torch.jit.is_tracing():
+        return False
+    return all(type(t) in (torch.Tensor, torch.nn.Parameter)
+               and t.dtype == torch.float32 and t.device.type == "cpu"
+               and not torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in ts)
+
+
+def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum gradient `g` back to `shape` after broadcasting."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    g = g.sum(dim=tuple(range(g.ndim - len(shape)))) if g.ndim > len(shape) \
+        else g
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _OperatorFn(torch.autograd.Function):
+    """An Operator with a hand-written backward under torch autograd."""
+
+    @staticmethod
+    def forward(ctx, op, native, *xs):
+        ctx.op = op
+        return op._run_forward(native, xs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        grads = ctx.op.backward(*dys)
+        if not isinstance(grads, tuple):
+            grads = (grads,)
+        return (None, None, *grads)
+
+
+class Operator:
+    """A differentiable op (port of ``singa_tpu/autograd.py:84-160``).
+
+    A subclass either
+      * defines ``fwd(self, *tensors)`` (torch ops), which torch autograd
+        differentiates, or
+      * overrides ``forward``/``backward`` for a hand-written rule:
+        ``backward(*dys)`` returns one gradient per input (a tuple, or
+        the tensor of a one-input op).
+    It may define ``native_fwd(self, *tensors)``, a forward through the
+    host kernels of ``_core`` that returns a tensor (or a numpy array),
+    or None where its conditions do not hold; it runs where
+    `_native_candidate` says.  Calling the op on tensors returns its
+    output, with a gradient where one is needed."""
+
+    # comparisons/logical ops set this False: their outputs take no
+    # gradient
+    differentiable = True
+
+    def __init__(self):
+        self.requires_grad = False
+
+    # -- to be provided by subclasses ---------------------------------------
+    def fwd(self, *xs):  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def forward(self, *xs):
+        return self.fwd(*xs)
+
+    def backward(self, *dys):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no hand-written backward: torch "
+            f"autograd differentiates its fwd")
+
+    # -- native CPU dispatch (tensor_math_cpp parity) ------------------------
+    def _hand_written(self) -> bool:
+        return type(self).backward is not Operator.backward
+
+    def _native_candidate(self, xs) -> bool:
+        """The reference's rule: a `native_fwd`, the native CPU device
+        as the default, concrete f32 host inputs, and a hand-written
+        backward or no gradient needed (torch autograd needs the torch
+        forward)."""
+        if not xs or not hasattr(self, "native_fwd") or \
+                not _device._native_cpu or not _host_f32(*xs):
+            return False
+        return self._hand_written() or not self.requires_grad
+
+    def _run_forward(self, native: bool, xs):
+        out = self.native_fwd(*xs) if native else None
+        if out is None:
+            return self.forward(*xs)
+        if isinstance(out, np.ndarray):
+            out = torch.from_numpy(out)
+        return out
+
+    def __call__(self, *inputs: torch.Tensor):
+        for x in inputs:
+            if not isinstance(x, torch.Tensor):
+                raise TypeError(f"{type(self).__name__} got non-tensor "
+                                f"input {type(x)}")
+        self.requires_grad = (torch.is_grad_enabled() and self.differentiable
+                              and any(x.requires_grad for x in inputs))
+        native = self._native_candidate(inputs)
+        if not self.requires_grad:
+            with torch.no_grad():
+                return self._run_forward(native, inputs)
+        if self._hand_written():
+            return _OperatorFn.apply(self, native, *inputs)
+        return self.forward(*inputs)
+
+
+# the ops the reference's CppCPU runs natively
+class _Add(Operator):
+    def forward(self, a, b):
+        self._sa, self._sb = a.shape, b.shape
+        return a + b
+
+    def native_fwd(self, a, b):
+        if a.shape != b.shape:
+            return None          # broadcast handled by the torch path
+        self._sa = self._sb = a.shape
+        from . import _core
+        return _core.add(a, b)
+
+    def backward(self, dy):
+        return _unbroadcast(dy, self._sa), _unbroadcast(dy, self._sb)
+
+
+class _Mul(Operator):
+    def forward(self, a, b):
+        self._a, self._b = a, b
+        return a * b
+
+    def native_fwd(self, a, b):
+        if a.shape != b.shape:
+            return None
+        self._a, self._b = a, b
+        from . import _core
+        return _core.mul(a, b)
+
+    def backward(self, dy):
+        return (_unbroadcast(dy * self._b, self._a.shape),
+                _unbroadcast(dy * self._a, self._b.shape))
+
+
+class _Matmul(Operator):
+    def forward(self, a, b):
+        self._a, self._b = a, b
+        return torch.matmul(a, b)
+
+    def native_fwd(self, a, b):
+        if a.ndim != 2 or b.ndim != 2:
+            return None
+        self._a, self._b = a, b
+        from . import _core
+        return _core.gemm(a, b)
+
+    def backward(self, dy):
+        a, b = self._a, self._b
+        ga = torch.matmul(dy, b.transpose(-1, -2))
+        gb = torch.matmul(a.transpose(-1, -2), dy)
+        return _unbroadcast(ga, a.shape), _unbroadcast(gb, b.shape)
+
+
+class _Linear(Operator):
+    """y = x @ W (+ b)."""
+
+    def __init__(self, has_bias: bool):
+        super().__init__()
+        self.has_bias = has_bias
+
+    def forward(self, x, w, *b):
+        self._x, self._w = x, w
+        y = torch.matmul(x, w)
+        return y + b[0] if self.has_bias else y
+
+    def native_fwd(self, x, w, *b):
+        if x.ndim != 2:
+            return None
+        self._x, self._w = x, w
+        from . import _core
+        y = _core.gemm(x, w)
+        if self.has_bias:
+            y += b[0]
+        return y
+
+    def backward(self, dy):
+        x, w = self._x, self._w
+        gx = torch.matmul(dy, w.T)
+        lead = int(np.prod(x.shape[:-1]))
+        dy2 = dy.reshape(lead, dy.shape[-1])
+        gw = torch.matmul(x.reshape(lead, x.shape[-1]).T, dy2)
+        if self.has_bias:
+            return gx, gw, dy2.sum(dim=0)
+        return gx, gw
+
+
+class _ReLU(Operator):
+    def forward(self, a):
+        self._mask = a > 0
+        return torch.where(self._mask, a, 0.0)
+
+    def native_fwd(self, a):
+        self._mask = a > 0
+        from . import _core
+        return _core.relu(a)
+
+    def backward(self, dy):
+        return torch.where(self._mask, dy, 0.0)
+
+
+class _Sigmoid(Operator):
+    def forward(self, a):
+        self._y = torch.sigmoid(a)
+        return self._y
+
+    def native_fwd(self, a):
+        from . import _core
+        self._y = _core.sigmoid(a)
+        return self._y
+
+    def backward(self, dy):
+        return dy * self._y * (1 - self._y)
+
+
+class _Tanh(Operator):
+    def forward(self, a):
+        self._y = torch.tanh(a)
+        return self._y
+
+    def native_fwd(self, a):
+        from . import _core
+        self._y = _core.tanh(a)
+        return self._y
+
+    def backward(self, dy):
+        return dy * (1 - self._y * self._y)
+
+
+class _Softmax(Operator):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, a):
+        self._y = torch.softmax(a, dim=self.axis)
+        return self._y
+
+    def native_fwd(self, a):
+        if self.axis not in (-1, a.ndim - 1):
+            return None
+        from . import _core
+        self._y = _core.softmax(a)
+        return self._y
+
+    def backward(self, dy):
+        y = self._y
+        return y * (dy - (dy * y).sum(dim=self.axis, keepdim=True))
+
+
+class _Conv2d(Operator):
+    """`conv2d` by its torch forward, differentiated by torch autograd;
+    the host kernel serves a call that needs no gradient (as the
+    reference's)."""
+
+    def __init__(self, stride, padding, groups, dilation):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.groups, self.dilation = groups, dilation
+
+    def fwd(self, x, w, *b):
+        return _conv2d(x, w, b[0] if b else None, self.stride, self.padding,
+                       self.groups, self.dilation)
+
+    def native_fwd(self, x, w, *b):
+        if self.groups != 1 or _pair(self.dilation) != (1, 1) or \
+                isinstance(self.padding, str):
+            return None
+        stride = _pair(self.stride)
+        (pt, pb), (pl, pr) = _conv_pads(self.padding, x.shape[1:3],
+                                        w.shape[:2], stride, (1, 1))
+        if pt != pb or pl != pr:
+            return None
+        from . import _core
+        y = _core.conv2d_nhwc(x, w, stride, (pt, pl))
+        return y + b[0] if b else y
+
+
 @unit("linear")
 def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     """y = x @ W (+ b), W of shape (in, out)."""
+    if _device._native_cpu:
+        xs = (x, w) if b is None else (x, w, b)
+        if _host_f32(*xs):
+            return _Linear(b is not None)(*xs)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b
@@ -159,6 +473,8 @@ def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
 
 @unit("softmax")
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    if _device._native_cpu and _host_f32(x):
+        return _Softmax(axis)(x)
     return torch.softmax(x, dim=axis)
 
 
@@ -168,14 +484,20 @@ def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
+    if _device._native_cpu and _host_f32(x):
+        return _ReLU()(x)
     return torch.relu(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
+    if _device._native_cpu and _host_f32(x):
+        return _Tanh()(x)
     return torch.tanh(x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    if _device._native_cpu and _host_f32(x):
+        return _Sigmoid()(x)
     return torch.sigmoid(x)
 
 
@@ -248,6 +570,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, stride=1, padding=0,
     """2-D convolution of an NHWC `x` with an HWIO `w` (I = C / groups);
     the output is NHWC in x's dtype.  `padding` as `_conv_pads`; pads
     that F.conv2d cannot express (low != high) are applied first."""
+    if _device._native_cpu:
+        xs = (x, w) if b is None else (x, w, b)
+        if _host_f32(*xs):
+            return _Conv2d(stride, padding, groups, dilation)(*xs)
+    return _conv2d(x, w, b, stride, padding, groups, dilation)
+
+
+def _conv2d(x, w, b, stride, padding, groups, dilation) -> torch.Tensor:
     stride, dilation = _pair(stride), _pair(dilation)
     (pt, pb), (pl, pr) = _conv_pads(padding, x.shape[1:3], w.shape[:2],
                                     stride, dilation)
@@ -490,6 +820,9 @@ def _jclip(x: torch.Tensor, lo, hi) -> torch.Tensor:
 
 @unit("autograd.add")
 def add(a, b):
+    if _device._native_cpu and isinstance(b, torch.Tensor) and \
+            _host_f32(a, b):
+        return _Add()(a, b)
     return a + _as_t(b, a)
 
 
@@ -500,6 +833,9 @@ def sub(a, b):
 
 @unit("autograd.mul")
 def mul(a, b):
+    if _device._native_cpu and isinstance(b, torch.Tensor) and \
+            _host_f32(a, b):
+        return _Mul()(a, b)
     return a * _as_t(b, a)
 
 
@@ -559,6 +895,8 @@ def erf(a):
 
 @unit("autograd.matmul")
 def matmul(a, b):
+    if _device._native_cpu and _host_f32(a, b):
+        return _Matmul()(a, b)
     return torch.matmul(a, b)
 
 

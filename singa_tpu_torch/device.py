@@ -9,11 +9,20 @@ TpuDevice keeps bf16 activations) and a ``torch.Generator`` seeded by
 Unlike the reference, ``create_device("auto")`` never falls back to the
 CPU: without a card it raises.  The CPU is used only when the caller
 asks for it with ``create_device("cpu")``.
+
+``CppCPU(use_native=True)`` (``create_cpu_device(use_native=True)``)
+routes the reference's nine native ops (``autograd``'s add, mul,
+matmul, linear, relu, sigmoid, tanh, softmax and conv2d) on f32 CPU
+tensors through the host kernels of ``_core`` while it is the default
+device; `native_cpu` says whether it is.  It builds the library when
+made and raises when the library cannot be built.  Unlike the
+reference, ``use_native`` defaults to False: the port's CPU contracts
+are held over torch's CPU kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -21,9 +30,14 @@ __all__ = [
     "Device",
     "CppCPU",
     "CudaDevice",
+    "Platform",
     "create_device",
+    "create_cpu_device",
+    "create_cuda_device",
     "get_default_device",
     "set_default_device",
+    "native_cpu",
+    "enable_lazy_alloc",
 ]
 
 
@@ -57,10 +71,17 @@ class Device:
 
 
 class CppCPU(Device):
-    """Host CPU device (f32 default dtype) — the device the tests use."""
+    """Host CPU device (f32 default dtype) — the device the tests use.
+    With `use_native` the host kernels of ``_core`` take the native ops
+    while it is the default device; the library is built here, and a
+    failed build raises."""
 
-    def __init__(self):
+    def __init__(self, use_native: bool = False):
         super().__init__("CppCPU", torch.device("cpu"), torch.float32)
+        if use_native:
+            from . import _core
+            _core.lib()
+        self.use_native = bool(use_native)
 
 
 class CudaDevice(Device):
@@ -79,7 +100,43 @@ class CudaDevice(Device):
                          torch.bfloat16)
 
 
+class Platform:
+    """Static queries over the visible cards (reference:
+    singa::Platform), over ``torch.cuda``."""
+
+    @staticmethod
+    def GetNumGPUs() -> int:  # noqa: N802 (reference casing)
+        return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+    @staticmethod
+    def CreateCudaDevices(num: int) -> List["CudaDevice"]:  # noqa: N802
+        return [CudaDevice(i) for i in range(num)]
+
+    @staticmethod
+    def DeviceQuery() -> str:  # noqa: N802
+        lines = []
+        for i in range(Platform.GetNumGPUs()):
+            p = torch.cuda.get_device_properties(i)
+            lines.append(f"{i}: platform=cuda kind={p.name} "
+                         f"capability={p.major}.{p.minor} "
+                         f"memory={p.total_memory}")
+        return "\n".join(lines)
+
+
 _default_device: Optional[Device] = None
+#: whether the default device is a CppCPU with use_native: the one
+#: module global the native dispatch in ``autograd`` reads
+_native_cpu = False
+
+
+def create_cpu_device(use_native: bool = False) -> CppCPU:
+    return CppCPU(use_native=use_native)
+
+
+def create_cuda_device(id: int = 0) -> CudaDevice:
+    """The card `id` (the counterpart of the reference's
+    create_tpu_device)."""
+    return CudaDevice(id)
 
 
 def create_device(kind: str = "auto", id: int = 0) -> Device:
@@ -101,5 +158,17 @@ def get_default_device() -> Device:
 
 
 def set_default_device(dev: Optional[Device]) -> None:
-    global _default_device
+    global _default_device, _native_cpu
     _default_device = dev
+    _native_cpu = isinstance(dev, CppCPU) and dev.use_native
+
+
+def native_cpu() -> bool:
+    """True when the device set by `set_default_device` is a CppCPU with
+    use_native (never makes a default device)."""
+    return _native_cpu
+
+
+def enable_lazy_alloc(flag: bool) -> None:
+    """Reference-API no-op: torch's caching allocator owns allocation."""
+    del flag

@@ -20,8 +20,17 @@ is not used: it decomposes ops it has no formula for, which changes the
 step's roundings, and a counted step must be the step.  On the CPU a
 step is recorded the same way and ``graph`` stays None.
 
-``hlo_text``, ``compiled_hlo``, ``save_hlo`` and ``Schedule`` read XLA's
-modules and jaxprs and have no counterpart here.
+``schedule()`` feeds the native scheduler (``_core.NativeGraph``, the
+port's copy of the C++ core) an SSA op graph of the step: a
+``torch.fx`` graph from ``make_fx`` over the step, functionalized
+(`trace`), the counterpart of the reference's jaxpr.  It is traced
+when ``schedule()`` is called, never on the step's path, over fake
+tensors of the step's shapes, so it holds no step's activations.  The
+returned `Schedule` has the reference's surface (``order``,
+``arena_bytes``, ``num_nodes``, ``buffer_offsets``, ``native_hits``)
+and ``replay``s the graph on the host in that order, each f32 result
+written into its arena offset.  ``hlo_text``, ``compiled_hlo`` and
+``save_hlo`` read XLA's modules and have no counterpart here.
 
 A graph's ``launches`` are the hand-written kernels' launches that its
 capture recorded (the wrappers' host counters).  A replay calls no
@@ -34,8 +43,9 @@ remembers the epoch it was made in and is made anew once it has moved.
 
 from __future__ import annotations
 
+import operator
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -44,8 +54,8 @@ from torch.utils.flop_counter import flop_registry
 
 from .ops import flash_attention as _fa
 
-__all__ = ["CapturedGraph", "record", "reset_graph", "epoch",
-           "kernel_launches"]
+__all__ = ["CapturedGraph", "Schedule", "record", "trace", "reset_graph",
+           "epoch", "kernel_launches"]
 
 #: each hand-written kernel's name and its counter in ops.flash_attention
 _COUNTERS = {"flash_fwd": "launches", "flash_bwd_dq": "dq_launches",
@@ -200,11 +210,17 @@ class _OpCounter(TorchDispatchMode):
 class CapturedGraph:
     """One captured (or, on the CPU, recorded) step: its ops, FLOPs and
     hand-written kernel launches, and on a CUDA device the graph and the
-    bytes of its private pool."""
+    bytes of its private pool.  `fx` is the step's traced SSA graph
+    (`trace`): given, or traced at first use by `fx_thunk`, which the
+    step executor sets."""
 
-    def __init__(self, name: str, op_counts: Dict[str, int], flops: float,
-                 launches: Dict[str, int], nbytes: float = 0):
+    def __init__(self, name: str, op_counts: Optional[Dict[str, int]] = None,
+                 flops: float = 0.0, launches: Optional[Dict[str, int]] = None,
+                 nbytes: float = 0, fx=None):
+        op_counts, launches = op_counts or {}, launches or {}
         self.name = name
+        self._fx = fx
+        self.fx_thunk: Optional[Callable[[], Any]] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._op_counts = dict(op_counts)
         self._flops = float(flops)
@@ -272,6 +288,67 @@ class CapturedGraph:
     def replay(self) -> None:
         self.graph.replay()
 
+    # -- native scheduler bridge ---------------------------------------------
+    @property
+    def fx(self):
+        """The step's functionalized ``torch.fx`` graph (traced at first
+        use), or None where there is none."""
+        if self._fx is None and self.fx_thunk is not None:
+            self._fx = self.fx_thunk()
+            self.fx_thunk = None
+        return self._fx
+
+    def schedule(self) -> "Schedule":
+        """Feed the traced op graph to the native scheduler: its
+        deterministic topological order and first-fit arena plan for a
+        serial host replay (raises when the library is unavailable).  A
+        node's buffers are the values it reads and writes; a
+        multi-output op's ``getitem`` reads its element in place, and a
+        sink node keeps the graph's outputs live to the end."""
+        from . import _core
+        from .obs import events as obs_events
+        gm = self.fx
+        if gm is None:
+            raise RuntimeError(f"graph {self.name!r} has no traced step")
+        with obs_events.span("graph.schedule", graph=self.name,
+                             nodes=len(gm.graph.nodes)):
+            ng = _core.NativeGraph()
+            buf_ids: Dict[Tuple, int] = {}
+            steps: List[torch.fx.Node] = []
+
+            def bid(key) -> int:
+                return buf_ids.setdefault(key, len(buf_ids))
+
+            def reads(node) -> List[int]:
+                keys = []
+                torch.fx.node.map_arg((node.args, node.kwargs),
+                                      lambda n: keys.append(_value_key(n)))
+                return [bid(k) for k in keys
+                        if isinstance(_meta(k), torch.Tensor)]
+
+            for node in gm.graph.nodes:
+                if node.op in ("placeholder", "get_attr"):
+                    bid((node, None))
+                elif node.op == "call_function" and _is_alias(node):
+                    continue
+                elif node.op == "call_function":
+                    outs = list(_out_values(node))
+                    ng.add_node(str(node.target), reads(node),
+                                [bid(k) for k, _ in outs],
+                                [v.numel() * v.element_size()
+                                 for _, v in outs])
+                    steps.append(node)
+                elif node.op == "output":
+                    # outputs are read after the last node: their buffers
+                    # stay live to the end (replay returns copies of them)
+                    sink = reads(node)
+                    if sink:
+                        ng.add_node("__sink__", sink, [], [], 0)
+            order = ng.toposort()
+            arena, offsets = ng.plan_memory()
+            return Schedule(order, arena, ng.num_nodes, offsets, gm, steps,
+                            buf_ids)
+
 
 def record(name: str, fn: Callable[[], Any]):
     """Run fn() eagerly, counting its aten ops, their FLOPs and bytes and
@@ -281,6 +358,176 @@ def record(name: str, fn: Callable[[], Any]):
         out = fn()
     return out, CapturedGraph(name, ops.counts, ops.flops, _since(before),
                               ops.bytes)
+
+
+def trace(fn: Callable, *example_inputs):
+    """An SSA ``torch.fx`` graph of fn(*example_inputs): ``make_fx`` over
+    fn (autograd and in-place updates recorded as aten ops), then over
+    that graph functionalized, so every node writes a new value and an
+    input's update is one trailing ``copy_``.  Example inputs that are
+    fake tensors trace in their fake mode and allocate nothing."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.func import functionalize
+    from torch._subclasses.fake_tensor import FakeTensor
+    mode = "fake" if any(isinstance(a, FakeTensor)
+                         for a in example_inputs) else "real"
+    raw = make_fx(fn, tracing_mode=mode)(*example_inputs)
+    plain = [a.detach() if isinstance(a, torch.Tensor) else a
+             for a in example_inputs]
+    return make_fx(functionalize(raw, remove="mutations_and_views"),
+                   tracing_mode=mode)(*plain)
+
+
+def _meta(key):
+    """The traced value (fake tensor) of a buffer key."""
+    node, i = key
+    val = node.meta.get("val")
+    return val if i is None else val[i]
+
+
+def _is_alias(node) -> bool:
+    """A ``getitem`` of a multi-output op: it reads that op's element in
+    place, no new buffer."""
+    return node.target is operator.getitem and isinstance(
+        node.args[0].meta.get("val"), (tuple, list))
+
+
+def _value_key(node) -> Tuple:
+    """The buffer key of the value `node` stands for: (producer, element
+    index) for an alias, else (node, None)."""
+    if node.op == "call_function" and _is_alias(node):
+        return node.args[0], node.args[1]
+    return node, None
+
+
+def _out_values(node):
+    """(key, fake tensor) of each tensor `node` writes."""
+    val = node.meta.get("val")
+    if isinstance(val, torch.Tensor):
+        yield (node, None), val
+    elif isinstance(val, (tuple, list)):
+        for i, v in enumerate(val):
+            if isinstance(v, torch.Tensor):
+                yield (node, i), v
+
+
+_aten_native = {
+    torch.ops.aten.add.Tensor: "add", torch.ops.aten.sub.Tensor: "sub",
+    torch.ops.aten.mul.Tensor: "mul", torch.ops.aten.div.Tensor: "div",
+    torch.ops.aten.exp.default: "exp", torch.ops.aten.tanh.default: "tanh",
+    torch.ops.aten.sigmoid.default: "sigmoid",
+    torch.ops.aten.mm.default: "gemm",
+}
+
+
+class Schedule:
+    """A native-planned execution schedule: the deterministic topological
+    order and the first-fit arena plan of the C++ scheduler, and a host
+    `replay` that consumes both (the reference's single-threaded
+    deterministic replay).  Replay runs the traced graph node by node in
+    the planned order, writes each f32 result into its planned arena
+    offset (so an unsound liveness plan corrupts the outputs), and runs
+    the elementwise ops and products the library has through its host
+    kernels, as the reference's ``_native_eqn`` does."""
+
+    def __init__(self, order, arena_bytes, num_nodes, buffer_offsets, gm,
+                 steps, buf_ids):
+        self.order = order
+        self.arena_bytes = arena_bytes
+        self.num_nodes = num_nodes
+        self.buffer_offsets = buffer_offsets
+        self.gm = gm                  # the traced graph it plans
+        self._steps = steps           # its op nodes, by scheduler node id
+        self._buf_ids = buf_ids       # (node, element) -> buffer id
+        self.native_hits = 0
+
+    def replay(self, *args, use_native: bool = True) -> List:
+        """Serial host execution of the traced graph in planned order.
+        `args` match its placeholders (tensors or numpy arrays; copied,
+        so an update the step makes in place leaves them as they are).
+        Returns the flat outputs, copied out of the arena.  With
+        `use_native` the host kernels take what they can, and an
+        unavailable library raises."""
+        from . import _core
+        if use_native:
+            _core.lib()
+        graph = self.gm.graph
+        holders = [n for n in graph.nodes if n.op == "placeholder"]
+        if len(args) != len(holders):
+            raise ValueError(f"replay needs {len(holders)} args, got "
+                             f"{len(args)}")
+        arena = torch.zeros(self.arena_bytes, dtype=torch.uint8) \
+            if self.arena_bytes else None
+        env: Dict[Tuple, Any] = {}
+        for n, a in zip(holders, args):
+            env[(n, None)] = torch.as_tensor(a).clone()
+        for n in graph.nodes:
+            if n.op == "get_attr":
+                env[(n, None)] = operator.attrgetter(n.target)(self.gm)
+
+        def read(n):
+            return env[_value_key(n)]
+
+        def place(key, value):
+            """Store a result, into its planned arena slot when f32."""
+            off = self.buffer_offsets.get(self._buf_ids.get(key))
+            if (arena is not None and off is not None
+                    and isinstance(value, torch.Tensor)
+                    and value.dtype == torch.float32 and value.ndim
+                    and value.device.type == "cpu"):
+                view = arena[off:off + value.numel() * 4].view(
+                    torch.float32).view(value.shape)
+                view.copy_(value)
+                value = view
+            env[key] = value
+
+        self.native_hits = 0
+        for idx in self.order:
+            if idx >= len(self._steps):
+                continue              # the liveness sink, nothing to run
+            node = self._steps[idx]
+            a, kw = torch.fx.node.map_arg((node.args, node.kwargs), read)
+            out = self._native(node, a, kw) if use_native else None
+            if out is None:
+                out = node.target(*a, **kw)
+            else:
+                self.native_hits += 1
+            if isinstance(out, (tuple, list)):
+                for i, o in enumerate(out):
+                    place((node, i), o)
+            else:
+                place((node, None), out)
+        out_node = next(n for n in graph.nodes if n.op == "output")
+        flat: List = []
+        torch.fx.node.map_aggregate(
+            out_node.args[0], lambda v: flat.append(
+                read(v) if isinstance(v, torch.fx.Node) else v))
+        # copies at the boundary: no output aliases the shared arena
+        return [v.clone() if isinstance(v, torch.Tensor) else v
+                for v in flat]
+
+    @staticmethod
+    def _native(node, args, kwargs):
+        """A node through the host kernels, or None where the library
+        has no kernel for it: add/sub/mul/div of equal f32 shapes, exp,
+        tanh, sigmoid, and a 2-D f32 product."""
+        from . import _core
+        name = _aten_native.get(node.target)
+        if name is None or kwargs or not all(
+                isinstance(v, torch.Tensor) and v.dtype == torch.float32
+                and v.device.type == "cpu" and v.ndim for v in args):
+            return None
+        if name == "gemm":
+            return _core.gemm(*args) if all(v.ndim == 2 for v in args) \
+                else None
+        if len(args) == 2:
+            return getattr(_core, name)(*args) \
+                if args[0].shape == args[1].shape else None
+        return getattr(_core, name)(args[0])
+
+    def __repr__(self):
+        return (f"<Schedule nodes={self.num_nodes} "
+                f"arena={self.arena_bytes}B>")
 
 
 def reset_graph(device=None) -> None:

@@ -12,13 +12,18 @@ multi-axis training step against the plain one (``spmd_vs_plain``).
 Last, the pipeline schedule's per-rank body over S stages of one card
 with an in-process hop (``PIPE_CASES``, ``LocalPipe``, ``PIPE_FAULTS``)
 and the expert-parallel MoE body over ep ranks of one card
-(``EP_CASES``).
+(``EP_CASES``).  Then the native core's cases on the card's host: the
+threaded loader feeding a captured step (``native_feed``, batch
+integrity under ``NATIVE_WORKERS`` threads), the host kernels' MLP
+steps against torch's (``native_mlp_losses``) and the scheduler's order
+over a traced card step (``schedule_is_topological``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import time
 
 import torch
 
@@ -41,7 +46,10 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
            "pipe_errors", "pipe_blocks", "PIPE_FAULTS", "pipe_fault",
            "check_pipe", "EP_TOKENS", "EP_CASES", "EP_DTYPES",
            "EP_ROW_RTOL", "EP_GRAD_RTOL", "ep_inputs", "ep_run",
-           "ep_errors"]
+           "ep_errors", "NATIVE_WORKERS", "NATIVE_PREFETCH",
+           "NATIVE_EPOCHS", "NATIVE_MLP_STEPS", "NATIVE_MLP_RTOL",
+           "NATIVE_MLP_ATOL", "native_set", "native_feed",
+           "native_mlp_losses", "schedule_is_topological"]
 
 # label: (B, Tq, Tk, H, K, D, causal, window) -- the cases of
 # tests/test_flash.py, head dims 40 (padded) and 256, edges that fall
@@ -808,3 +816,110 @@ def ep_errors(got, want, dtype):
     out["limits"] = {"out_row": EP_ROW_RTOL[dtype],
                      "rest": EP_GRAD_RTOL[dtype]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the native core (singa_tpu_torch._core) on the card's host
+# ---------------------------------------------------------------------------
+
+# the threaded loader as the path runs it: 4 workers, a ring of 4, two
+# epochs; the MLP steps through the host kernels against torch's within
+# the reference's limits (tests/test_native.py's native-vs-XLA steps)
+NATIVE_WORKERS, NATIVE_PREFETCH, NATIVE_EPOCHS = 4, 4, 2
+NATIVE_MLP_STEPS = 3
+NATIVE_MLP_RTOL, NATIVE_MLP_ATOL = 1e-4, 1e-5
+
+
+def native_set(n: int, shape, seed: int = 0):
+    """n random f32 samples of `shape` (numpy, drawn on the host) and the
+    labels ``arange(n)``: a label names its row."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, *shape), generator=g).numpy()
+    return x, torch.arange(n, dtype=torch.int32).numpy()
+
+
+def native_feed(step, loader, x_dev, epochs: int = NATIVE_EPOCHS):
+    """`epochs` epochs of `loader` through ``prefetch_to_device`` into
+    step(x, y) -> loss, the loss read every step (as
+    ``tools/train_cnn.py`` reads it).  Each batch's rows are held
+    against ``x_dev[labels]`` on the card after its step, outside the
+    timed window, and each epoch must deliver every label exactly once.
+    Returns each step's wall seconds (batch wait, copy, step, loss
+    read), the host seconds of each batch wait alone (the ``next()``
+    that assembles, stages and enqueues the copies of every batch it
+    pulls), the losses, and whether the batches were whole."""
+    from .utils.data import prefetch_to_device
+    n = len(x_dev)
+    walls, waits, losses, rows_ok, epochs_ok = [], [], [], True, True
+    for _ in range(epochs):
+        seen = torch.zeros(n, dtype=torch.int64, device="cuda")
+        it = iter(prefetch_to_device(loader, device="cuda"))
+        while True:
+            t0 = _now()
+            try:
+                xb, yb = next(it)
+            except StopIteration:
+                break
+            waits.append(time.perf_counter() - t0)
+            losses.append(float(step(xb, yb)))
+            walls.append(_now() - t0)
+            lab = yb.long()
+            rows_ok &= bool(torch.equal(xb, x_dev.index_select(0, lab)))
+            seen.index_add_(0, lab, torch.ones_like(lab))
+        epochs_ok &= bool((seen == 1).all())
+    return {"step_s": walls, "wait_s": waits, "losses": losses,
+            "rows_match_labels": rows_ok,
+            "each_label_once_per_epoch": epochs_ok, "epochs": epochs}
+
+
+def _now() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def native_mlp_losses(use_native: bool, steps: int = NATIVE_MLP_STEPS):
+    """`steps` eager SGD steps (momentum 0.9) of a 16-wide MLP on the CPU
+    device ``create_cpu_device(use_native)`` (the default device while
+    they run), the reference's native-vs-XLA case; returns the losses and
+    how many host-kernel calls they made (``_core.stats``)."""
+    import numpy as np
+    from . import _core, device, models, opt
+    prev = device._default_device
+    dev = device.create_cpu_device(use_native=use_native)
+    device.set_default_device(dev)
+    try:
+        _core.reset_stats()
+        m = models.MLP(perceptron_size=16, num_classes=4, input_shape=(10,),
+                       device=dev, generator=torch.Generator().manual_seed(0))
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+        x = torch.from_numpy(np.random.RandomState(1).randn(8, 10)
+                             .astype(np.float32))
+        y = torch.from_numpy(np.random.RandomState(2).randint(0, 4, 8)
+                             .astype(np.int32))
+        m.compile([x], is_train=True, use_graph=False)
+        losses = [m.train_step(x, y)[1].item() for _ in range(steps)]
+        return losses, _core.stats["calls"]
+    finally:
+        device.set_default_device(prev)
+
+
+def schedule_is_topological(s) -> bool:
+    """Whether a ``graph.Schedule``'s order names every node once and
+    puts each node after the nodes that write what it reads (read from
+    the traced graph, not from the scheduler), the sink last of all."""
+    from .graph import _value_key
+    n = s.num_nodes
+    if sorted(s.order) != list(range(n)):
+        return False
+    where = {i: k for k, i in enumerate(s.order)}
+    pos = {node: where[i] for i, node in enumerate(s._steps)}
+    out = next(x for x in s.gm.graph.nodes if x.op == "output")
+    for node in list(s._steps) + [out]:
+        at = pos.get(node, n)
+        if node is out and len(s._steps) < n:
+            at = where[n - 1]            # the outputs are read at the sink
+        for src in node.all_input_nodes:
+            src = _value_key(src)[0]
+            if src in pos and pos[src] >= at:
+                return False
+    return True

@@ -8,7 +8,9 @@ with the reference's bookkeeping: one executor per (input shapes,
 dtypes, tag), made afresh when any of these changes; a separate eval
 executor; the optimizer's step counter advanced once per step; the
 optimizer's slots kept in its eager store.  ``Model.graph`` and
-``get_graph`` return the executor's ``graph.CapturedGraph``;
+``get_graph`` return the executor's ``graph.CapturedGraph``, whose
+``schedule()`` traces the executor's step on demand (`_StepExecutor.
+step_inputs` gives its inputs in order);
 ``save_states``/``load_states`` go through ``utils.checkpoint``.
 
 With a ``DistOpt`` optimizer and a current ``data`` mesh, a train
@@ -53,7 +55,7 @@ from .graph import epoch as graph_epoch
 from .layer import Dropout, Layer
 from .obs import attr as obs_attr
 from .obs import events as obs_events
-from .opt import DistOpt, Optimizer, replica_axes
+from .opt import DistOpt, Optimizer, _leaves, replica_axes
 from .parallel import communicator as comm
 from .parallel import mesh as mesh_mod
 from .parallel import pipeline
@@ -273,6 +275,7 @@ class _StepExecutor:
         self.calls = 0
         self.captured: Optional[CapturedGraph] = None
         self._stream = None
+        self._batch_spec = None
         self._static_in = None
         self._static_out = None
         self.slots: Dict = {}
@@ -455,6 +458,8 @@ class _StepExecutor:
     def _dispatch(self, batch, name):
         if self.calls == 0:
             outs, self.captured = record(self.tag, lambda: self._run(batch))
+            self._batch_spec = [(t.shape, t.dtype, t.device) for t in batch]
+            self.captured.fx_thunk = self._trace
         elif self.device.type != "cuda":
             outs = self._run(batch)
         elif self.calls == 1:
@@ -488,6 +493,87 @@ class _StepExecutor:
             error_mode="thread_local" if self.dist else "global")
         self.captured.replay()
         return _clone(self._static_out)
+
+    # -- the traced step (CapturedGraph.schedule) ---------------------------
+    def _state(self):
+        """(names, tensors) of what the step reads and updates besides
+        its batch: the parameters, the buffers, the optimizer's slot
+        leaves (``opt._leaves`` order) and its step tensor."""
+        names = [f"param:{n}" for n in self.param_tensors]
+        tensors = list(self.param_tensors.values())
+        for n, b in self.model._get_buffers().items():
+            names.append(f"buffer:{n}")
+            tensors.append(b)
+        if self.opt is not None:
+            for n in self.param_tensors:
+                leaves = _leaves(self.slots.get(n))
+                names += [f"slot:{n}:{i}" for i in range(len(leaves))]
+                tensors += leaves
+            names.append("step")
+            tensors.append(self.opt.step_tensor(self.device))
+        return names, tensors
+
+    def step_inputs(self, batch) -> List[torch.Tensor]:
+        """The inputs of this step's traced graph, in its order: copies
+        of the state (`_state`) as it is now, then the batch."""
+        return [t.detach().clone() for t in self._state()[1]] + list(batch)
+
+    def _trace(self):
+        """The step's SSA graph (`graph.trace`) over fake tensors of its
+        inputs (`step_inputs` order): nothing runs, nothing of the model
+        changes.  Its outputs: the step's, then the updated parameters,
+        buffers, slot leaves and step."""
+        if self.mesh is not None:
+            raise NotImplementedError("schedule() traces a single-process "
+                                      "step")
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from .graph import trace
+        fake = FakeTensorMode()
+        ins = [fake.from_tensor(t) for t in self._state()[1]]
+        with fake:
+            ins += [torch.empty(shape, dtype=dt, device=dev)
+                    for shape, dt, dev in self._batch_spec]
+        return trace(self._functional_step, *ins)
+
+    def _functional_step(self, *flat):
+        """One step over `flat` (`step_inputs` order) in place of the
+        model's state, the optimizer's store swapped for the given slots
+        and step while it runs."""
+        from torch.nn.utils.stateless import _reparametrize_module
+        pnames = list(self.param_tensors)
+        bnames = list(self.model._get_buffers())
+        it = iter(flat)
+        params = [next(it) for _ in pnames]
+        bufs = [next(it) for _ in bnames]
+        for n, p in zip(pnames, params):
+            p.param_name = n
+        swap = {**dict(zip(pnames, params)), **dict(zip(bnames, bufs))}
+        o = self.opt
+        if o is None:
+            with _reparametrize_module(self.model, swap):
+                return self._run(tuple(it)), params, bufs
+        saved = o._eager_state, o._step_dev, o.step_counter
+        o._eager_state = {n: _rebuild(self.slots.get(n), it) for n in pnames}
+        step = o._step_dev = next(it)
+        try:
+            with _reparametrize_module(self.model, swap):
+                outs = self._run(tuple(it))
+            slots = [t for n in pnames for t in _leaves(o._eager_state[n])]
+        finally:
+            o._eager_state, o._step_dev, o.step_counter = saved
+        return outs, params, bufs, slots, step
+
+
+def _rebuild(template, leaves):
+    """A slot of `template`'s structure over the next tensors of
+    `leaves` (``opt._leaves`` order)."""
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    if isinstance(template, dict):
+        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
+    return tuple(_rebuild(t, leaves) for t in template)
 
 
 def _dropout_generators(model) -> tuple:

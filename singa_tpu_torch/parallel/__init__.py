@@ -21,9 +21,10 @@ from .mesh import (make_mesh, set_mesh, current_mesh, data_parallel_mesh,
                    mesh_shape, pipeline_mesh)
 from .distributed import (init_distributed, finalize_distributed,
                           global_mesh, local_batch)
+from .planner import plan_train_step
 
 __all__ = ["mesh", "communicator", "distributed", "spmd", "pipeline",
            "planner", "make_mesh", "set_mesh", "current_mesh",
            "data_parallel_mesh", "mesh_shape", "pipeline_mesh",
            "init_distributed", "finalize_distributed", "global_mesh",
-           "local_batch"]
+           "local_batch", "plan_train_step"]

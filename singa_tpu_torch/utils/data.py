@@ -7,8 +7,14 @@ The loader shuffles each epoch with ``np.random.RandomState(seed +
 epoch)``, as the reference's numpy pipeline does, so the two packages
 yield the same batches for the same seed and epoch.  ``rank`` and
 ``world_size`` give each process of a data-parallel run its contiguous
-shard, as the reference's do.  The reference's native threaded loader
-is not ported.
+shard, as the reference's do.
+
+``use_native=True`` takes the native threaded pipeline
+(``_core.NativeLoader``: `workers` threads assemble shuffled batches
+into a ring of `prefetch`, so batch assembly overlaps the card's step),
+as the reference's does; it raises when the library cannot be built.
+Unlike the reference, whose default takes the native pipeline wherever
+the library builds, the default here is the numpy pipeline.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import faults
+from .. import _core, faults
 
 __all__ = ["DataLoader", "prefetch_to_device", "synthetic_dataset"]
 
@@ -35,16 +41,28 @@ class DataLoader:
 
     def __init__(self, x: np.ndarray, y: Optional[np.ndarray] = None,
                  batch_size: int = 32, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = False, rank: int = 0,
+                 drop_last: bool = False, workers: int = 2,
+                 prefetch: int = 4, use_native: bool = False, rank: int = 0,
                  world_size: int = 1):
         """rank/world_size: each process loads a contiguous shard of
         exactly floor(n / world_size) samples, so every rank sees the
         same batch count and shapes (up to world_size - 1 trailing
-        samples are dropped)."""
+        samples are dropped).  use_native: the native pipeline over
+        `workers` threads and a ring of `prefetch` batches; integer
+        inputs (token ids) warn and take the numpy pipeline, whose
+        buffers keep them integral."""
         x = np.asarray(x)
-        x = (x.astype(np.int32, copy=False)
-             if np.issubdtype(x.dtype, np.integer)
-             else x.astype(np.float32, copy=False))
+        if np.issubdtype(x.dtype, np.integer):
+            if use_native:
+                warnings.warn(
+                    "DataLoader(use_native=True) ignored: integer input "
+                    "(token ids) routes through the python pipeline — "
+                    "the native loader's buffers are f32-typed and "
+                    "would corrupt ids", stacklevel=2)
+            x = x.astype(np.int32, copy=False)
+            use_native = False
+        else:
+            x = x.astype(np.float32, copy=False)
         y = np.asarray(y, np.int32) if y is not None else None
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
@@ -67,6 +85,11 @@ class DataLoader:
         self._epoch = 0       # epochs fully consumed
         self._batch_idx = 0   # batches consumed within the current epoch
         self._len_warned = False
+        self._native: Optional[_core.NativeLoader] = None
+        if use_native:
+            self._native = _core.NativeLoader(
+                self.x, self.y, batch_size, shuffle=shuffle, seed=seed,
+                drop_last=drop_last, workers=workers, prefetch=prefetch)
 
     def __len__(self) -> int:
         n = len(self.x)
@@ -78,6 +101,9 @@ class DataLoader:
         # before the yield; nan corrupts the yielded float arrays).  The
         # cursor has already advanced, so a caller that retries past an
         # injected error skips that batch
+        if self._native is not None:
+            yield from self._native_epoch()
+            return
         idx = np.arange(len(self.x))
         if self.shuffle:
             # the permutation is a function of the cursor alone, so a
@@ -93,6 +119,21 @@ class DataLoader:
         self._epoch += 1
         self._batch_idx = 0
 
+    def _native_epoch(self):
+        """The rest of this epoch from the native loader (its order is
+        ``std::mt19937_64(seed + epoch)``'s, not numpy's)."""
+        for _ in range(len(self) - self._batch_idx):
+            try:
+                b = self._native.next()
+            except StopIteration:
+                # under-delivery (a concurrent close) ends the epoch
+                return
+            self._batch_idx += 1
+            faults.fire("data.next", epoch=self._epoch, batch=self._batch_idx)
+            yield faults.corrupt("data.next", b)
+        self._epoch += 1
+        self._batch_idx = 0
+
     def state_dict(self) -> dict:
         """The loader's position: what reproduces the rest of its data
         trajectory after a restart."""
@@ -102,7 +143,9 @@ class DataLoader:
     def load_state_dict(self, state: dict) -> None:
         """Restore a position taken by `state_dict`.  Warns once when the
         dataset's length changed between save and load: the resumed
-        shuffle then runs over other data."""
+        shuffle then runs over other data.  The native loader cannot
+        seek: a non-zero position warns, closes it and resumes on the
+        numpy pipeline, whose order differs from the native one."""
         n = state.get("num_samples")
         if n is not None and int(n) != len(self.x) and not self._len_warned:
             self._len_warned = True
@@ -114,6 +157,20 @@ class DataLoader:
         self.seed = int(state.get("seed", self.seed))
         self._epoch = int(state.get("epoch", 0))
         self._batch_idx = int(state.get("batch_idx", 0))
+        if self._native is not None and (self._epoch or self._batch_idx):
+            warnings.warn(
+                "DataLoader: native loader cannot seek to a saved "
+                "position; resuming on the python pipeline (its shuffle "
+                "order differs from the native one — resume is "
+                "best-effort, not bit-identical)", stacklevel=2)
+            self.close()
+
+    def close(self) -> None:
+        """Stop the native loader's threads (idempotent; the numpy
+        pipeline holds none)."""
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
 
 def prefetch_to_device(it, size: int = 2, device=None):

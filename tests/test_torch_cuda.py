@@ -1743,3 +1743,90 @@ def test_tensor_functions_on_the_card(cuda_device):
     rows = chip_smoke.tensor_checks(cuda_device, (1024, 512))
     assert len(rows) == len(ttensor.__all__) - 1
     assert [r for r in rows if not r["ok"]] == []
+
+
+# -- the native core on the card's host ----------------------------------------
+
+def _cifar_resnet18(dev, b):
+    from singa_tpu_torch import models
+    m = models.resnet18(device=dev,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    m.set_optimizer(topt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4))
+    g = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn((b, 32, 32, 3), generator=g, device="cuda")
+    y = torch.randint(0, 10, (b,), generator=g, device="cuda")
+    m.compile([x], is_train=True, use_graph=True)
+    return m, x, y.to(torch.int32)
+
+
+@pytest.mark.cuda
+def test_native_loader_feeds_a_captured_cnn_step(cuda_device):
+    """DataLoader(use_native=True) with 4 workers through
+    prefetch_to_device into a captured CIFAR ResNet-18 step, two epochs
+    (kernel_check.native_feed): every batch's rows are x[labels] and
+    every label comes once an epoch, as phase native checks at
+    ResNet-50's cell."""
+    from singa_tpu_torch.utils.data import DataLoader
+    b = 64
+    m, x0, y0 = _cifar_resnet18(cuda_device, b)
+    for _ in range(3):                    # eager, warm-up, capture
+        m.train_step(x0, y0)
+    x, labels = kernel_check.native_set(3 * b, (32, 32, 3), seed=2)
+    loader = DataLoader(x, labels, batch_size=b, seed=0, use_native=True,
+                        workers=kernel_check.NATIVE_WORKERS,
+                        prefetch=kernel_check.NATIVE_PREFETCH)
+    r = kernel_check.native_feed(lambda xb, yb: m.train_step(xb, yb)[1],
+                                 loader, torch.from_numpy(x).cuda())
+    loader.close()
+    assert r["rows_match_labels"] and r["each_label_once_per_epoch"]
+    assert len(r["losses"]) == 3 * kernel_check.NATIVE_EPOCHS
+    assert np.isfinite(r["losses"]).all()
+    assert m.graph.graph is not None
+
+
+@pytest.mark.cuda
+def test_schedule_of_a_card_step(cuda_device):
+    """schedule() of a captured CIFAR ResNet-18 step on the card: traced
+    on demand over fake tensors, an order that respects the traced
+    graph's dependencies, an arena beside the capture's pool."""
+    m, x, y = _cifar_resnet18(cuda_device, 32)
+    for _ in range(3):
+        m.train_step(x, y)
+    g = m.get_graph("train")
+    s = g.schedule()
+    assert s.num_nodes > 100 and s.arena_bytes > 0 and g.pool_bytes > 0
+    assert kernel_check.schedule_is_topological(s)
+
+
+@pytest.mark.cuda
+def test_native_cpu_leaves_a_card_step_as_it_was(cuda_device):
+    """native_cpu() is False for the card's device, and with the native
+    CPU device as the default a captured card step launches the same
+    kernels, its losses bitwise, no host kernel called."""
+    from singa_tpu_torch import _core
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, max_position=1024,
+                              fused_loss=True)
+    ids = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 512))
+
+    def run():
+        m = Llama(cfg, device=cuda_device,
+                  generator=torch.Generator("cuda").manual_seed(0))
+        m.set_optimizer(topt.SGD(lr=0.01, momentum=0.9))
+        m.compile([ids], is_train=True, use_graph=True)
+        tfa.reset_device_launches()
+        losses = [m.train_step(ids)[1].item() for _ in range(4)]
+        return losses, tfa.device_launches(), m.graph.launches
+
+    tdevice.set_default_device(cuda_device)
+    assert not tdevice.native_cpu()
+    plain = run()
+    tdevice.set_default_device(tdevice.create_cpu_device(use_native=True))
+    try:
+        assert tdevice.native_cpu()
+        _core.reset_stats()
+        native = run()
+        assert _core.stats["calls"] == 0
+    finally:
+        tdevice.set_default_device(None)
+    assert native == plain
