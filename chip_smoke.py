@@ -79,7 +79,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                FLOPs and bytes) validated, its attributed_frac printed;
                the chaos smoke (one SIGKILL and one SIGSTOP against a
                1:1 process tier, bf16: streams bitwise, no orphan,
-               programs within (1, 1), detection and respawn seconds);
+               programs within (1, 1), detection and respawn seconds;
+               it and the mp smoke run in interpreters of their own,
+               started before this phase and read after phase beam, as
+               the line of phase ops with "beside" and the wall
+               "ops_procs");
                the table's best serve point measured afresh beside its
                recorded tokens/s (not a gate); and its best train point
                (DistOpt over an NCCL group of one, T=1024, 8 timed
@@ -175,7 +179,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tick, (1, 1) programs, no flash launch, the streams beside
                generate()'s and both held by the teacher-forced bf16 gate
  17. moe    — mixtral-8x7b (Mixtral-8x7B-v0.1's widths, 8 experts,
-               top-2, dropless capacity factor 4.0, cut to 2 layers): the
+               top-2, dropless capacity factor 4.0, cut to 1 layer): the
                same at training B=4 x T=1024 (the aux loss read at every
                step, the experts' rows over the active ones),
                generate() at B=4, P=1024, N=32, and the serve phase's
@@ -284,14 +288,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                create_device("auto") at (4096, 2048) f32 against numpy,
                with the count that agreed
  23. train_run — fault-tolerant training runs through singa_tpu_torch.train:
-               GPT-2 124M (GPT2Config() uncut, fused loss, dropout 0.1,
-               seed 0) with AdamW(3e-4, weight decay 0.1) at B=8 x
-               T=1024, a DataLoader over 512 synthetic sequences, 24
-               steps, AsyncCheckpointManager(save_every=8, keep_last=2,
-               keep_every=16) in a temporary directory (1.49 GB a
-               checkpoint).  U, uninterrupted, here: losses, a sha256 of
-               the final parameters, moments, counter and generator
-               states, commits, 12 launches of each kernel a step
+               GPT-2 124M's widths (GPT2Config() cut to 4 layers, fused
+               loss, dropout 0.1, seed 0) with AdamW(3e-4, weight decay
+               0.1) at B=8 x T=1024, a DataLoader over 512 synthetic
+               sequences, 24 steps, AsyncCheckpointManager(save_every=8,
+               keep_last=2, keep_every=16) in a temporary directory.
+               U, uninterrupted, here: losses, a sha256 of the final
+               parameters, moments, counter and generator
+               states, commits, 4 launches of each kernel a step
                counted on the card, replay and run step ms, snapshot
                and write times, write spans overlapping step spans;
                windowed_steps within 5 % of the median of 12 replays
@@ -396,6 +400,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
                their bound counting the in-band pairs, their plain
                versions over eight heads at a time, and SDPA with the
                band as a boolean mask
+The phases run in this order, but for three parts that run in
+interpreters of their own beside others, so that their process starts
+and waits overlap work: phase ops's mp and chaos smokes (started before
+phase ops, read after phase beam) and phase net (started after phase
+disagg, read after phase tensor); phases hf, checkpoint and tensor run
+right after phase beam, before phase train.  The phase walls
+"ops_procs" and "net" are the waits for them.
 Then a line with the script's seconds, one {"kernels": [...]} line and,
 last, the device line.  Every launch count of the main paths is read
 from the counters the kernels advance on the card
@@ -407,8 +418,8 @@ the repository beside it and a CUDA card; without either it fails.
 Phase dist binds a TCP store to a free port of 127.0.0.1.  It
 writes one checkpoint under build/ and removes it; phase train_run
 writes its checkpoints in a temporary directory and removes it, and
-reaps every child it starts; every record it makes goes to a temporary
-store.
+reaps every child it starts, as the parts run beside others are reaped;
+every record it makes goes to a temporary store.
 """
 
 import dataclasses
@@ -471,6 +482,9 @@ CAPTURED_FAULT = "dkv_causal_strict"
 # steps from the same initial weights, eager and captured, held to each
 # other by TRAIN_LOSS_RTOL; eager steps timed after them
 COMPARE_STEPS, EAGER_TIMED = 4, 5
+# the name phase train gives its model for the captured run: its
+# model.train_step spans carry it, its step graph is f"{NAMED_MODEL}.train"
+NAMED_MODEL = "m21"
 # the checkpoint phase: depth cut so the file stays under 2 GB
 CKPT_LAYERS, CKPT_SAVE_AFTER, CKPT_STEPS = 2, 2, 6
 
@@ -538,6 +552,9 @@ BEAM_SCORE_RTOL = 1e-2
 # 3 tenants behind 256-token system prompts, suffixes of 256/384/512
 # tokens, 32 or 64 new tokens), from seed LOAD_SEED
 LOAD_REQUESTS, LOAD_RATE_SHARE, LOAD_SEED = 48, 0.8, 0
+# phase ops's mp and chaos smokes (OpsProcs): how long after phase beam
+# they may still take
+OPS_PROCS_TIMEOUT_S = 600.0
 # the planted copy of the load record that obsq slo --check must refuse:
 # its ttft_p99_ms raised by this share (obsq's tolerance is 1 %)
 LOAD_PLANT = 0.10
@@ -556,7 +573,8 @@ OPS_PAIR = dict(requests=16, rate=1000.0, trials=3, max_len=384,
 # Training (B, T) with
 # the fused loss; generate() (B, P, N); CONFIG_STEPS eager and captured
 # steps held bitwise (here and in the transformer phase)
-BANDED_LAYERS, MOE_LAYERS = 4, 2
+# mixtral-8x7b at 1 of its 32 layers: the script's wall budget
+BANDED_LAYERS, MOE_LAYERS = 4, 1
 BANDED_TRAIN, MOE_TRAIN = (1, 8192), (4, 1024)
 BANDED_GEN, MOE_GEN = (1, 8192, 32), (4, 1024, 32)
 CONFIG_STEPS = 5
@@ -668,10 +686,11 @@ DIST_LAYERS = 4
 DIST_RESIDUAL_PARAM = "blocks.0.attn.q_proj.W"
 DIST_RING_BLOCK = 256
 
-# phase train_run: GPT-2 124M (GPT2Config(), fused loss, dropout 0.1, f32
-# masters from seed 0) with AdamW(RUN_LR, weight decay RUN_WD) at
-# GPT2_TRAIN through singa_tpu_torch.train.TrainRunner, over a DataLoader
-# of RUN_SEQS synthetic sequences (seed RUN_DATA_SEED, shuffle seed 1,
+# phase train_run: GPT-2 124M's widths (GPT2Config() cut to RUN_LAYERS
+# layers, fused loss, dropout 0.1, f32 masters from seed 0) with
+# AdamW(RUN_LR, weight decay RUN_WD) at GPT2_TRAIN through
+# singa_tpu_torch.train.TrainRunner, over a DataLoader of RUN_SEQS
+# synthetic sequences (seed RUN_DATA_SEED, shuffle seed 1,
 # drop_last), checkpointed by AsyncCheckpointManager(**RUN_CKPT) in a
 # temporary directory, RUN_STEPS steps.  The children are fresh
 # interpreters that import RUN_BUILDER by name.  P: SIGTERM once a child
@@ -685,6 +704,9 @@ DIST_RING_BLOCK = 256
 # beside it as U's calls are (U's own replays run beside the runner's
 # host work and its checkpoint writer, so they are reported, not held)
 RUN_STEPS = 24
+# GPT-2 124M's depth here (12 in phase transformer): the script's wall
+# budget, spent mostly on the children's starts and 1.49 GB checkpoints
+RUN_LAYERS = 4
 RUN_SEQS = 512
 RUN_DATA_SEED = 5
 RUN_LR, RUN_WD = 3e-4, 0.1
@@ -2404,13 +2426,16 @@ def phase_train(fault_libs):
     graph.reset_graph()                   # the graph kept the fault's kernels
     del g_p
 
-    # from the same initial weights: eager steps, then captured ones
-    runs = {}
+    # from the same initial weights: eager steps, then captured ones; the
+    # captured run under a model name of its own, its spans read back
+    m.name = NAMED_MODEL
+    runs, spans = {}, {}
     for use_graph in (False, True):
         m.set_params(start)
         m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
         m.compile([ids], is_train=True, use_graph=use_graph)
-        runs[use_graph] = [m.train_step(b)[1].item() for b in batches]
+        with named_spans() as spans[use_graph]:
+            runs[use_graph] = [m.train_step(b)[1].item() for b in batches]
         if not use_graph:
             torch.cuda.reset_peak_memory_stats()
             eager_times = [_timed(lambda: m.train_step(x))[1]
@@ -2425,6 +2450,7 @@ def phase_train(fault_libs):
             gc.collect()
             torch.cuda.empty_cache()
     del start
+    named = spans[True]
     compare = [abs(c - e) / abs(e) for c, e in zip(runs[True], runs[False])]
     g = m.get_graph("train")
 
@@ -2475,12 +2501,22 @@ def phase_train(fault_libs):
         "faults_vs_plain": faulty,
         "captured_vs_plain": captured_sound,
         "captured_fault_vs_plain": {CAPTURED_FAULT: captured_fault},
+        "named_model": named,
     }
     emit(result)
     SUMMARY["train"] = {k: result[k] for k in (
         "optimizer", "median_step_ms", "tokens_per_s", "mfu",
         "peak_memory_bytes", "graph_pool_bytes")}
     check(result["captured"], "train_step did not run a captured graph")
+    want = f"{NAMED_MODEL}.train"
+    check(named["model.train_step"] == [NAMED_MODEL] * COMPARE_STEPS
+          and named["graph.compile"] == [want]
+          and named["graph.execute"] == [want] * COMPARE_STEPS
+          and g.name == want
+          and all(n > 0 for n in named["flash_launches"].values()),
+          f"the captured step of a model named {NAMED_MODEL!r} recorded "
+          f"{named}, its graph {g.name!r}, not model={NAMED_MODEL!r} and "
+          f"graph={want!r} over flash launches")
     check(g.launches == {k: cfg.num_layers for k in launches},
           f"the train graph holds {g.launches}")
     check(all(s == [cfg.num_layers] * 3 for s in per_step),
@@ -2504,6 +2540,33 @@ def phase_train(fault_libs):
                   f"one replayed train step, B={TB} T={TT}",
                   {k: cfg.num_layers for k in launches})
     return launches
+
+
+@contextmanager
+def named_spans():
+    """Within the block, obs events go to a temporary file; after it the
+    dict yielded holds each ``model.train_step`` span's ``model``, each
+    ``graph.compile`` and ``graph.execute`` span's ``graph`` in order,
+    and the flash kernels' launches on the card over the block."""
+    from singa_tpu_torch.obs import events
+    from singa_tpu_torch.ops import flash_attention as fa
+    out = {}
+    before = fa.device_launches()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "events.jsonl"
+        events.configure(path=str(path))
+        try:
+            yield out
+        finally:
+            events.configure()
+        spans = [e for e in map(json.loads, path.read_text().splitlines())
+                 if e.get("kind") == "span"]
+    key = {"model.train_step": "model", "graph.compile": "graph",
+           "graph.execute": "graph"}
+    out.update({n: [e.get(k) for e in spans if e["name"] == n]
+                for n, k in key.items()})
+    after = fa.device_launches()
+    out["flash_launches"] = {k: after[k] - before[k] for k in fa.KERNELS}
 
 
 def phase_checkpoint():
@@ -2759,12 +2822,13 @@ def ops_table(later, m):
 
 
 def ops_smokes(later):
-    """The load driver's four smokes on the card sweep's model,
+    """Three of loadgen's four smokes on the card sweep's model,
     on the card, in f32 (their streams held bitwise to generate() and
-    to a single engine): their return codes and walls."""
+    to a single engine): their return codes and walls.  The fourth, the
+    mp smoke, runs in a process of its own (`OpsProcs`)."""
     from singa_tpu_torch.tools import loadgen
     out = {}
-    for name in ("spec", "spill", "disagg", "mp"):
+    for name in ("spec", "spill", "disagg"):
         fn = getattr(loadgen, f"{name}_smoke")
         t = time.perf_counter()
         rc = fn(*_ops_cut(), "cuda")
@@ -2855,23 +2919,174 @@ def ops_perf_attr(later, m, knobs):
             "perf_attr": payload}
 
 
-def ops_chaos(later, tmp):
-    """The chaos smoke on the card: 1 SIGKILL and 1 SIGSTOP on a 1:1
-    process tier of the card sweep's model (bf16 weights), every
-    stream bitwise the single engine's, no orphan, every worker's
-    programs within (1, 1); the detection and respawn seconds."""
+class _Beside:
+    """A command run beside the phases that follow it, in a session of
+    its own from the repository's root: its output and its seconds are
+    read on a thread.  `stop()` ends it and every process it started."""
+
+    def __init__(self, argv):
+        import threading
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            argv, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self.out, self.seconds = "", None
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        self.out = self.proc.communicate()[0]
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self, timeout):
+        """Its exit code once it ends (None if `timeout` passes first, and
+        then it is stopped)."""
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            self.thread.join()
+            return None
+        return self.proc.returncode
+
+    def stop(self):
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+class OpsProcs:
+    """The ops phase's two smokes over process tiers, each in an
+    interpreter of its own, started before phase ops and read after
+    phase beam, so their workers' starts and the chaos smoke's
+    detection deadlines overlap phases ops, spec, mem, disagg and beam.
+    Their engines and tiers capture their CUDA graphs in their own
+    processes, apart from this one's.
+    - mp: loadgen's ``--mp-smoke`` on the card sweep's model in
+      f32 (a 2-process 1:1 tier's streams bitwise a single engine's);
+    - chaos: `ops_chaos_child`, the chaos smoke on the card: 1 SIGKILL
+      and 1 SIGSTOP on a 1:1 process tier of the card sweep's model
+      (bf16 weights), every stream bitwise the single engine's, no
+      orphan, every worker's programs within (1, 1); the detection and
+      respawn seconds."""
+
+    def __init__(self):
+        config, layers = _ops_cut()
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ops_"))
+        self.procs = {
+            "mp": _Beside([sys.executable, "-m",
+                           "singa_tpu_torch.tools.loadgen", "--mp-smoke",
+                           "--config", config, "--layers", str(layers),
+                           "--device", "cuda"]),
+            "chaos": _Beside([sys.executable, "-c",
+                              "import sys, chip_smoke as c; "
+                              "sys.exit(c.ops_chaos_child(sys.argv[1]))",
+                              str(self.tmp / "chaos.jsonl")])}
+
+    def stop(self):
+        import shutil
+        for p in self.procs.values():
+            p.stop()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self):
+        """Wait for both; print their results as a line of phase ops, then
+        hold them."""
+        try:
+            rcs = {n: p.wait(OPS_PROCS_TIMEOUT_S)
+                   for n, p in self.procs.items()}
+        finally:
+            self.stop()
+        mp, chaos = self.procs["mp"], self.procs["chaos"]
+        res = {}
+        for line in chaos.out.splitlines():
+            try:
+                res = json.loads(line).get("chaos_result", res)
+            except ValueError:
+                continue
+        emit({"phase": "ops", "beside": "spec, mem, disagg and beam",
+              "smokes": {"mp": {"rc": rcs["mp"], "seconds": mp.seconds}},
+              "chaos_smoke": {**res, "rc": rcs["chaos"],
+                              "process_seconds": chaos.seconds}})
+        check(rcs["mp"] == 0, f"mp_smoke failed on the card (rc "
+              f"{rcs['mp']}): {mp.out[-3000:]}")
+        check(rcs["chaos"] == 0 and res and not res["problems"],
+              f"the chaos smoke on the card (rc {rcs['chaos']}): "
+              f"{res.get('problems')} {chaos.out[-3000:]}")
+
+
+class NetBeside:
+    """Phase net (`phase_net`, the process tier) in an interpreter of its
+    own, started after phase disagg with the serve phase's first wave
+    and its streams, and read after phase tensor: its workers' starts,
+    its waves and its respawn overlap phases beam, hf, checkpoint and
+    tensor.  Its lines are printed here when it has ended."""
+
+    def __init__(self, ctx):
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_net_"))
+        path = self.tmp / "ctx.json"
+        path.write_text(json.dumps({
+            "prompts": [p.tolist() for p in ctx["prompts"][:SERVE_SLOTS]],
+            "wave": [list(map(int, t)) for t in ctx["wave"]],
+            "plain_wave": {"seconds": ctx["plain_wave"]["seconds"]}}))
+        self.proc = _Beside([sys.executable, "-c",
+                             "import sys, chip_smoke as c; "
+                             "sys.exit(c.net_child(sys.argv[1]))",
+                             str(path)])
+
+    def stop(self):
+        import shutil
+        self.proc.stop()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(NET_SPAWN_TIMEOUT_S)
+        finally:
+            self.stop()
+        for line in self.proc.out.splitlines():
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(obj, dict) and obj.get("phase") == "net":
+                emit({**obj, "process_seconds": self.proc.seconds})
+        check(rc == 0, f"phase net failed (rc {rc}): "
+              f"{self.proc.out[-3000:]}")
+
+
+def net_child(path):
+    """Phase net in a fresh interpreter (`NetBeside`): the serve phase's
+    first wave and its streams read from the JSON file at `path`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = json.loads(Path(path).read_text())
+    ctx["prompts"] = [np.asarray(p, np.int32) for p in ctx["prompts"]]
+    phase_net(ctx)
+    return 0
+
+
+def ops_chaos_child(store):
+    """The chaos smoke in a fresh interpreter (`OpsProcs`): chaosd's
+    run_smoke on the card over the card sweep's model, records to
+    `store`; its result as a JSON line."""
     from singa_tpu_torch.tools import chaosd
-    store = str(tmp / "chaos.jsonl")
-    t = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     config, layers = _ops_cut()
+    t = time.perf_counter()
     fails, res = chaosd.run_smoke(store, config=config, layers=layers,
                                   device="cuda")
-    out = {"payload": res["payload"], "timings": res["timings"],
-           "problems": fails, "seconds": time.perf_counter() - t,
-           "op_timeouts": chaosd.CHAOS_OP_TIMEOUTS,
-           "compile_timeout_s": chaosd.CHAOS_COMPILE_TIMEOUT_S}
-    later(not fails, f"the chaos smoke on the card: {fails}")
-    return out
+    emit({"chaos_result": {
+        "payload": res["payload"], "timings": res["timings"],
+        "problems": fails, "seconds": time.perf_counter() - t,
+        "op_timeouts": chaosd.CHAOS_OP_TIMEOUTS,
+        "compile_timeout_s": chaosd.CHAOS_COMPILE_TIMEOUT_S}})
+    return 0
 
 
 def ops_best_serve(m, serve):
@@ -2920,10 +3135,11 @@ def ops_train_point(later, train):
 
 def phase_ops():
     """The serving operator's tools on the card: the committed
-    best-config table resolved for the card sweep's model, the load
-    driver's four smokes, a --spec-compare pair, a perf_attr payload,
-    the chaos smoke, a fresh measurement of the table's best serve
-    point, and its best train point with its flash launches."""
+    best-config table resolved for the card sweep's model, three of
+    loadgen's smokes, a --spec-compare pair, a perf_attr payload, a
+    fresh measurement of the table's best serve point, and its best
+    train point with its flash launches.  The mp and chaos smokes run
+    in processes of their own (`OpsProcs`), read after phase beam."""
     t0 = time.perf_counter()
     checks = []
 
@@ -2940,8 +3156,6 @@ def phase_ops():
         best = ops_best_serve(m, table["serve"])
         del m
         _free()
-        chaos = ops_chaos(later, tmp)
-        _free()
         train = ops_train_point(later, table["train"])
         _free()
     config, layers = _ops_cut()
@@ -2949,8 +3163,8 @@ def phase_ops():
           f"{layers} layers", "table": table, "smokes": smokes,
           "spec_compare": pair, "perf_attr": attr_run,
           "attributed_frac": attr_run["perf_attr"]["attributed_frac"],
-          "best_serve_point": best, "chaos_smoke": chaos,
-          "train_point": train, "phase_seconds": time.perf_counter() - t0})
+          "best_serve_point": best, "train_point": train,
+          "phase_seconds": time.perf_counter() - t0})
     for cond, msg in checks:
         check(cond, msg)
     return train["launches"], train["steps"]
@@ -4965,8 +5179,9 @@ def phase_tensor():
 
 
 def train_run_model():
-    """The train_run phase's model and loader: GPT-2 124M (GPT2Config(),
-    fused loss, dropout 0.1) on the card with f32 masters from seed 0,
+    """The train_run phase's model and loader: GPT-2 124M's widths
+    (GPT2Config() cut to RUN_LAYERS layers, fused loss, dropout 0.1) on
+    the card with f32 masters from seed 0,
     AdamW(RUN_LR, weight decay RUN_WD), compiled at GPT2_TRAIN; a
     DataLoader over RUN_SEQS synthetic sequences of int32 ids
     (RUN_DATA_SEED), batch B, shuffle seed 1, drop_last.  The same in
@@ -4975,7 +5190,8 @@ def train_run_model():
     from singa_tpu_torch.models import GPT2Config
     from singa_tpu_torch.utils.data import DataLoader
     b, t = GPT2_TRAIN
-    m = gpt2_model(dataclasses.replace(GPT2Config(), fused_loss=True))
+    m = gpt2_model(dataclasses.replace(GPT2Config(), fused_loss=True,
+                                       num_layers=RUN_LAYERS))
     m.set_optimizer(opt.AdamW(lr=RUN_LR, weight_decay=RUN_WD))
     data = np.random.RandomState(RUN_DATA_SEED).randint(
         0, m.cfg.vocab_size, (RUN_SEQS, t)).astype(np.int32)
@@ -5647,8 +5863,8 @@ def phase_train_run(builder=RUN_BUILDER):
     base = {"builder": builder, "store": store}
     try:
         u, tools = train_run_u(tmp, store, later)
-        show({"config": "GPT2Config() (GPT-2 124M), fused_loss, dropout "
-                        "0.1, AdamW", **u})
+        show({"config": f"GPT2Config() (GPT-2 124M) cut to {RUN_LAYERS} "
+                        f"layers, fused_loss, dropout 0.1, AdamW", **u})
         show({"run": "tools", **tools})
         # H alone: its exit time is the watchdog's, not the fsyncs of
         # P's and T+K's checkpoint writes
@@ -6999,27 +7215,34 @@ def main():
     serve_launches, serve_requests, serve_ctx = timed_phase(
         "serve", phase_serve, m)
     load_launches = timed_phase("load", phase_load, m, serve_ctx)
-    ops_launches, ops_steps = timed_phase("ops", phase_ops)
-    spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
-                                               serve_ctx)
-    mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
-    disagg_launches = timed_phase("disagg", phase_disagg, m, serve_ctx)
-    timed_phase("net", phase_net, serve_ctx)
-    beam_launches = timed_phase("beam", phase_beam, m)
-    del serve_ctx
-    park(m)                       # for the hf phase
-    gc.collect()
-    torch.cuda.empty_cache()
+    procs, net = OpsProcs(), None
+    try:
+        ops_launches, ops_steps = timed_phase("ops", phase_ops)
+        spec_launches, spec_requests = timed_phase("spec", phase_spec, m,
+                                                   serve_ctx)
+        mem_launches = timed_phase("mem", phase_mem, m, serve_ctx)
+        disagg_launches = timed_phase("disagg", phase_disagg, m,
+                                      serve_ctx)
+        net = NetBeside(serve_ctx)
+        beam_launches = timed_phase("beam", phase_beam, m)
+        timed_phase("ops_procs", procs.finish)
+        del serve_ctx
+        park(m)                   # for the hf phase
+        hf = timed_phase("hf", phase_hf, m)
+        del m
+        timed_phase("checkpoint", phase_checkpoint)
+        timed_phase("tensor", phase_tensor)
+        timed_phase("net", net.finish)
+    finally:
+        procs.stop()
+        if net is not None:
+            net.stop()
     train_launches = timed_phase("train", phase_train, faults)
-    timed_phase("checkpoint", phase_checkpoint)
     banded = timed_phase("banded", phase_banded)
     moe = timed_phase("moe", phase_moe)
     cnn_launches = timed_phase("cnn", phase_cnn)
     timed_phase("native", phase_native)
     transformer = timed_phase("transformer", phase_transformer)
-    hf = timed_phase("hf", phase_hf, m)
-    del m
-    timed_phase("tensor", phase_tensor)
     train_run_launches = timed_phase("train_run", phase_train_run)
     sonnx_launches = timed_phase("sonnx", phase_sonnx,
                                  transformer["bert"]["step"])

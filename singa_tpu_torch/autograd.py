@@ -19,6 +19,18 @@ subclass gives a hand-written ``forward``/``backward``, or only
 ``jax.vjp``).  A cast of an f32 master to bf16 passes its gradient back
 as f32, as the reference's ``Cast.backward`` does.
 
+What switches the tape on differs from the reference, and is stated:
+here it is torch's grad mode (an op records a gradient when grad mode
+is on and an input requires one), for every public function and for
+``Operator``; in the reference it is ``autograd.training``
+(``singa_tpu/autograd.py:145-146``).  So with ``training`` False (the
+default, and eval mode) and grad mode on, the reference's ``backward``
+returns [] where the port records a gradient, and a fwd-only
+``Operator`` takes the torch path where the reference may run its
+``native_fwd``.  Under ``torch.no_grad()`` the two agree.  ``training``
+still switches what the reference's flag switches beside the tape
+(dropout, BatchNorm's statistics, a ``Remat``'s checkpoint).
+
 The native CPU dispatch (``device.CppCPU(use_native=True)`` as the
 default device): the reference's nine ops with a ``native_fwd`` (add,
 mul, matmul, linear, relu, sigmoid, tanh, softmax, conv2d) run as

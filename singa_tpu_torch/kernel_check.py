@@ -671,7 +671,7 @@ def pipe_blocks(dtype, device="cuda", num_layers=None):
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     dev = _device(device, dtype)
     gen = torch.Generator(device).manual_seed(0)
-    blocks = [llama._LlamaBlock(cfg, dev, gen)
+    blocks = [llama._LlamaBlock(cfg, device=dev, generator=gen)
               for _ in range(cfg.num_layers)]
     B, T = PIPE_SHAPE
     x = torch.randn((B, T, cfg.dim), generator=gen, device=device).to(dtype)

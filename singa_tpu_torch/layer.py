@@ -24,7 +24,10 @@ reference (``W``, ``table``, ``gamma``), so ``get_params()`` keys are
 the reference's attribute paths one to one: a list of layers is an
 ``nn.ModuleList`` under the reference's attribute (``layers.<i>``,
 ``hidden.<i>``).  Random init draws from an explicit
-``torch.Generator`` on the layer's device.
+``torch.Generator`` on the layer's device.  Each layer takes the
+reference's `name` (automatic names count per class, ``linear``,
+``linear_1``, ...) before its `device`, and the state methods its
+`prefix`.
 
 Vision layers keep the reference's layouts: NHWC activations
 (``data_format="NCHW"`` takes and gives NCHW) and HWIO conv kernels.
@@ -58,50 +61,93 @@ __all__ = ["Layer", "Linear", "Embedding", "RMSNorm", "LayerNorm", "Gelu",
            "CrossEntropyLoss", "MSELoss", "PipelineStack"]
 
 
-class Layer(nn.Module):
-    """Base layer: an ``nn.Module`` bound to a port ``Device``."""
+_name_counter: Dict[str, int] = {}
 
-    def __init__(self, device: Optional[Device] = None):
+
+def _auto_name(prefix: str) -> str:
+    n = _name_counter.get(prefix, 0)
+    _name_counter[prefix] = n + 1
+    return f"{prefix}_{n}" if n else prefix
+
+
+def _layer_name(layer: nn.Module, name: Optional[str]) -> str:
+    """`name`, or the reference's automatic one: the class name in lower
+    case, then ``_1``, ``_2`` ... for later layers of the class.  Any
+    other type raises, so a device passed where `name` stands fails at
+    construction."""
+    if name is not None and not isinstance(name, str):
+        raise TypeError(f"{type(layer).__name__}: name must be a str or "
+                        f"None, got {type(name).__name__} (pass the device "
+                        f"as device=)")
+    return name or _auto_name(type(layer).__name__.lower())
+
+
+class Layer(nn.Module):
+    """Base layer: an ``nn.Module`` bound to a port ``Device``, named as
+    in the reference (`name`, or an automatic one).
+
+    The state methods take the reference's `prefix`: keys are ``prefix
+    + path``, where the path is the attribute path
+    (``blocks.0.attn.q_proj.W``)."""
+
+    def __init__(self, name: Optional[str] = None,
+                 device: Optional[Device] = None):
         super().__init__()
+        self.name = _layer_name(self, name)
         self.device = device or get_default_device()
 
-    def get_params(self) -> Dict[str, torch.Tensor]:
-        """Parameters keyed by attribute path (e.g. ``blocks.0.attn.q_proj.W``);
-        each parameter records its path as ``param_name`` (the optimizer's
-        slot key), as the reference names its tensors here.  Blocks of a
-        ``PipelineStack`` that another pipe rank holds are left out."""
-        params = {n: p for n, p in self.named_parameters()
-                  if getattr(p, "pipe_held", True)}
+    def _named_params(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Parameters keyed by ``prefix + path``.  A recorded
+        ``param_name`` is left as it is; a parameter without one gets
+        its path, as every reference tensor is named from its creation.
+        Blocks of a ``PipelineStack`` that another pipe rank holds are
+        left out."""
+        out = {}
+        for n, p in self.named_parameters():
+            if getattr(p, "pipe_held", True):
+                if not getattr(p, "param_name", None):
+                    p.param_name = n
+                out[prefix + n] = p
+        return out
+
+    def get_params(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Parameters keyed by ``prefix + path``; each parameter records
+        its key as ``param_name`` (the optimizer's slot key), as the
+        reference names its tensors here.  A traversal that only needs
+        the tensors does not pass a prefix."""
+        params = self._named_params(prefix)
         for name, p in params.items():
             p.param_name = name
         return params
 
-    def _get_buffers(self) -> Dict[str, torch.Tensor]:
-        """Persistent buffers (non-trainable states) keyed by attribute
-        path.  Non-persistent buffers, such as the RoPE tables a model
+    def _get_buffers(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Persistent buffers (non-trainable states) keyed by ``prefix +
+        path``.  Non-persistent buffers, such as the RoPE tables a model
         rebuilds from its config, are not states."""
         params = dict(self.named_parameters())
-        return {n: t for n, t in self.state_dict(keep_vars=True).items()
+        return {prefix + n: t
+                for n, t in self.state_dict(keep_vars=True).items()
                 if n not in params}
 
-    def get_states(self) -> Dict[str, torch.Tensor]:
+    def get_states(self, prefix: str = "") -> Dict[str, torch.Tensor]:
         """Everything a checkpoint holds: parameters and persistent
-        buffers, keyed by attribute path."""
-        out = dict(self.get_params())
-        out.update(self._get_buffers())
+        buffers, keyed by ``prefix + path``."""
+        out = dict(self.get_params(prefix))
+        out.update(self._get_buffers(prefix))
         return out
 
-    def set_params(self, params: Dict) -> None:
-        """Copy each given array (numpy or tensor) into the parameter of
-        the same name, in its existing storage: a captured step reads
-        parameters by address, so a load never rebinds them.  Names this
-        layer does not have are ignored, as in the reference; a shape
-        that differs raises before anything is copied."""
-        _copy_into(self.get_params(), params)
+    def set_params(self, params: Dict, prefix: str = "") -> None:
+        """Copy each given array (numpy or tensor) into the parameter
+        keyed ``prefix + path``, in its existing storage: a captured step
+        reads parameters by address, so a load never rebinds them.  Keys
+        this layer does not have are ignored, as in the reference; a
+        shape that differs raises before anything is copied."""
+        _copy_into(self._named_params(prefix), params)
 
-    def set_states(self, states: Dict) -> None:
+    def set_states(self, states: Dict, prefix: str = "") -> None:
         """`set_params` over parameters and persistent buffers."""
-        _copy_into(self.get_states(), states)
+        _copy_into({**self._named_params(prefix),
+                    **self._get_buffers(prefix)}, states)
 
     def _new_param(self, shape) -> nn.Parameter:
         return nn.Parameter(torch.empty(shape, dtype=torch.float32,
@@ -146,9 +192,9 @@ class Linear(Layer):
     """y = x @ W (+ b) with W of shape (in, out), Xavier-uniform init."""
 
     def __init__(self, out_features: int, in_features: int, bias: bool = True,
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         self.out_features, self.in_features = out_features, in_features
         self.W = self._new_param((in_features, out_features))
         _xavier_uniform_(self.W, in_features, out_features,
@@ -191,9 +237,9 @@ def _maybe_cast(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 class Embedding(Layer):
     def __init__(self, vocab_size: int, embed_dim: int,
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         self.vocab_size, self.embed_dim = vocab_size, embed_dim
         self.table = self._new_param((vocab_size, embed_dim))
         with torch.no_grad():
@@ -215,8 +261,8 @@ class Embedding(Layer):
 
 class RMSNorm(Layer):
     def __init__(self, dim: int, eps: float = 1e-6,
-                 device: Optional[Device] = None):
-        super().__init__(device)
+                 name: Optional[str] = None, device: Optional[Device] = None):
+        super().__init__(name, device)
         self.dim, self.eps = dim, eps
         self.gamma = self._new_param((dim,))
         with torch.no_grad():
@@ -231,8 +277,8 @@ class LayerNorm(Layer):
     ``beta`` zeros."""
 
     def __init__(self, dim: int, eps: float = 1e-5,
-                 device: Optional[Device] = None):
-        super().__init__(device)
+                 name: Optional[str] = None, device: Optional[Device] = None):
+        super().__init__(name, device)
         self.dim, self.eps = dim, eps
         self.gamma = self._new_param((dim,))
         self.beta = self._new_param((dim,))
@@ -258,9 +304,9 @@ class MultiHeadAttention(Layer):
     branch reads a tensor `pos` on the host, so the step captures."""
 
     def __init__(self, num_heads: int, embed_dim: int, causal: bool = False,
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} does not split into "
                              f"{num_heads} heads")
@@ -329,9 +375,10 @@ class MoE(Layer):
     def __init__(self, num_experts: int, ffn_dim: int,
                  capacity_factor: float = 1.25, top_k: int = 1,
                  act: str = "relu", dispatch_mode: str = "auto", *,
-                 dim: int, device: Optional[Device] = None,
+                 dim: int, name: Optional[str] = None,
+                 device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         if not 1 <= top_k <= num_experts:
             raise ValueError(
                 f"top_k={top_k} outside [1, num_experts={num_experts}]")
@@ -401,8 +448,9 @@ class _Recurrent(Layer):
 
     def __init__(self, hidden_size: int, input_size: int,
                  device: Optional[Device] = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+                 generator: Optional[torch.Generator] = None, *,
+                 name: Optional[str] = None):
+        super().__init__(name, device)
         self.hidden_size, self.input_size = hidden_size, input_size
         d, gh = input_size, self.GATES * hidden_size
         gen = _generator(self.device, generator)
@@ -471,8 +519,9 @@ class Remat(Layer):
     (`_RngReplay`): loss, gradients and each generator's state equal
     those of the bare block bit for bit."""
 
-    def __init__(self, inner: nn.Module):
+    def __init__(self, inner: nn.Module, name: Optional[str] = None):
         nn.Module.__init__(self)
+        self.name = _layer_name(self, name)
         d = self.__dict__
         d["inner"] = inner                 # not a child: no path segment
         d["_parameters"] = inner._parameters
@@ -489,7 +538,7 @@ class Remat(Layer):
         inner = self.inner
         if not (autograd.is_training() and torch.is_grad_enabled()):
             return inner(x, *rest)          # nothing to save
-        name = type(inner).__name__
+        name = getattr(inner, "name", type(inner).__name__)
         why = _remat_blocker(inner)
         if why:
             warnings.warn(
@@ -582,9 +631,9 @@ class Conv2d(Layer):
     def __init__(self, out_channels: int, kernel_size, in_channels: int,
                  stride=1, padding=0, bias: bool = True, groups: int = 1,
                  dilation=1, data_format: str = "NHWC",
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         if in_channels % groups or out_channels % groups:
             raise ValueError(f"channels {in_channels} -> {out_channels} do "
                              f"not split into {groups} groups")
@@ -624,9 +673,9 @@ class SeparableConv2d(Layer):
     def __init__(self, out_channels: int, kernel_size,
                  in_channels: Optional[int] = None, stride=1, padding=0,
                  bias: bool = False, data_format: str = "NHWC",
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         self.out_channels, self.kernel_size = out_channels, kernel_size
         self.stride, self.padding, self.bias = stride, padding, bias
         self.data_format = data_format
@@ -661,8 +710,8 @@ class BatchNorm2d(Layer):
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, data_format: str = "NHWC",
-                 device: Optional[Device] = None):
-        super().__init__(device)
+                 name: Optional[str] = None, device: Optional[Device] = None):
+        super().__init__(name, device)
         self.num_features, self.momentum, self.eps = num_features, momentum, eps
         self.data_format = data_format
         c = num_features
@@ -703,15 +752,16 @@ class BatchNorm2d(Layer):
 class _Deviceless(Layer):
     """A layer that makes no tensors of its own, so needs no device."""
 
-    def __init__(self):
+    def __init__(self, name: Optional[str] = None):
         nn.Module.__init__(self)
+        self.name = _layer_name(self, name)
         self.device = None
 
 
 class _Pool2d(_Deviceless):
     def __init__(self, kernel_size, stride=None, padding: int = 0,
-                 data_format: str = "NHWC"):
-        super().__init__()
+                 data_format: str = "NHWC", name: Optional[str] = None):
+        super().__init__(name)
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.data_format = data_format
 
@@ -730,8 +780,9 @@ class AvgPool2d(_Pool2d):
 
 
 class GlobalAvgPool2d(_Deviceless):
-    def __init__(self, data_format: str = "NHWC"):
-        super().__init__()
+    def __init__(self, data_format: str = "NHWC",
+                 name: Optional[str] = None):
+        super().__init__(name)
         self.data_format = data_format
 
     def forward(self, x):
@@ -740,8 +791,8 @@ class GlobalAvgPool2d(_Deviceless):
 
 
 class Flatten(_Deviceless):
-    def __init__(self, start_axis: int = 1):
-        super().__init__()
+    def __init__(self, start_axis: int = 1, name: Optional[str] = None):
+        super().__init__(name)
         self.start_axis = start_axis
 
     def forward(self, x):
@@ -762,8 +813,9 @@ class Gelu(_Deviceless):
     """GELU; ``approximate=True`` (the default, as in the reference) is
     the tanh form, False the exact erf form."""
 
-    def __init__(self, approximate: bool = True):
-        super().__init__()
+    def __init__(self, approximate: bool = True,
+                 name: Optional[str] = None):
+        super().__init__(name)
         self.approximate = approximate
 
     def forward(self, x):
@@ -771,8 +823,8 @@ class Gelu(_Deviceless):
 
 
 class Softmax(_Deviceless):
-    def __init__(self, axis: int = -1):
-        super().__init__()
+    def __init__(self, axis: int = -1, name: Optional[str] = None):
+        super().__init__(name)
         self.axis = axis
 
     def forward(self, x):
@@ -790,8 +842,8 @@ class SiLU(_Deviceless):
 
 
 class LeakyReLU(_Deviceless):
-    def __init__(self, slope: float = 0.01):
-        super().__init__()
+    def __init__(self, slope: float = 0.01, name: Optional[str] = None):
+        super().__init__(name)
         self.slope = slope
 
     def forward(self, x):
@@ -802,9 +854,10 @@ class Dropout(Layer):
     """Dropout whose masks come from `generator` (default: the device's);
     a captured train step registers it, so each replay draws anew."""
 
-    def __init__(self, p: float = 0.5, device: Optional[Device] = None,
+    def __init__(self, p: float = 0.5, name: Optional[str] = None,
+                 device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         self.p = p
         self.generator = _generator(self.device, generator)
 
@@ -841,9 +894,9 @@ class PipelineStack(Layer):
     the reference's warning."""
 
     def __init__(self, blocks, stages: int, n_micro: Optional[int] = None,
-                 remat: bool = False):
+                 remat: bool = False, name: Optional[str] = None):
         blocks = list(blocks)
-        super().__init__(getattr(blocks[0], "device", None) if blocks
+        super().__init__(name, getattr(blocks[0], "device", None) if blocks
                          else None)
         if stages < 1 or len(blocks) % stages:
             raise ValueError(
@@ -881,8 +934,8 @@ class PipelineStack(Layer):
                 why = self._structural_blocker() or (
                     "it was not cut into stages (compile the model under "
                     "the pipe mesh)")
-                warnings.warn(f"PipelineStack running sequentially: {why}",
-                              stacklevel=2)
+                warnings.warn(f"PipelineStack({self.name}) running "
+                              f"sequentially: {why}", stacklevel=2)
             h = x
             for blk in self:
                 h = blk(h, *rest)
@@ -901,8 +954,9 @@ class PipelineStack(Layer):
         if autograd.is_training() and torch.is_grad_enabled():
             why = self._pipe_blocker(x, rest)
             if why:
-                warnings.warn(f"PipelineStack running its stages on the "
-                              f"whole batch as one microbatch: {why}",
+                warnings.warn(f"PipelineStack({self.name}) running its "
+                              f"stages on the whole batch as one "
+                              f"microbatch: {why}",
                               stacklevel=2)
             else:
                 M = self.n_micro
@@ -956,8 +1010,8 @@ class PipelineStack(Layer):
 class Sequential(_Deviceless):
     """Layers applied in order, named ``layers.<i>`` as in the reference."""
 
-    def __init__(self, *layers: nn.Module):
-        super().__init__()
+    def __init__(self, *layers: nn.Module, name: Optional[str] = None):
+        super().__init__(name)
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x):

@@ -70,8 +70,9 @@ class Model(Layer):
     """Base model (reference surface: forward / train_one_batch / loss /
     optimizer / compile / train_step)."""
 
-    def __init__(self, device: Optional[Device] = None):
-        super().__init__(device)
+    def __init__(self, name: Optional[str] = None,
+                 device: Optional[Device] = None):
+        super().__init__(name, device)
         self.optimizer: Optional[Optimizer] = None
         self.loss_fn: Optional[Callable] = None
         self.graph_mode = False
@@ -149,7 +150,7 @@ class Model(Layer):
         mode).  Each call is a ``model.train_step`` span (obs.events;
         host wall clock)."""
         self.train(True)
-        with obs_events.span("model.train_step", model=type(self).__name__,
+        with obs_events.span("model.train_step", model=self.name,
                              step=self._step_count,
                              compiled=self.graph_mode):
             if self.graph_mode:
@@ -418,7 +419,7 @@ class _StepExecutor:
     def __call__(self, batch):
         m, opt = self.model, self.opt
         step_host = opt.step_counter if opt is not None else m._step_count
-        name = f"{type(m).__name__.lower()}.{self.tag}"
+        name = f"{m.name}.{self.tag}"
         # "device.execute" injection site: error/hang fire on the host
         # before anything of the step runs (the static buffers are
         # intact, so the caller may retry this same step); nan corrupts
@@ -457,7 +458,7 @@ class _StepExecutor:
 
     def _dispatch(self, batch, name):
         if self.calls == 0:
-            outs, self.captured = record(self.tag, lambda: self._run(batch))
+            outs, self.captured = record(name, lambda: self._run(batch))
             self._batch_spec = [(t.shape, t.dtype, t.device) for t in batch]
             self.captured.fx_thunk = self._trace
         elif self.device.type != "cuda":

@@ -226,7 +226,7 @@ class _Session:
         anything runs, a ``graph.compile`` span covers the capture and a
         ``graph.execute`` span the run, and an installed ``obs.attr``
         ledger times it with the card synchronised around it."""
-        name = f"{type(self.model).__name__.lower()}.{self._NAME}"
+        name = f"{self.model.name}.{self._NAME}"
         faults.fire("device.execute", graph=name, step=self.calls)
         self._load(*inputs)
         steps = self._n_steps(n_new)

@@ -35,7 +35,7 @@ class CNN(Classifier):
                  input_shape: Sequence[int] = (28, 28, 1),
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         df, kw = data_format, dict(device=self.device, generator=generator)
         h, w, c = input_shape
         self.conv1 = layer.Conv2d(32, 3, c, stride=1, padding=1,
@@ -64,7 +64,7 @@ class LeNet5(Classifier):
                  input_shape: Sequence[int] = (28, 28, 1),
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         df, kw = data_format, dict(device=self.device, generator=generator)
         h, w, c = input_shape
         self.conv1 = layer.Conv2d(6, 5, c, padding=2, data_format=df, **kw)
@@ -98,7 +98,7 @@ class AlexNet(Classifier):
                  input_shape: Sequence[int] = (224, 224, 3),
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         df, kw = data_format, dict(device=self.device, generator=generator)
         h, w, c = input_shape
         self.features = layer.Sequential(

@@ -140,9 +140,9 @@ PUBLISHED = {
 
 
 class _LlamaAttention(layer.Layer):
-    def __init__(self, cfg: LlamaConfig, device: Device,
-                 generator: torch.Generator):
-        super().__init__(device)
+    def __init__(self, cfg: LlamaConfig, name: Optional[str] = None, *,
+                 device: Device, generator: torch.Generator):
+        super().__init__(name, device)
         c = self.cfg = cfg
         kw = dict(bias=False, device=device, generator=generator)
         self.q_proj = layer.Linear(c.num_heads * c.head_dim, c.dim, **kw)
@@ -205,9 +205,9 @@ class _LlamaAttention(layer.Layer):
 
 
 class _SwiGLU(layer.Layer):
-    def __init__(self, cfg: LlamaConfig, device: Device,
-                 generator: torch.Generator):
-        super().__init__(device)
+    def __init__(self, cfg: LlamaConfig, name: Optional[str] = None, *,
+                 device: Device, generator: torch.Generator):
+        super().__init__(name, device)
         kw = dict(bias=False, device=device, generator=generator)
         self.gate = layer.Linear(cfg.ffn_dim, cfg.dim, **kw)
         self.up = layer.Linear(cfg.ffn_dim, cfg.dim, **kw)
@@ -218,11 +218,11 @@ class _SwiGLU(layer.Layer):
 
 
 class _LlamaBlock(layer.Layer):
-    def __init__(self, cfg: LlamaConfig, device: Device,
-                 generator: torch.Generator):
-        super().__init__(device)
+    def __init__(self, cfg: LlamaConfig, name: Optional[str] = None, *,
+                 device: Device, generator: torch.Generator):
+        super().__init__(name, device)
         self.attn_norm = layer.RMSNorm(cfg.dim, eps=cfg.eps, device=device)
-        self.attn = _LlamaAttention(cfg, device, generator)
+        self.attn = _LlamaAttention(cfg, device=device, generator=generator)
         self.ffn_norm = layer.RMSNorm(cfg.dim, eps=cfg.eps, device=device)
         if cfg.num_experts:
             self.ffn = layer.MoE(cfg.num_experts, ffn_dim=cfg.ffn_dim,
@@ -231,7 +231,7 @@ class _LlamaBlock(layer.Layer):
                                  dim=cfg.dim, device=device,
                                  generator=generator)
         else:
-            self.ffn = _SwiGLU(cfg, device, generator)
+            self.ffn = _SwiGLU(cfg, device=device, generator=generator)
 
     def forward(self, x, cache=None, pos=0):
         if cache is not None:
@@ -255,13 +255,14 @@ class Llama(GenerateMixin, model.Model):
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
         device = device or get_default_device()
-        super().__init__(device)
+        super().__init__(device=device)
         self.cfg = cfg or LlamaConfig(**kw)
         c = self.cfg
         gen = generator if generator is not None else device.generator
         self.tok_emb = layer.Embedding(c.vocab_size, c.dim, device=device,
                                        generator=gen)
-        blocks = [_LlamaBlock(c, device, gen) for _ in range(c.num_layers)]
+        blocks = [_LlamaBlock(c, device=device, generator=gen)
+                  for _ in range(c.num_layers)]
         if c.pipeline_stages:
             # the embedding and the head stay outside the pipeline; remat
             # folds into the stack

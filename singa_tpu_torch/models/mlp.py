@@ -25,7 +25,7 @@ class MLP(Classifier):
                  input_shape: Sequence[int] = (28, 28, 1),
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         if isinstance(perceptron_size, int):
             perceptron_size = (perceptron_size,)
         kw = dict(device=self.device, generator=generator)

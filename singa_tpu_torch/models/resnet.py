@@ -25,9 +25,9 @@ class BasicBlock(layer.Layer):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  downsample: Optional[layer.Layer] = None, *,
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         kw = dict(device=self.device, generator=generator)
         self.conv1 = layer.Conv2d(planes, 3, in_planes, stride=stride,
                                   padding=1, bias=False, **kw)
@@ -50,9 +50,9 @@ class Bottleneck(layer.Layer):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  downsample: Optional[layer.Layer] = None, *,
-                 device: Optional[Device] = None,
+                 name: Optional[str] = None, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(name, device)
         kw = dict(device=self.device, generator=generator)
         self.conv1 = layer.Conv2d(planes, 1, in_planes, bias=False, **kw)
         self.bn1 = layer.BatchNorm2d(planes, device=self.device)
@@ -80,7 +80,7 @@ class ResNet(Classifier):
                  num_classes: int = 1000, cifar_stem: bool = False, *,
                  in_channels: int = 3, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         self.cifar_stem = cifar_stem
         kw = dict(device=self.device, generator=generator)
         if cifar_stem:

@@ -79,8 +79,9 @@ class _MLP(layer.Layer):
 
     def __init__(self, hidden: int, dim: int, act: str = "gelu",
                  device: Optional[Device] = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+                 generator: Optional[torch.Generator] = None, *,
+                 name: Optional[str] = None):
+        super().__init__(name, device)
         kw = dict(device=self.device, generator=generator)
         self.c_fc = layer.Linear(hidden, dim, **kw)
         if act == "gelu":
@@ -131,9 +132,9 @@ class GPT2Config:
 
 
 class _GPT2Block(layer.Layer):
-    def __init__(self, cfg: GPT2Config, device: Device,
-                 generator: torch.Generator):
-        super().__init__(device)
+    def __init__(self, cfg: GPT2Config, name: Optional[str] = None, *,
+                 device: Device, generator: torch.Generator):
+        super().__init__(name, device)
         kw = dict(device=device, generator=generator)
         self.ln_1 = layer.LayerNorm(cfg.dim, device=device)
         self.attn = layer.MultiHeadAttention(cfg.num_heads, cfg.dim,
@@ -165,7 +166,7 @@ class GPT2(GenerateMixin, model.Model):
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
         device = device or get_default_device()
-        super().__init__(device)
+        super().__init__(device=device)
         self.cfg = cfg or GPT2Config(**kw)
         c = self.cfg
         gen = generator if generator is not None else device.generator
@@ -174,7 +175,8 @@ class GPT2(GenerateMixin, model.Model):
         self.wpe = layer.Embedding(c.max_position, c.dim, device=device,
                                    generator=gen)
         self.drop = layer.Dropout(c.dropout, device=device)
-        blocks = [_GPT2Block(c, device, gen) for _ in range(c.num_layers)]
+        blocks = [_GPT2Block(c, device=device, generator=gen)
+                  for _ in range(c.num_layers)]
         if c.pipeline_stages:
             self.blocks = layer.PipelineStack(
                 blocks, c.pipeline_stages,
@@ -304,9 +306,9 @@ class BERTConfig:
 class _BERTBlock(layer.Layer):
     """Post-LN encoder block (the original BERT layout)."""
 
-    def __init__(self, cfg: BERTConfig, device: Device,
-                 generator: torch.Generator):
-        super().__init__(device)
+    def __init__(self, cfg: BERTConfig, name: Optional[str] = None, *,
+                 device: Device, generator: torch.Generator):
+        super().__init__(name, device)
         kw = dict(device=device, generator=generator)
         self.attn = layer.MultiHeadAttention(cfg.num_heads, cfg.dim,
                                              causal=False, **kw)
@@ -331,7 +333,7 @@ class BERT(model.Model):
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None, **kw):
         device = device or get_default_device()
-        super().__init__(device)
+        super().__init__(device=device)
         self.cfg = cfg or BERTConfig(**kw)
         c = self.cfg
         gen = generator if generator is not None else device.generator
@@ -342,7 +344,8 @@ class BERT(model.Model):
         self.ln_emb = layer.LayerNorm(c.dim, eps=c.eps, device=device)
         self.drop = layer.Dropout(c.dropout, device=device)
         self.blocks = nn.ModuleList(
-            [_BERTBlock(c, device, gen) for _ in range(c.num_layers)])
+            [_BERTBlock(c, device=device, generator=gen)
+             for _ in range(c.num_layers)])
         self.pooler = layer.Linear(c.dim, c.dim, **kw)
         self.pool_act = layer.Tanh()
         self.classifier = (layer.Linear(c.num_labels, c.dim, **kw)

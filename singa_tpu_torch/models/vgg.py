@@ -29,7 +29,7 @@ class VGG(Classifier):
                  batch_norm: bool = True, *, in_channels: int = 3,
                  device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         kw = dict(device=self.device, generator=generator)
         blocks, width = [], in_channels
         for v in cfg:

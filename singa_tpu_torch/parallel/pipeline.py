@@ -296,15 +296,15 @@ def shard_stages(model, mesh) -> None:
             continue
         if mod.stages != S:
             warnings.warn(
-                f"PipelineStack: mesh 'pipe' axis is {S} but stages="
-                f"{mod.stages}; every rank keeps every block and runs them "
-                f"sequentially (set pipeline_stages to the mesh's pipe "
-                f"size)", stacklevel=3)
+                f"PipelineStack({mod.name}): mesh 'pipe' axis is {S} but "
+                f"stages={mod.stages}; every rank keeps every block and "
+                f"runs them sequentially (set pipeline_stages to the "
+                f"mesh's pipe size)", stacklevel=3)
             continue
         why = mod._structural_blocker()
         if why:
-            warnings.warn(f"PipelineStack running sequentially: {why}",
-                          stacklevel=3)
+            warnings.warn(f"PipelineStack({mod.name}) running "
+                          f"sequentially: {why}", stacklevel=3)
             continue
         k = len(mod) // S
         with torch.no_grad():

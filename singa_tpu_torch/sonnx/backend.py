@@ -1129,8 +1129,7 @@ class SingaRep(model_mod.Model):
                  init_inputs: Optional[Sequence] = None, name: str = "onnx"):
         if isinstance(device, str):
             device = create_device(device)
-        super().__init__(device)
-        self.name = name
+        super().__init__(name, device=device)
         self.proto_model = model_proto
         g = model_proto.graph
         if g is None:

@@ -54,7 +54,7 @@ class CharRNN(model.Model):
     def __init__(self, vocab: int, hidden: int = 128, embed: int = 64,
                  num_layers: int = 2, device: Optional[Device] = None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(device)
+        super().__init__(device=device)
         kw = dict(device=self.device, generator=generator)
         self.vocab = vocab
         self.embed = layer.Embedding(vocab, embed, **kw)

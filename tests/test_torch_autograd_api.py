@@ -324,7 +324,7 @@ class _Net(tlayer.Layer):
     export has an initializer beside the input."""
 
     def __init__(self, fn, shape):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.fn = fn
         self.w = self._new_param(shape)
         with torch.no_grad():

@@ -1649,7 +1649,7 @@ def _picker(device):
 
     class Picker(model.Model):
         def __init__(self):
-            super().__init__(device)
+            super().__init__(device=device)
             g = torch.Generator(device.torch_device).manual_seed(0)
             self.table = self._new_param((11, 8))
             with torch.no_grad():
@@ -1747,7 +1747,7 @@ def test_tensor_functions_on_the_card(cuda_device):
 
 # -- the native core on the card's host ----------------------------------------
 
-def _cifar_resnet18(dev, b):
+def _compiled_cifar_resnet18(dev, b):
     from singa_tpu_torch import models
     m = models.resnet18(device=dev,
                         generator=torch.Generator("cuda").manual_seed(0))
@@ -1768,7 +1768,7 @@ def test_native_loader_feeds_a_captured_cnn_step(cuda_device):
     ResNet-50's cell."""
     from singa_tpu_torch.utils.data import DataLoader
     b = 64
-    m, x0, y0 = _cifar_resnet18(cuda_device, b)
+    m, x0, y0 = _compiled_cifar_resnet18(cuda_device, b)
     for _ in range(3):                    # eager, warm-up, capture
         m.train_step(x0, y0)
     x, labels = kernel_check.native_set(3 * b, (32, 32, 3), seed=2)
@@ -1789,7 +1789,7 @@ def test_schedule_of_a_card_step(cuda_device):
     """schedule() of a captured CIFAR ResNet-18 step on the card: traced
     on demand over fake tensors, an order that respects the traced
     graph's dependencies, an arena beside the capture's pool."""
-    m, x, y = _cifar_resnet18(cuda_device, 32)
+    m, x, y = _compiled_cifar_resnet18(cuda_device, 32)
     for _ in range(3):
         m.train_step(x, y)
     g = m.get_graph("train")

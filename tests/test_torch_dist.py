@@ -103,7 +103,7 @@ FAULT_AT = %(fault_at)d
 
 class TinyBN(Classifier):
     def __init__(self):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.conv = layer.Conv2d(4, 3, 2, padding=1, device=CPU)
         self.bn = layer.BatchNorm2d(4, device=CPU)
         self.relu = layer.ReLU()

@@ -78,7 +78,7 @@ class Net(model.Model):
     a Linear to 4 classes."""
 
     def __init__(self):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.moe = layer.MoE(4, ffn_dim=16, capacity_factor=2.0, dim=8,
                              device=CPU)
         self.fc = layer.Linear(4, 8, device=CPU)
@@ -355,7 +355,7 @@ def test_expert_checkpoint_holds_full_shapes(world):
             assert np.array_equal(_slice(ck[n], spec, axes, i),
                                   r[f"net/d2e2/p/{n}"]), (n, i)
     cpu = tdevice.create_device("cpu")
-    m = model.Model(cpu)
+    m = model.Model(device=cpu)
     m.moe = layer.MoE(E, ffn_dim=H, capacity_factor=2.0, dim=D, device=cpu)
     m.fc = layer.Linear(C, D, device=cpu)
     m.load_states(str(out / "ep_ck.npz"))

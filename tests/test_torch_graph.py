@@ -81,7 +81,8 @@ def test_graph_reports_the_steps_ops_and_flops(fused):
     m.eval()
     m(ids)
     ge = m.get_graph("eval")
-    assert ge is not g and ge.name == "eval" and m.graph is ge
+    assert ge is not g and m.graph is ge
+    assert (g.name, ge.name) == (f"{m.name}.train", f"{m.name}.eval")
     fwd = 2 * (m.num_params() - 256 * 64) * B * T \
         + 4 * m.cfg.num_layers * m.cfg.dim * T * B * T
     assert abs(ge.flops() - fwd) <= 0.01 * fwd

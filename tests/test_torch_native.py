@@ -636,11 +636,15 @@ class _TSquareFwd(_TSquare):
         return a * a
 
 
-def test_native_candidate_follows_the_references_rule(cores):
+def test_native_candidate_follows_the_ports_tape_rule(cores):
     """native_fwd runs for f32 host tensors on the native device: with a
     hand-written backward also when a gradient is needed, without one
     only when none is; never for bf16, off the native device, or under
-    a trace."""
+    a trace.  A gradient is needed by the port's rule: torch's grad mode
+    and an input that requires one, whatever ``autograd.training`` says.
+    So a fwd-only op on such an input takes the torch path here, where
+    the reference, with ``training`` False, runs it natively (a stated
+    difference, held in the next test)."""
     x = torch.from_numpy(_f32(_rng(13), 6)).requires_grad_()
 
     def calls(op, t, native=True):
@@ -663,6 +667,63 @@ def test_native_candidate_follows_the_references_rule(cores):
     gm = make_fx(lambda t: tautograd.relu(tautograd.tanh(t)))(x.detach())
     assert tcore.stats["calls"] == 0
     assert "aten.tanh" in str(gm.graph)
+
+
+class _JSquareFwd(jautograd.Operator):
+    """x², fwd only, with a native forward through the reference's host
+    kernels (mul)."""
+
+    def fwd(self, a):
+        return a * a
+
+    def native_fwd(self, a):
+        return jcore.mul(a, a)
+
+
+def test_tape_switch_is_grad_mode_here_and_training_in_the_reference(
+        cores, monkeypatch):
+    """The stated difference in what switches the tape on.  With
+    ``autograd.training`` False (both packages' default) and torch's
+    grad mode on, the reference records nothing (``backward`` returns
+    []) and the port records a gradient; under ``torch.no_grad()``
+    neither records.  A fwd-only Operator on the native device: one
+    native call in the reference, none here with grad mode on (torch
+    autograd needs the torch forward), one under ``torch.no_grad()``."""
+    monkeypatch.setattr(tautograd, "training", False)
+    assert jautograd.training is False
+    x0 = _f32(_rng(14), 6)
+    jdev = jdevice.create_cpu_device(use_native=True)
+
+    def ref_x():
+        return jtensor.Tensor(data=x0, device=jdev, requires_grad=True,
+                              stores_grad=True)
+
+    def ref_grads():
+        jx = ref_x()
+        return jautograd.backward(jautograd.reduce_sum(jautograd.mul(jx, jx)))
+
+    def port_grads(x):
+        return tautograd.backward(tautograd.reduce_sum(tautograd.mul(x, x)))
+
+    x = torch.from_numpy(x0.copy()).requires_grad_()
+    assert ref_grads() == []
+    ((leaf, g),) = port_grads(x)
+    assert leaf is x
+    np.testing.assert_allclose(g.numpy(), 2 * x0, rtol=1e-6)
+    with torch.no_grad():
+        assert ref_grads() == [] and port_grads(x) == []
+
+    jcore.reset_stats()
+    jy = _JSquareFwd()(ref_x())
+    assert jcore.stats["calls"] == 1 and jy.creator is None
+    _native_default()
+    tcore.reset_stats()
+    y = _TSquareFwd()(x)
+    assert tcore.stats["calls"] == 0 and y.requires_grad
+    with torch.no_grad():
+        y = _TSquareFwd()(x)
+    assert tcore.stats["calls"] == 1 and not y.requires_grad
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy.data))
 
 
 # the nine ops the reference's CppCPU runs natively, on inputs that meet

@@ -222,6 +222,8 @@ def test_train_step_emits_step_and_execute_spans(tiny, tmp_path):
     assert names.count("graph.execute") == 2
     ex = [e for e in spans if e["name"] == "graph.execute"]
     assert [e["step"] for e in ex] == [0, 1]
-    assert all(e["graph"] == "llama.train" for e in ex)
+    # the model's own name, as the reference's f"{m.name}.{tag}"
+    assert tiny.name.startswith("llama")
+    assert all(e["graph"] == f"{tiny.name}.train" for e in ex)
     assert led.snapshot()["train_step"]["count"] == 2
 

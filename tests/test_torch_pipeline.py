@@ -214,7 +214,7 @@ class Blk(layer.Layer):
     """h -> tanh(h W + b + e): a block with one extra."""
 
     def __init__(self, i, d):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.fc = layer.Linear(d, d, device=CPU,
                                generator=torch.Generator().manual_seed(i))
 
@@ -640,7 +640,8 @@ def test_in_process_pipe_holds_and_catches_its_faults(case):
     cfg = tmodels.LlamaConfig(**{**vars(tmodels.LlamaConfig.tiny()),
                                  "num_layers": 4})
     g = torch.Generator().manual_seed(S * 10 + M)
-    blocks = [llama._LlamaBlock(cfg, tdevice.create_device("cpu"), g)
+    blocks = [llama._LlamaBlock(cfg, device=tdevice.create_device("cpu"),
+                                generator=g)
               for _ in range(4)]
     x, do = (torch.randn(8, T, cfg.dim, generator=g) for _ in range(2))
     want = kc.seq_run(blocks, x, do)

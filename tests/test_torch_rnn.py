@@ -132,7 +132,7 @@ def test_recurrent_layer_matches_reference(kind):
 
 class _TNet(tmodel.Model):
     def __init__(self):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         g = torch.Generator().manual_seed(0)
         kw = dict(device=CPU, generator=g)
         self.emb = tlayer.Embedding(37, 16, **kw)

@@ -334,7 +334,7 @@ class _RefTinyFFN(jmodel.Model):
 
 class _TinyFFN(tmodel.Model):
     def __init__(self):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.ln = tlayer.LayerNorm(8, device=CPU)
         self.fc1 = tlayer.Linear(16, 8, device=CPU)
         self.fc2 = tlayer.Linear(8, 16, device=CPU)
@@ -478,7 +478,7 @@ def test_gpt2_tied_head_is_one_initializer(port_exports):
 
 class _AttnNet(tmodel.Model):
     def __init__(self):
-        super().__init__(CPU)
+        super().__init__(device=CPU)
         self.attn = tlayer.MultiHeadAttention(
             2, 16, causal=True, device=CPU,
             generator=torch.Generator().manual_seed(0))

@@ -395,7 +395,7 @@ def test_executor_resumes_from_restored_slots(ref_arrays, ids):
 def test_compile_checks_parameters_and_eager_train_step(ref_arrays, ids):
     from singa_tpu_torch import model as tmodel
     with pytest.raises(ValueError, match="no parameters"):
-        tmodel.Model(tdevice.create_device("cpu")).compile([ids])
+        tmodel.Model(device=tdevice.create_device("cpu")).compile([ids])
     tm = _tmodel(ref_arrays)
     with pytest.raises(RuntimeError, match="optimizer"):
         tmodel.Model.train_one_batch(tm, torch.from_numpy(ids), None)
