@@ -387,7 +387,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
  29. timing  — each kernel, its plain version and the PyTorch call that
                computes the same function (scaled_dot_product_attention
                and its gradient: yardsticks the port never calls) at the
-               training shapes of base() and GPT-2, beside the card's
+               training shapes of base(), GPT-2 and Llama-3-8B (B=1,
+               T=2048, H=32, K=8), beside the card's
                bound, each kernel also held against its plain version on
                the timed inputs; the forward also at base()'s prefill
                shape and at BERT-base's (B=256, T=128, not causal).  The
@@ -400,14 +401,54 @@ Phases, each printing JSON lines; any failure exits non-zero:
                their bound counting the in-band pairs, their plain
                versions over eight heads at a time, and SDPA with the
                band as a boolean mask
-The phases run in this order, but for three parts that run in
+ 30. llama3_8b — Llama-3-8B at its published widths and 32 layers
+               (LlamaConfig.llama3_8b(), seed 0, remat and the fused
+               loss) in an interpreter of its own, alone on the card,
+               right after phase faults (this process's reserved and
+               allocated bytes printed before it starts):
+               generate() at B=1, P=1024, N=32 in bf16 on the captured
+               prefill and decode graphs (32 flash-forward launches a
+               call, counted on the card; call, prefill and decode ms;
+               the tokens held by the teacher-forced bf16 gate and
+               bitwise to an eager call's); then,
+               the sessions and their bf16 weights dropped, training
+               at B=1 x T=2048 with Adafactor's relative step through
+               set_optimizer / compile / train_step: three setup calls
+               (eager, warm-up, capture) and 10 timed replays with 64 /
+               32 / 32 launches of the three kernels a step, every loss
+               finite and the last below the first; the planner's bytes
+               for this model and optimizer against the parameter,
+               gradient and slot bytes the captured step holds (equal),
+               the peak allocated and reserved memory, step ms, tokens/s
+               and MFU
+ 31. examples — the port's counterparts of the reference's example
+               scripts (singa_tpu_torch.tools: train_mlp, resume_demo,
+               serve_demo, onnx_bert, onnx_gpt2, train_llama), each in
+               a fresh interpreter on the card with the reference's
+               documented command (EXAMPLE_LANES): the resume demo
+               killed at step 25 (exit 1), resumed, and run again
+               uninterrupted, the resumed run's losses and final loss
+               bitwise the uninterrupted one's; train_llama's plan of
+               8B (AdamW does not fit an H100), a small run with the
+               fused loss, Adafactor and 16 generated tokens, and one
+               through ZeRO-1 at --dp 1, their printed loss lines
+               parsed; the serve demo's programs captured.  The card
+               is split while the lanes run: each tool's process may
+               cache at most its cap (`_tool_cap`) and this process at
+               most what it could hold alone less EXAMPLES_ROOM_BYTES
+The phases run in this order, but for four parts that run in
 interpreters of their own beside others, so that their process starts
 and waits overlap work: phase ops's mp and chaos smokes (started before
-phase ops, read after phase beam) and phase net (started after phase
-disagg, read after phase tensor); phases hf, checkpoint and tensor run
-right after phase beam, before phase train.  The phase walls
-"ops_procs" and "net" are the waits for them.
-Then a line with the script's seconds, one {"kernels": [...]} line and,
+phase ops, read after phase beam), phase net (started after phase
+disagg, read after phase tensor) and phase examples (started after
+phase train_run, read after phase dist); phases hf, checkpoint and
+tensor run right after phase beam, before phase train; phase llama3_8b
+runs in an interpreter of its own, alone, right after phase faults.
+The phase walls "ops_procs", "net" and "examples" are the waits for
+the parts beside.
+Then a line with the script's seconds and the peak of the card's used
+memory in each phase (all processes, sampled by nvidia-smi every
+SMI_SAMPLE_MS ms), one {"kernels": [...]} line and,
 last, the device line.  Every launch count of the main paths is read
 from the counters the kernels advance on the card
 (flash_attention.device_launches), so replays of CUDA graphs are counted
@@ -422,6 +463,7 @@ reaps every child it starts, as the parts run beside others are reaped;
 every record it makes goes to a temporary store.
 """
 
+import atexit
 import dataclasses
 import gc
 import io
@@ -7033,7 +7075,8 @@ def attention_timing_rows(shape, b, t, h, k, d, causal, backward):
 def phase_timing():
     """Each kernel, its plain version and the PyTorch call computing the
     same function (a yardstick the port never calls), beside the card's
-    bound, at base()'s training shape and GPT-2's; the forward also at
+    bound, at the training shapes of base(), GPT-2 and Llama-3-8B
+    (B=1, T=2048, H=32, K=8); the forward also at
     base()'s prefill shape and at BERT-base's (B=256, T=128, not causal:
     a shape the route sends to the plain path, timed for the next
     decision on it); then mistral-w4096's window.  Each kernel is also
@@ -7043,7 +7086,8 @@ def phase_timing():
             ("prefill", B, P, 16, 8, 128, True, False),
             ("train", TB, P, 16, 8, 128, True, True),
             ("gpt2_train", *GPT2_TRAIN, 12, 12, 64, True, True),
-            ("bert", *BERT_TRAIN, 12, 12, 64, False, False)):
+            ("bert", *BERT_TRAIN, 12, 12, 64, False, False),
+            ("llama3_8b_train", 1, L8_T, 32, 8, 128, True, True)):
         rows += attention_timing_rows(shape, b, t, h, k, d, causal, backward)
     rows += window_timing_rows(_library)
     for r in rows:
@@ -7168,6 +7212,484 @@ def window_timing_rows(library):
     return rows
 
 
+# -- phase llama3_8b: Llama-3-8B at its published 32 layers ------------------
+
+L8_P, L8_N = 1024, 32      # generate(): B = 1, a 1024-token prompt, 32 new
+L8_T = 2048                # training: B = 1 x T = 2048
+L8_SETUP = 3               # eager, warm-up, capture (and its first replay)
+L8_TIMEOUT_S = 600.0
+L8_EXPECT = {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}
+
+
+def l8_generate(m, later):
+    """generate() at B=1, P=L8_P, N=L8_N with bf16 weights on the captured
+    prefill and decode graphs: the flash forward's launches counted on
+    the card at the warm-up call and at a replayed call, call, prefill
+    and decode ms, and the tokens held by the teacher-forced bf16 gate
+    (one forward of the prompt and tokens through the flash kernels)
+    and bitwise to an eager call's."""
+    from types import SimpleNamespace
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    cfg = m.cfg
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, L8_P))
+    kw = dict(max_new_tokens=L8_N, param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_device_launches()
+    _, first_s = _timed(lambda: m.generate(prompts, **kw))
+    warm = fa.device_launches()
+    _, capture_s = _timed(lambda: m.generate(prompts, **kw))
+    fa.reset_device_launches()                     # the main path's run
+    out, gen_s = _timed(lambda: m.generate(prompts, **kw))
+    launches = fa.device_launches()
+    graphs = m._gen_sessions[(1, L8_P, L8_P + L8_N, torch.bfloat16,
+                              (0.0, None, None, None))].graphs
+    prefill_ms = _median_ms(graphs["prefill"].replay)
+    toks = out[0, L8_P:]
+    held = SimpleNamespace(_params=m._gen_params[torch.bfloat16][1],
+                           _device=torch.device("cuda"))
+    gaps, agree = teacher_forced_gaps(m, held, [prompts[0]], [toks],
+                                      plain=False)
+    out_eager, eager_s = _timed(lambda: m.generate(prompts, use_graph=False,
+                                                   **kw))
+    expect = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    res = {"B": 1, "P": L8_P, "N": L8_N, "param_dtype": "bfloat16",
+           "captured": graphs["decode"].graph is not None,
+           "first_call_ms": first_s * 1e3,
+           "capture_call_ms": capture_s * 1e3,
+           "generate_ms": gen_s * 1e3, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": (gen_s * 1e3 - prefill_ms) / (L8_N - 1),
+           "tokens_per_s": L8_N / gen_s,
+           "warm_launches": warm, "launches": launches,
+           "expected_launches": expect, "tokens": toks.tolist(),
+           "eager_generate_ms": eager_s * 1e3,
+           "tokens_equal_eager": bool((out == out_eager).all()),
+           "bf16_weight_bytes": sum(t.numel() * t.element_size()
+                                    for t in held._params.values()),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "teacher_forced_bf16": {
+               "limit": SERVE_BF16_GAP,
+               **_gap_summary(gaps, agree, SERVE_BF16_GAP)}}
+    later(res["captured"], "8B generate() did not run captured graphs")
+    later(warm == launches == expect, f"8B generate() ran the kernels "
+          f"{warm} (warm-up) and {launches} (captured) times, expected "
+          f"{expect}")
+    later(out.shape == (1, L8_P + L8_N) and (out[:, :L8_P] == prompts).all()
+          and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          "8B generate() returned a wrong shape, prompt or token")
+    later(res["tokens_equal_eager"], "8B generate()'s captured tokens "
+          "differ from an eager call's")
+    later(float(gaps.max()) <= SERVE_BF16_GAP, f"8B generate()'s tokens "
+          f"fail the teacher-forced check: {res['teacher_forced_bf16']}")
+    return res
+
+
+def l8_train(m, later):
+    """Training through set_optimizer / compile / train_step with
+    Adafactor's relative step (remat and the fused loss are in the
+    config), B=1 x T=L8_T: the three setup calls, then TRAIN_STEPS timed
+    replays on the one batch, each kernel's launches counted on the card
+    a step; the planner's bytes beside those the captured step holds,
+    the peak memory, step ms, tokens/s and MFU."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.models import Llama
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.parallel import planner
+
+    cfg = m.cfg
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, L8_T)).astype(np.int32), device="cuda")
+    plan = planner.plan_train_step(
+        lambda d: Llama(cfg, device=d), opt.Adafactor(),
+        ((torch.Size([1, L8_T]), torch.int32),), {"data": 1}, lower=False)
+    m.set_optimizer(opt.Adafactor())
+    m.compile([ids], is_train=True, use_graph=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, setup_s = [], []
+    for _ in range(L8_SETUP):
+        (_, loss), dt = _timed(lambda: m.train_step(ids))
+        losses.append(loss.item())
+        setup_s.append(dt)
+    g = m.get_graph("train")
+    fa.reset_device_launches()
+    times, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        before = fa.device_launches()
+        (_, loss), dt = _timed(lambda: m.train_step(ids))
+        losses.append(loss.item())
+        times.append(dt)
+        after = fa.device_launches()
+        per_step.append({k: after[k] - before[k] for k in fa.KERNELS})
+    launches = fa.device_launches()
+    params = m.get_params()
+    held = {"param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.values()),
+            "grad_bytes": sum(p.grad.numel() * p.grad.element_size()
+                              for p in params.values()
+                              if p.grad is not None),
+            "slot_bytes": sum(t.numel() * t.element_size()
+                              for s in m.optimizer._eager_state.values()
+                              for t in planner._leaves(s))}
+    planned = {"param_bytes": plan.param_bytes_per_device,
+               "grad_bytes": plan.grad_bytes_per_device,
+               "slot_bytes": plan.slot_bytes_per_device,
+               "per_device_state_bytes": plan.per_device_state_bytes}
+    step_s = sorted(times)[len(times) // 2]
+    flops = m.flops_per_token(L8_T) * L8_T
+    res = {"B": 1, "T": L8_T, "optimizer": "Adafactor() (relative step)",
+           "remat": cfg.remat, "fused_loss": cfg.fused_loss,
+           "captured": g.graph is not None, "capture_s": g.capture_seconds,
+           "graph_num_ops": g.num_ops, "graph_pool_bytes": g.pool_bytes,
+           "setup_call_s": setup_s, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3, "tokens_per_s": L8_T / step_s,
+           "flops_per_token": flops / L8_T, "flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "expected_per_step": L8_EXPECT,
+           "planned_bytes": planned, "held_bytes": held,
+           "held_state_bytes": sum(held.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "card_bytes": torch.cuda.get_device_properties(0).total_memory}
+    later(res["captured"], "the 8B train step did not run a captured graph")
+    later(all(s == L8_EXPECT for s in per_step), f"the 8B step launched "
+          f"{per_step}, expected {L8_EXPECT} each")
+    later(np.isfinite(losses).all(), f"non-finite 8B loss: {losses}")
+    later(losses[-1] < losses[0], f"the 8B loss did not fall: {losses}")
+    later(all(held[k] == planned[k] for k in held),
+          f"the 8B step holds {held}, the plan says {planned}")
+    return res
+
+
+def llama3_8b_child():
+    """Phase llama3_8b in a fresh interpreter (`phase_llama3_8b`), alone on
+    the card: uncut Llama-3-8B from seed 0 with remat and the fused loss,
+    generate() in bf16, then (the sessions and their bf16 weights
+    dropped) training.  Prints the phase's line; 1 if a check failed."""
+    from singa_tpu_torch.models import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    checks = []
+
+    def later(cond, msg):
+        checks.append((bool(cond), msg))
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), remat=True,
+                              fused_loss=True)
+    m, build_s = _timed(lambda: config_model(cfg))
+    built = torch.cuda.memory_allocated()
+    gen = l8_generate(m, later)
+    m._gen_sessions.clear()
+    m._gen_params.clear()
+    _free()
+    gen["allocated_after_drop_bytes"] = torch.cuda.memory_allocated()
+    train = l8_train(m, later)
+    emit({"phase": "llama3_8b", "card": smi_line(),
+          "config": "LlamaConfig.llama3_8b() (32 layers, published "
+                    "widths), remat=True, fused_loss=True",
+          "params": m.num_params(), "build_s": build_s,
+          "weights_allocated_bytes": built, "generate": gen,
+          "train": train, "phase_seconds": time.perf_counter() - t0})
+    bad = [msg for ok, msg in checks if not ok]
+    for msg in bad:
+        print(f"llama3_8b: {msg}", file=sys.stderr, flush=True)
+    return 1 if bad else 0
+
+
+def phase_llama3_8b():
+    """Llama-3-8B (`llama3_8b_child`) in an interpreter of its own while
+    this process holds what it printed just before: its line, printed
+    here once the child has ended; the launches of its two paths."""
+    emit({"phase": "llama3_8b", "parent_memory_reserved_bytes":
+          torch.cuda.memory_reserved(),
+          "parent_memory_allocated_bytes": torch.cuda.memory_allocated()})
+    child = _Beside([sys.executable, "-c",
+                     "import sys, chip_smoke as c; "
+                     "sys.exit(c.llama3_8b_child())"])
+    rc = child.wait(L8_TIMEOUT_S)
+    res = None
+    for line in child.out.splitlines():
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(obj, dict) and obj.get("phase") == "llama3_8b":
+            res = obj
+            emit({**obj, "process_seconds": child.seconds})
+    check(rc == 0 and res is not None, f"phase llama3_8b failed (rc {rc}): "
+          f"{child.out[-4000:]}")
+    return {"train": res["train"]["launches"],
+            "generate": res["generate"]["launches"]}
+
+
+# -- phase examples: the reference's entry points through the port's tools ----
+
+EXAMPLES_TIMEOUT_S = 600.0
+# the card split while the lanes run beside the main phases: a tool's
+# process may cache at most `_tool_cap(tool)` (its caching allocator's
+# cap), and this process at most what it could hold alone less
+# EXAMPLES_ROOM_BYTES, each lane's largest cap plus EXAMPLES_CONTEXT_BYTES
+# for what lies outside the allocator (the CUDA context, the libraries'
+# handles).  Without the split the phases beside (dist's ResNet-50
+# reserves 51.6 GB) can leave a tool no room for a stream.  On an NVIDIA
+# H100 80GB HBM3 at 700.00 W the small train_llama runs reserved up to
+# 4.68 GB, every other tool at most 0.18 GB, and a process's context
+# 0.55 GB.
+EXAMPLES_TOOL_BYTES = {"train_llama": 6 << 30}
+EXAMPLES_OTHER_TOOL_BYTES = 1 << 30
+EXAMPLES_CONTEXT_BYTES = 3 << 28
+# the period of the card's used-memory samples (`_UsedMemory`)
+SMI_SAMPLE_MS = 250
+# lanes of (tool, arguments, its exit code): the commands of each lane
+# run in order in one directory, the lanes side by side.  The reference's
+# documented commands (examples/README.md, the scripts' docstrings), and
+# the 60-step resume demo once more uninterrupted in a directory of its
+# own; the trainer's commands those its docstring gives for the card
+EXAMPLE_LANES = (
+    (("resume_demo", ("--steps", "60", "--crash-at", "25"), 1),
+     ("resume_demo", ("--steps", "60"), 0),
+     ("resume_demo", ("--steps", "60", "--ckpt-dir", "whole"), 0),
+     ("train_mlp", ("--epochs", "1"), 0)),
+    (("train_llama", ("--preset", "8b", "--plan"), 0),
+     ("train_llama", ("--preset", "small", "--steps", "5", "--fused-loss",
+                      "--opt", "adafactor", "--generate", "16"), 0),
+     ("train_llama", ("--preset", "small", "--steps", "5", "--dp", "1",
+                      "--zero1"), 0)),
+    (("serve_demo", (), 0),
+     ("onnx_bert", ("--compile",), 0),
+     ("onnx_gpt2", ("--steps", "4"), 0)),
+)
+
+
+def _tool_cap(name):
+    """The most the tool `name`'s caching allocator may hold on the card
+    while the lanes run."""
+    return EXAMPLES_TOOL_BYTES.get(name, EXAMPLES_OTHER_TOOL_BYTES)
+
+
+EXAMPLES_ROOM_BYTES = sum(max(_tool_cap(n) for n, _, _ in lane)
+                          + EXAMPLES_CONTEXT_BYTES for lane in EXAMPLE_LANES)
+
+
+def _jsonable(o):
+    return o.tolist() if hasattr(o, "tolist") else str(o)
+
+
+def tool_child():
+    """``python -c "import chip_smoke as c; c.tool_child()" TOOL ARGS...``:
+    the port's tool TOOL run as its command runs it (its main() over
+    ARGS), then what main() returned as one JSON line."""
+    import importlib
+    name, argv = sys.argv[1], sys.argv[2:]
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(_tool_cap(name) / total)
+    out = importlib.import_module(f"singa_tpu_torch.tools.{name}").main(argv)
+    print(json.dumps({"tool_result": out, "max_memory_reserved":
+                      torch.cuda.max_memory_reserved()}, default=_jsonable),
+          flush=True)
+
+
+def _run_tool(name, argv, cwd):
+    import re
+    t = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, "-c",
+                            "import chip_smoke as c; c.tool_child()", name,
+                            *argv], cwd=cwd, capture_output=True, text=True,
+                           timeout=EXAMPLES_TIMEOUT_S)
+        rc, out, err = p.returncode, p.stdout, p.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, out, err = None, e.stdout or "", e.stderr or ""
+    res = reserved = None
+    for line in out.splitlines():
+        if line.startswith('{"tool_result"'):
+            obj = json.loads(line)
+            res, reserved = obj["tool_result"], obj["max_memory_reserved"]
+    return {"tool": name, "argv": list(argv), "rc": rc,
+            "seconds": time.perf_counter() - t, "result": res,
+            "max_memory_reserved": reserved,
+            "loss_lines": [float(x) for x in re.findall(
+                r"^step\s+\d+:?\s+loss ([^\s]+)", out, re.M)],
+            "token_lines": re.findall(r"^generated (\d+) tokens", out,
+                                      re.M),
+            "tail": (out + err)[-1500:]}
+
+
+def examples_child(tmp):
+    """Phase examples in a fresh interpreter (`ExamplesBeside`): the lanes
+    of EXAMPLE_LANES, each in its own directory under `tmp`, each command
+    in a fresh interpreter on the card; their results and checks as the
+    phase's line.  1 if a check failed."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+
+    def lane(i):
+        cwd = Path(tmp) / f"lane{i}"
+        cwd.mkdir()
+        return [{**_run_tool(name, argv, cwd), "expect_rc": rc}
+                for name, argv, rc in EXAMPLE_LANES[i]]
+    with ThreadPoolExecutor(len(EXAMPLE_LANES)) as ex:
+        runs = [r for rs in ex.map(lane, range(len(EXAMPLE_LANES)))
+                for r in rs]
+    by = {}
+    for r in runs:
+        by.setdefault(r["tool"], []).append(r)
+    problems = [f"{r['tool']} {' '.join(r['argv'])}: rc {r['rc']}, expected "
+                f"{r['expect_rc']}: {r['tail']}" for r in runs
+                if r["rc"] != r["expect_rc"]]
+    crash, resumed, whole = by["resume_demo"]
+    resume = {}
+    if not problems:
+        a, b = resumed["result"], whole["result"]
+        resume = {"resumed_from": a["resumed_from"],
+                  "final_loss": a["final_loss"],
+                  "uninterrupted_final_loss": b["final_loss"],
+                  "bitwise": a["final_loss"] == b["final_loss"]
+                  and a["losses"] == b["losses"][-len(a["losses"]):]}
+        if not (resume["bitwise"] and a["resumed_from"] >= 0
+                and a["steps"] == 60 and b["resumed_from"] == -1):
+            problems.append(f"the resumed demo is not the uninterrupted "
+                            f"one: {resume}")
+        plan, small, zero1 = by["train_llama"]
+        if plan["result"]["fits"]["h100"]:
+            problems.append(f"8B under AdamW fits an H100: {plan['result']}")
+        for r in (small, zero1):
+            if len(r["loss_lines"]) != 5 or not np.isfinite(
+                    r["loss_lines"]).all() or r["loss_lines"] != [
+                    round(x, 4) for x in r["result"]["losses"]]:
+                problems.append(f"train_llama's loss lines: {r['tail']}")
+        if small["token_lines"] != ["16"] or len(
+                small["result"]["generated"]) != 16:
+            problems.append(f"train_llama's generated line: "
+                            f"{small['tail']}")
+        serve = by["serve_demo"][0]["result"]
+        if serve["captured"] != [1, 1] or any(
+                len(s) != 24 for s in serve["streams"]):
+            problems.append(f"serve_demo: captured {serve['captured']}, "
+                            f"stream lengths "
+                            f"{[len(s) for s in serve['streams']]}")
+        mlp = by["train_mlp"][0]["result"]["epochs"][0]["losses"]
+        if not np.isfinite(mlp).all():
+            problems.append(f"train_mlp's losses: {mlp}")
+    emit({"phase": "examples", "lanes": [[f"{n} {' '.join(a)}"
+                                          for n, a, _ in lane]
+                                         for lane in EXAMPLE_LANES],
+          "runs": [{k: v for k, v in r.items() if k != "tail"}
+                   for r in runs],
+          "resume": resume, "problems": problems,
+          "phase_seconds": time.perf_counter() - t0})
+    return 1 if problems else 0
+
+
+class _UsedMemory:
+    """The card's used memory as nvidia-smi samples it every
+    SMI_SAMPLE_MS ms (all processes, MiB), each sample with the time it
+    was read; `stop()` ends the sampler, which also ends with this
+    process."""
+
+    def __init__(self):
+        import ctypes
+        import signal
+        import threading
+        self.samples = []
+
+        def die_with_parent():
+            ctypes.CDLL(None).prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits", "-lms", str(SMI_SAMPLE_MS)],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+                preexec_fn=die_with_parent)
+        except OSError:
+            self.proc = None
+            return
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append((time.perf_counter(),
+                                     int(line.split()[0]) << 20))
+            except (ValueError, IndexError):
+                pass
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def peaks(self, spans):
+        """The peak bytes in each span (name -> (start, end)) that has
+        a sample, and over all samples."""
+        out = {name: max((b for t, b in self.samples if a <= t <= e),
+                         default=None) for name, (a, e) in spans.items()}
+        return {"by_phase": {k: v for k, v in out.items() if v is not None},
+                "all": max((b for _, b in self.samples), default=None),
+                "samples": len(self.samples)}
+
+
+class ExamplesBeside:
+    """Phase examples (`examples_child`) in an interpreter of its own,
+    started after phase train_run and read before phase timing: its
+    tools' processes overlap phases sonnx, rnn and dist (phase spmd's
+    caching allocator went past 57.4 GiB on an NVIDIA H100 80GB HBM3 at
+    700.00 W, so it runs after).  Until it ends this process's
+    caching allocator may hold at most what it could hold alone, less
+    EXAMPLES_ROOM_BYTES, the room of the lanes' capped tools.  Its line
+    is printed here when it has ended."""
+
+    def __init__(self):
+        self.total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.empty_cache()
+        self.reserved_at_start = torch.cuda.memory_reserved()
+        free = torch.cuda.mem_get_info()[0]
+        self.cap = free + self.reserved_at_start - EXAMPLES_ROOM_BYTES
+        torch.cuda.set_per_process_memory_fraction(self.cap / self.total)
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+        self.proc = _Beside([sys.executable, "-c",
+                             "import sys, chip_smoke as c; "
+                             "sys.exit(c.examples_child(sys.argv[1]))",
+                             str(self.tmp)])
+
+    def stop(self):
+        import shutil
+        self.proc.stop()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(EXAMPLES_TIMEOUT_S)
+        finally:
+            self.stop()
+        res = None
+        for line in self.proc.out.splitlines():
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(obj, dict) and obj.get("phase") == "examples":
+                res = obj
+                emit({**obj, "process_seconds": self.proc.seconds,
+                      "card_split": {
+                          "total_bytes": self.total,
+                          "this_process_cap_bytes": self.cap,
+                          "this_process_reserved_at_start_bytes":
+                              self.reserved_at_start,
+                          "tool_cap_bytes": {n: _tool_cap(n) for lane in
+                                             EXAMPLE_LANES for n, _, _ in
+                                             lane},
+                          "context_allowance_bytes": EXAMPLES_CONTEXT_BYTES}})
+        check(rc == 0 and res is not None, f"phase examples failed (rc "
+              f"{rc}): {(res or {}).get('problems')} "
+              f"{self.proc.out[-3000:]}")
+
+
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
     "flash_fwd": ("singa_tpu_torch/csrc/flash_fwd.cu",
@@ -7194,23 +7716,27 @@ def main():
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    wall = {}
+    wall, spans = {}, {}
 
     def timed_phase(name, fn, *args):
-        """fn(*args) with its wall seconds noted, then the card's cache
-        emptied for the next phase."""
+        """fn(*args) with its wall seconds and its span noted, then the
+        card's cache emptied for the next phase."""
         t = time.perf_counter()
         out = fn(*args)
-        wall[name] = time.perf_counter() - t
+        spans[name] = (t, time.perf_counter())
+        wall[name] = spans[name][1] - t
         gc.collect()
         torch.cuda.empty_cache()
         return out
 
     name = phase_card()
+    used = _UsedMemory()
+    atexit.register(used.stop)
     with tempfile.TemporaryDirectory() as tmp:
         faults = timed_phase("build", phase_build, Path(tmp))
         timed_phase("kernels", phase_kernels)
         timed_phase("faults", phase_faults, faults)
+    l8 = timed_phase("llama3_8b", phase_llama3_8b)
     gen_launches, m = timed_phase("slice", phase_slice)
     serve_launches, serve_requests, serve_ctx = timed_phase(
         "serve", phase_serve, m)
@@ -7244,17 +7770,22 @@ def main():
     timed_phase("native", phase_native)
     transformer = timed_phase("transformer", phase_transformer)
     train_run_launches = timed_phase("train_run", phase_train_run)
-    sonnx_launches = timed_phase("sonnx", phase_sonnx,
-                                 transformer["bert"]["step"])
-    rnn_launches = timed_phase("rnn", phase_rnn)
-    dist_llama, dist_cnn = timed_phase("dist", phase_dist)
+    examples = ExamplesBeside()
+    try:
+        sonnx_launches = timed_phase("sonnx", phase_sonnx,
+                                     transformer["bert"]["step"])
+        rnn_launches = timed_phase("rnn", phase_rnn)
+        dist_llama, dist_cnn = timed_phase("dist", phase_dist)
+        timed_phase("examples", examples.finish)
+    finally:
+        examples.stop()
     spmd_launches = timed_phase("spmd", phase_spmd)
     pipe_launches = timed_phase("pipe", phase_pipe)
     rows = timed_phase("timing", phase_timing)
     window_rows = {r["name"]: r for r in rows
                    if r["shape"] == "mistral_w4096"}
     shape_rows = {(r["shape"], r["name"]): r for r in rows
-                  if r["shape"] in ("gpt2_train", "bert")}
+                  if r["shape"] in ("gpt2_train", "bert", "llama3_8b_train")}
     kernels = []
     for r in rows:
         if r["shape"] != "train":
@@ -7339,6 +7870,12 @@ def main():
                      for case, n in spmd_launches["ring"].items()}}
         by_path["pipe"] = {case: n[r["name"]]
                            for case, n in pipe_launches.items()}
+        by_path["llama3_8b"] = {
+            "train": {"launches": l8["train"][r["name"]],
+                      "steps": TRAIN_STEPS,
+                      "per_step": l8["train"][r["name"]] / TRAIN_STEPS},
+            "generate": {"launches": l8["generate"][r["name"]],
+                         "calls": 1}}
 
         def at(row):
             return {key: row[key] for key in (
@@ -7357,8 +7894,10 @@ def main():
             "timed_by": r["timed_by"], "at_mistral_w4096": at_window,
             **{f"at_{sh}": at(row) for (sh, name), row in shape_rows.items()
                if name == r["name"]}})
+    used.stop()
     emit({"phase": "end", "script_seconds": time.perf_counter() - t0,
-          "phase_wall_s": wall, "clocks_after_timing": card_clocks()})
+          "phase_wall_s": wall, "card_used_bytes": used.peaks(spans),
+          "clocks_after_timing": card_clocks()})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

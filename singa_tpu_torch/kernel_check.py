@@ -63,7 +63,8 @@ __all__ = ["FLASH_CASES", "FLASH_FAULTS", "FAULT_ALSO_CASES", "O_ROW_RTOL",
 # pays (Mistral-7B's W = 4096 at T = 8192; 8 of its 32 heads, a group of
 # 4 as Mistral's, so the plain version fits), also with 128 queries
 # against the 8192 keys, where the band's lower edge falls inside a
-# 128-key tile
+# 128-key tile; and Llama-3-8B's training shape (32 heads over 8 K/V
+# heads, B=1 at T = 2048 causal)
 FLASH_CASES = {
     "mha_noncausal_d64": (2, 512, 512, 4, 4, 64, False, None),
     "mha_causal_d64": (2, 512, 512, 4, 4, 64, True, None),
@@ -83,6 +84,7 @@ FLASH_CASES = {
     "gpt2_prefill": (4, 512, 512, 12, 12, 64, True, None),
     "window4096_t8192": (1, 8192, 8192, 8, 2, 128, True, 4096),
     "window_decode_edge": (1, 128, 8192, 8, 2, 128, True, 4096),
+    "llama3_8b_train": (1, 2048, 2048, 32, 8, 128, True, None),
 }
 
 # Limits (readings in PERF.md).  o: the largest relative error of one

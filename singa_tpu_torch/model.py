@@ -457,6 +457,14 @@ class _StepExecutor:
         return outs
 
     def _dispatch(self, batch, name):
+        if self.is_train and not (self.device.type == "cuda"
+                                  and self.calls > 2):
+            # the last step's gradients (``param.grad``) go before the
+            # body makes new ones, and before a capture empties the
+            # cache: a step would otherwise hold two gradient sets at its
+            # peak.  A replay allocates nothing and keeps its pool's.
+            for p in self.param_tensors.values():
+                p.grad = None
         if self.calls == 0:
             outs, self.captured = record(name, lambda: self._run(batch))
             self._batch_spec = [(t.shape, t.dtype, t.device) for t in batch]

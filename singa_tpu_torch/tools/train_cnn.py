@@ -45,7 +45,7 @@ from ..utils import metrics
 from ..utils.data import DataLoader, synthetic_dataset
 
 __all__ = ["MODELS", "DATASETS", "dataset_arrays", "build_model",
-           "train_classifier", "evaluate", "main"]
+           "train_classifier", "evaluate", "setup_device", "main"]
 
 #: the reference's model table; each takes (classes, (H, W, C), kwargs)
 MODELS = {
@@ -112,19 +112,23 @@ def evaluate(model, x_test, y_test, batch_size: int) -> float:
     acc = metrics.Accuracy()
     for s in range(0, len(x_test) - batch_size + 1, batch_size):
         out = model(torch.from_numpy(x_test[s:s + batch_size]).to(dev))
-        acc.update(out.cpu().numpy(), y_test[s:s + batch_size])
+        acc.update(out.detach().float().cpu().numpy(),
+                   y_test[s:s + batch_size])
     return acc.value
 
 
 def train_classifier(model, args, x_train, y_train, x_test, y_test
                      ) -> Dict:
     """The reference's training loop: SGD(lr, momentum 0.9, weight decay
-    1e-4), compile once in graph mode, `train_step` a batch, evaluate
-    each epoch.  Returns what it printed."""
+    1e-4), compile once (in graph mode unless `args.graph` is False),
+    `train_step` a batch (bf16 images where `args.bf16`), evaluate each
+    epoch.  Returns what it printed."""
     dev = model.device.torch_device
+    dtype = torch.bfloat16 if getattr(args, "bf16", False) else None
     base = opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-4)
     model.set_optimizer(opt.DistOpt(base) if args.dist else base)
-    model.compile([x_train[:args.batch_size]], is_train=True, use_graph=True)
+    model.compile([x_train[:args.batch_size]], is_train=True,
+                  use_graph=getattr(args, "graph", True))
     world = parallel.mesh.process_count() if args.dist else 1
     rank = parallel.mesh.process_index() if args.dist else 0
     if args.batch_size % world:
@@ -142,11 +146,11 @@ def train_classifier(model, args, x_train, y_train, x_test, y_test
         tput.start()
         for step, (xb, yb) in enumerate(loader):
             out, loss = model.train_step(
-                torch.from_numpy(_at_rows(xb, rows, world)).to(dev),
+                torch.from_numpy(_at_rows(xb, rows, world)).to(dev, dtype),
                 torch.from_numpy(_at_rows(yb, rows, world)).to(dev))
             losses.append(loss.item())
             loss_m.update(losses[-1])
-            acc.update(out[rows].cpu().numpy(), yb)
+            acc.update(out[rows].detach().float().cpu().numpy(), yb)
             tput.update(len(xb) * world)
             if args.log_every and step % args.log_every == 0:
                 print(f"epoch {epoch} step {step:4d} loss {loss_m.value:.4f}"
@@ -200,18 +204,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    args = build_parser().parse_args(argv)
-    xt, yt, xe, ye, classes, shape = dataset_arrays(
-        args.dataset, args.data_dir, seed=args.seed)
+def setup_device(args):
+    """The device of `args.device`; with `args.dist`, after joining the
+    group and setting the data mesh (the rank's card on the card)."""
     cpu = args.device == "cpu"
     if args.dist:
         parallel.init_distributed(device="cpu" if cpu else None)
         parallel.set_mesh(parallel.data_parallel_mesh())
     if args.dist and parallel.distributed.is_initialized() and not cpu:
-        dev = device_mod.get_default_device()    # this rank's card
-    else:
-        dev = device_mod.create_device(args.device)
+        return device_mod.get_default_device()    # this rank's card
+    return device_mod.create_device(args.device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    args = build_parser().parse_args(argv)
+    xt, yt, xe, ye, classes, shape = dataset_arrays(
+        args.dataset, args.data_dir, seed=args.seed)
+    dev = setup_device(args)
     model = build_model(args.model, classes, shape, dev, args.seed)
     return train_classifier(model, args, xt, yt, xe, ye)
 

@@ -1830,3 +1830,49 @@ def test_native_cpu_leaves_a_card_step_as_it_was(cuda_device):
     finally:
         tdevice.set_default_device(None)
     assert native == plain
+
+
+# -- the example entry points (singa_tpu_torch.tools) -------------------------
+
+@pytest.mark.cuda
+def test_train_llama_command_trains_captured_and_generates(cuda_device,
+                                                           capsys):
+    """`train_llama --preset tiny --steps 3 --generate 4` on the card: the
+    third step is the captured one, the loss falls, four tokens."""
+    from singa_tpu_torch.tools import train_llama
+    out = train_llama.main(["--preset", "tiny", "--steps", "3",
+                            "--generate", "4"])
+    assert out["device"].startswith("cuda") and out["train_captured"]
+    assert np.isfinite(out["losses"]).all()
+    assert out["losses"][-1] < out["losses"][0]
+    assert len(out["generated"]) == 4
+    printed = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in printed if ln.startswith("step ")] \
+        == ["step 0", "step 1", "step 2"]
+
+
+@pytest.mark.cuda
+def test_resume_demo_crashes_and_resumes_bitwise_on_the_card(
+        cuda_device, tmp_path, monkeypatch):
+    """`resume_demo --crash-at 25` ends its process at step 25; the rerun
+    resumes from the newest commit and its losses and final loss are an
+    uninterrupted run's, bitwise."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from singa_tpu_torch.tools import resume_demo
+    root = Path(__file__).resolve().parents[1]
+    crash = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.tools.resume_demo",
+         "--crash-at", "25"], cwd=tmp_path, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root)), timeout=600)
+    assert crash.returncode == 1, crash.stderr[-2000:]
+    monkeypatch.chdir(tmp_path)
+    resumed = resume_demo.main([])
+    whole = resume_demo.main(["--ckpt-dir", "whole"])
+    assert resumed["device"].startswith("cuda")
+    assert resumed["resumed_from"] >= 0 and whole["resumed_from"] == -1
+    n = len(resumed["losses"])
+    assert resumed["losses"] == whole["losses"][-n:]
+    assert resumed["final_loss"] == whole["final_loss"]
